@@ -1,22 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 2PS-L path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's partitioning paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. env        the card (nvidia-smi name and power limit), torch and CUDA.
-2. build      every kernel of the path, compiled from ``src/`` with one
-              nvcc per source, all started together.
+2. build      every kernel (``edge_score``, ``hdrf_score``), compiled from
+              ``src/`` with one nvcc per source, all started together.
 3. kernels    each kernel against its plain torch version on the card, at
-              the main path's shapes plus ragged, zero-padded and tied
-              rows, flat and host-aware; CUDA-event timings.
-4. main_path  the port's CLI on an RMAT-21 stream (the user's entry point,
-              through ``MemmapEdgeStream``), k=32, with the kernels'
-              launch counters reset just before and read just after.
-5. hosted     the host-aware path (4 host groups, dcn_penalty 1.0).
-6. card_vs_cpu  the same run on the card and on the CPU: byte-equal.
-7. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
+              the paths' shapes plus ragged, zero-padded and tied rows,
+              flat and host-aware; device and CUDA-event timings.
+4. main_path  2PS-L through the port's CLI on an RMAT-19 stream (the
+              user's entry point, through ``MemmapEdgeStream``), k=32, with
+              the kernels' launch counters reset just before and read just
+              after.
+5. hosted     the host-aware 2PS-L path (RMAT-17, 4 host groups,
+              dcn_penalty 1.0).
+6. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-21 (``--scale``): one
+              ``hdrf_score`` launch per scoring chunk, no ``edge_score``.
+7. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
+              RMAT-18: one ``hdrf_score`` launch per non-empty 64-edge
+              micro-batch.
+8. hash       DBH, Grid and Random through the CLI at RMAT-21.
+9. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
+              (2PS-L at RMAT-16; 2PS-HDRF, HDRF and Greedy at RMAT-14);
+              the card's busy share profiled over the first 2^18 (2PS-L)
+              or 2^15 edges.
+10. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
               host sync, rounds skipped when nothing is pending) against
               running its k+1 rounds unconditionally.
 
@@ -46,7 +58,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; phase lines carry ``t_s``, the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -163,32 +181,143 @@ def device_ms_per_call(fn, reps: int = 100) -> float | None:
     return us / reps / 1e3 if us > 0 else None
 
 
-def time_edge_score(E: int) -> dict:
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    float32 operations over the float32 peak, whichever is larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def timed(fn, plain_fn) -> dict:
     """``ms``/``plain_ms``: device time per call (profiler); ``call_ms``/
     ``plain_call_ms``: wall time of one call between CUDA events, which on
     an idle card is the host's launch cost."""
-    from repro_torch.kernels.edge_score import (edge_score_choose,
-                                                edge_score_choose_ref)
-    args, _, _ = edge_score_inputs(E, seed=7, hosted=False, device="cuda")
-    call_ms = cuda_time_ms(lambda: edge_score_choose(*args))
-    plain_call_ms = cuda_time_ms(lambda: edge_score_choose_ref(*args))
-    kernel_ms = device_ms_per_call(lambda: edge_score_choose(*args))
-    plain_ms = device_ms_per_call(lambda: edge_score_choose_ref(*args))
+    call_ms = cuda_time_ms(fn)
+    plain_call_ms = cuda_time_ms(plain_fn)
+    kernel_ms = device_ms_per_call(fn)
+    plain_ms = device_ms_per_call(plain_fn)
     source = "profiler"
     if kernel_ms is None or plain_ms is None:
         kernel_ms, plain_ms, source = call_ms, plain_call_ms, "cuda_events"
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "ms_source": source,
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms}
+
+
+def time_edge_score(E: int) -> dict:
+    from repro_torch.kernels.edge_score import (edge_score_choose,
+                                                edge_score_choose_ref)
+    args, _, _ = edge_score_inputs(E, seed=7, hosted=False, device="cuda")
     # bytes each input read once, each output written once: 4 int32
     # operands + 4 one-byte flags + 2 int32 candidates in, int32 + float32
     # out; ~22 float32 operations per edge
-    nbytes = E * (4 * 4 + 4 * 1 + 2 * 4 + 4 + 4)
-    ops = E * 22
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return {"E": E, "ms": kernel_ms, "plain_ms": plain_ms,
-            "ms_source": source, "call_ms": call_ms,
-            "plain_call_ms": plain_call_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    return {"E": E, **timed(lambda: edge_score_choose(*args),
+                            lambda: edge_score_choose_ref(*args)),
+            **bound(E * (4 * 4 + 4 * 1 + 2 * 4 + 4 + 4), E * 22),
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# hdrf_score inputs: random rows, a zero-padded tail, all-zero flag rows
+# ---------------------------------------------------------------------------
+
+HDRF_LAM = 1.1
+
+
+def hdrf_inputs(E: int, k: int, seed: int, hosts: int, equal_sizes: bool,
+                device):
+    """Degrees, (E, k) flags and sizes as the chunk functions build them.
+    A tenth of the live rows have no replica anywhere; with
+    ``equal_sizes`` every partition of such a row scores the same, and the
+    kernel must pick partition 0."""
+    import torch
+    from repro_torch.core.scoring import host_any
+    rng = np.random.default_rng(seed)
+    du = rng.integers(1, 5000, E).astype(np.int32)
+    dv = rng.integers(1, 5000, E).astype(np.int32)
+    ru = rng.random((E, k)) < 0.3
+    rv = rng.random((E, k)) < 0.3
+    sizes = (np.full(k, 1000, np.int32) if equal_sizes
+             else rng.integers(0, 100_000, k).astype(np.int32))
+    n_pad = E // 10
+    live = E - n_pad
+    tie = rng.choice(live, size=live // 10, replace=False) if live else []
+    ru[tie], rv[tie] = False, False
+    for a in (du, dv, ru, rv):
+        a[live:] = 0
+    t = [torch.from_numpy(a).to(device) for a in (du, dv, ru, rv, sizes)]
+    host = ([host_any(t[2], hosts), host_any(t[3], hosts)] if hosts
+            else [])
+    return t, host, np.asarray(tie, np.int64)
+
+
+def check_hdrf_score(sizes, ks) -> dict:
+    """The CUDA kernel against its plain version on the card (and the
+    plain version on the card against the CPU), flat and host-aware
+    (4 hosts, penalty 0.7, where 4 divides k), HDRF and Greedy, random
+    and equal partition sizes: chosen equal, best bit-equal."""
+    import torch
+    from repro_torch.kernels.hdrf_score import hdrf_choose, hdrf_choose_ref
+    cases, max_err = [], 0.0
+    for E in sizes:
+        for k in ks:
+            for dw in (True, False):
+                for pen, hosts in ((0.0, 0), (0.7, 4)):
+                    if hosts and k % hosts:
+                        continue
+                    for eq in (False, True):
+                        args, host, tie = hdrf_inputs(
+                            E, k, seed=E + k, hosts=hosts, equal_sizes=eq,
+                            device="cuda")
+                        kw = dict(lam=HDRF_LAM, dcn_penalty=pen,
+                                  degree_weighted=dw)
+                        c_k, b_k = hdrf_choose(*args, *host, **kw)
+                        c_p, b_p = hdrf_choose_ref(*args, *host, **kw)
+                        cpu = [a.cpu() for a in args + host]
+                        c_c, b_c = hdrf_choose_ref(*cpu, **kw)
+                        torch.cuda.synchronize()
+                        c_k, b_k, c_p, b_p = (x.cpu() for x in
+                                              (c_k, b_k, c_p, b_p))
+                        mism = int((c_k != c_p).sum())
+                        bits_diff = int((b_k.view(torch.int32)
+                                         != b_p.view(torch.int32)).sum())
+                        cpu_diff = int((c_p != c_c).sum()) + int(
+                            (b_p.view(torch.int32)
+                             != b_c.view(torch.int32)).sum())
+                        ties_to_0 = (not eq) or bool((c_k[tie] == 0).all())
+                        err = float((b_k - b_p).abs().max()) if E else 0.0
+                        max_err = max(max_err, err)
+                        cases.append({
+                            "E": E, "k": k, "degree_weighted": dw,
+                            "dcn_penalty": pen, "equal_sizes": eq,
+                            "chosen_mismatches": mism,
+                            "best_bit_mismatches": bits_diff,
+                            "plain_card_vs_cpu_mismatches": cpu_diff,
+                            "tie_rows": len(tie) if eq else 0,
+                            "ties_to_partition_0": ties_to_0})
+                        if mism or bits_diff or cpu_diff or not ties_to_0:
+                            raise AssertionError(
+                                f"hdrf_score disagrees: {cases[-1]}")
+    return {"tolerance": "exact: chosen equal, best bit-equal",
+            "cases": len(cases),
+            "tie_rows": sum(c["tie_rows"] for c in cases),
+            "chosen_mismatches": 0, "best_bit_mismatches": 0,
+            "max_abs_err": max_err}
+
+
+def time_hdrf_score(E: int, k: int = 32) -> dict:
+    from repro_torch.kernels.hdrf_score import hdrf_choose, hdrf_choose_ref
+    args, _, _ = hdrf_inputs(E, k, seed=7, hosts=0, equal_sizes=False,
+                             device="cuda")
+    # bytes each input read once, each output written once: two int32
+    # degrees + 2k one-byte flags per edge and k int32 sizes in, int32 +
+    # float32 out; ~5 float32 operations per edge (theta, g) and ~3 per
+    # (edge, partition) (two adds, the compare)
+    return {"E": E, "k": k,
+            **timed(lambda: hdrf_choose(*args, lam=HDRF_LAM),
+                    lambda: hdrf_choose_ref(*args, lam=HDRF_LAM)),
+            **bound(E * (4 + 4 + 2 * k + 4 + 4) + 4 * k, E * (5 + 3 * k)),
             "library_ms": None}
 
 
@@ -197,11 +326,14 @@ def time_edge_score(E: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def write_graph(scale: int, tmp: str) -> tuple[str, int]:
-    from repro_torch.data import rmat_graph
-    edges = rmat_graph(scale, edge_factor=16, seed=0)
+    """The RMAT graph of ``scale`` as a binary edge list in ``tmp``, made
+    once per scale and reused by every phase."""
     path = os.path.join(tmp, f"rmat{scale}.bin")
-    np.ascontiguousarray(edges, dtype=np.uint32).tofile(path)
-    return path, len(edges)
+    if not os.path.exists(path):
+        from repro_torch.data import rmat_graph
+        edges = rmat_graph(scale, edge_factor=16, seed=0)
+        np.ascontiguousarray(edges, dtype=np.uint32).tofile(path)
+    return path, os.path.getsize(path) // 8
 
 
 def run_cli(argv) -> tuple[dict, object]:
@@ -214,39 +346,63 @@ def run_cli(argv) -> tuple[dict, object]:
 
 
 def check_run(report: dict, res, k: int, num_edges: int) -> dict:
+    """Every row in [0, k), sizes equal to the engine's and (for the specs
+    that enforce it) within the capacity, RF >= 1."""
     from repro_torch.core import capacity
     asg = np.asarray(res.assignment)
     if asg.shape != (num_edges,) or asg.min() < 0 or asg.max() >= k:
         raise AssertionError("assignment has rows outside [0, k)")
     sizes = np.bincount(asg, minlength=k)
     cap = capacity(num_edges, k, res.alpha)
-    if sizes.max() > cap or not np.array_equal(sizes,
-                                               res.quality.part_sizes):
-        raise AssertionError(f"sizes {sizes.max()} over capacity {cap} or "
-                             f"not the engine's")
+    if not np.array_equal(sizes, res.quality.part_sizes):
+        raise AssertionError("sizes are not the engine's")
+    if res.spec.enforces_capacity and sizes.max() > cap:
+        raise AssertionError(f"size {sizes.max()} over capacity {cap}")
     if not report["replication_factor"] >= 1.0:
         raise AssertionError("replication factor below 1")
-    return {"max_size": int(sizes.max()), "capacity": cap}
+    return {"max_size": int(sizes.max()), "capacity": cap,
+            "capacity_enforced": res.spec.enforces_capacity}
+
+
+def counters() -> dict:
+    """Every kernel's launch counter, by kernel name."""
+    from repro_torch.kernels import edge_score, hdrf_score
+    return {"edge_score": edge_score.launches,
+            "hdrf_score": hdrf_score.launches}
+
+
+def counted(fn):
+    """Run ``fn`` with every launch counter set to 0 just before it;
+    returns (its result, the counts just after, its wall seconds)."""
+    cs = counters()
+    for c in cs.values():
+        c.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    return out, {name: c.count for name, c in cs.items()}, wall
+
+
+def expect_launches(counts: dict, expected: dict, what: str) -> None:
+    if counts != expected:
+        raise AssertionError(f"{what}: launches {counts}, expected "
+                             f"{expected}")
 
 
 def main_path(scale: int, tmp: str, k: int = 32) -> dict:
     from repro_torch.core import spec_for
-    from repro_torch.kernels.edge_score import launches
     t0 = time.perf_counter()
     path, E = write_graph(scale, tmp)
     gen_s = time.perf_counter() - t0
     chunk = spec_for("2psl").chunk_size
-    launches.reset()
-    t0 = time.perf_counter()
-    report, res = run_cli(["--input", path, "--k", str(k),
-                           "--out", os.path.join(tmp, "assign.bin")])
-    wall = time.perf_counter() - t0
-    n_launch = launches.count
+    (report, res), counts, wall = counted(lambda: run_cli(
+        ["--input", path, "--k", str(k),
+         "--out", os.path.join(tmp, "assign.bin")]))
+    n_launch = counts["edge_score"]
     checks = check_run(report, res, k, E)
     chunks = -(-E // chunk)
-    if n_launch != chunks:
-        raise AssertionError(f"edge_score launched {n_launch} times, "
-                             f"expected one per scoring chunk ({chunks})")
+    expect_launches(counts, {"edge_score": chunks, "hdrf_score": 0},
+                    "2PS-L main path (one edge_score per scoring chunk)")
     timings = report["timings_s"]
     return {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
             "edges": E, "vertices": report["vertices"], "k": k,
@@ -262,19 +418,15 @@ def main_path(scale: int, tmp: str, k: int = 32) -> dict:
 
 def hosted_path(scale: int, tmp: str, k: int = 32) -> dict:
     from repro_torch.core import spec_for
-    from repro_torch.kernels.edge_score import launches
     path, E = write_graph(scale, tmp)
-    launches.reset()
-    t0 = time.perf_counter()
-    report, res = run_cli(["--input", path, "--k", str(k), "--hosts", "4",
-                           "--dcn-penalty", "1.0"])
-    wall = time.perf_counter() - t0
-    n_launch = launches.count
+    (report, res), counts, wall = counted(lambda: run_cli(
+        ["--input", path, "--k", str(k), "--hosts", "4",
+         "--dcn-penalty", "1.0"]))
+    n_launch = counts["edge_score"]
     checks = check_run(report, res, k, E)
     chunks = -(-E // spec_for("2psl").chunk_size)
-    if n_launch != chunks:
-        raise AssertionError(f"hosted: {n_launch} launches for {chunks} "
-                             f"scoring chunks")
+    expect_launches(counts, {"edge_score": chunks, "hdrf_score": 0},
+                    "hosted 2PS-L")
     if not 1.0 <= report["cross_host_rf"] <= report["replication_factor"]:
         raise AssertionError("cross-host RF outside [1, RF]")
     return {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
@@ -285,9 +437,86 @@ def hosted_path(scale: int, tmp: str, k: int = 32) -> dict:
             "edge_score_launches": n_launch, **checks}
 
 
-def device_busy_share(fn) -> float | None:
+def path_line(scale, E, k, report, wall, counts, checks, **extra) -> dict:
+    timings = report["timings_s"]
+    return {"algorithm": report["algorithm"],
+            "graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
+            "edges": E, "k": k, **extra, "wall_s": wall,
+            "edges_per_s": E / wall, "timings_s": timings,
+            "replication_factor": report["replication_factor"],
+            "alpha_measured": report["alpha_measured"],
+            "launches": counts, **checks}
+
+
+def two_ps_hdrf_path(scale: int, tmp: str, k: int = 32) -> dict:
+    """2PS-HDRF through the CLI: 2PS-L's Phase 1 and pre-partitioning, then
+    HDRF over all k partitions with one hdrf_score launch per chunk."""
+    from repro_torch.core import spec_for
+    path, E = write_graph(scale, tmp)
+    chunks = -(-E // spec_for("2ps-hdrf").chunk_size)
+    (report, res), counts, wall = counted(lambda: run_cli(
+        ["--input", path, "--k", str(k), "--algorithm", "2ps-hdrf",
+         "--out", os.path.join(tmp, "assign_2ps_hdrf.bin")]))
+    checks = check_run(report, res, k, E)
+    expect_launches(counts, {"edge_score": 0, "hdrf_score": chunks},
+                    "2PS-HDRF (one hdrf_score per scoring chunk)")
+    return path_line(scale, E, k, report, wall, counts, checks,
+                     scoring_chunks=chunks,
+                     prepartition_ratio=report["prepartition_ratio"])
+
+
+def hdrf_launches(E: int, chunk: int, sub: int = 64) -> int:
+    """One launch per micro-batch that holds a valid row: the engine skips
+    the all-padding micro-batches of the last chunk."""
+    return sum(-(-min(chunk, E - lo) // sub) for lo in range(0, E, chunk))
+
+
+def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
+    """HDRF, Greedy and host-aware HDRF through the CLI.  Each 64-edge
+    micro-batch is a few dozen eager launches; at RMAT-18 that is ~61,500
+    micro-batches per run (a minute or two each), which is why this phase
+    runs below the 2PS-HDRF path's scale."""
+    path, E = write_graph(scale, tmp)
+    chunk = 1 << 16                     # the CLI's --chunk-size default
+    want = hdrf_launches(E, chunk)
+    runs = {}
+    for name, extra in (("hdrf", []), ("greedy", []),
+                        ("hdrf_hosted", ["--hosts", "4",
+                                         "--dcn-penalty", "1.0"])):
+        algo = name.split("_")[0]
+        (report, res), counts, wall = counted(lambda: run_cli(
+            ["--input", path, "--k", str(k), "--algorithm", algo, *extra]))
+        checks = check_run(report, res, k, E)
+        expect_launches(counts, {"edge_score": 0, "hdrf_score": want},
+                        f"{name} (one hdrf_score per non-empty 64-edge "
+                        f"micro-batch)")
+        runs[name] = path_line(scale, E, k, report, wall, counts, checks,
+                               micro_batches=want)
+        if extra:
+            runs[name]["cross_host_rf"] = report["cross_host_rf"]
+    return {"why_reduced": "64-edge micro-batches of a few dozen eager "
+                           "launches each: ~61,500 per run at RMAT-18",
+            **runs}
+
+
+def hash_paths(scale: int, tmp: str, k: int = 32) -> dict:
+    """DBH, Grid and Random through the CLI: hashing on the card, the bits
+    and sizes folded on the host; no kernel of the port runs."""
+    path, E = write_graph(scale, tmp)
+    runs = {}
+    for algo in ("dbh", "grid", "random"):
+        (report, res), counts, wall = counted(lambda: run_cli(
+            ["--input", path, "--k", str(k), "--algorithm", algo]))
+        checks = check_run(report, res, k, E)
+        expect_launches(counts, {"edge_score": 0, "hdrf_score": 0}, algo)
+        runs[algo] = path_line(scale, E, k, report, wall, counts, checks)
+    return runs
+
+
+def device_busy(fn) -> tuple[float | None, int]:
     """Share of a run's wall time the card spent in kernels (the summed
-    kernel durations torch.profiler records); None when it records none."""
+    kernel durations torch.profiler records; None when it records none),
+    and the number of kernels it ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -297,16 +526,21 @@ def device_busy_share(fn) -> float | None:
         fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    busy = sum(e.device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CUDA)
-    return busy / wall_us if busy > 0 else None
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels)
+    return (busy / wall_us if busy > 0 else None), len(kernels)
 
 
-def card_vs_cpu(scale: int, k: int = 32) -> dict:
+def card_vs_cpu(scale: int, name: str = "2psl", k: int = 32,
+                busy_edges: int | None = None) -> dict:
+    """The same run on the card and on the CPU, byte-equal; then the
+    card's busy share in a profiled run over the first ``busy_edges``
+    edges (all when None: profiling every launch of a long micro-batch
+    loop costs more than the run)."""
     from repro_torch.core import InMemoryEdgeStream, run_spec, spec_for
     from repro_torch.data import rmat_graph
     edges = rmat_graph(scale, edge_factor=16, seed=0)
-    spec = spec_for("2psl")
+    spec = spec_for(name)
     out = {}
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -319,11 +553,15 @@ def card_vs_cpu(scale: int, k: int = 32) -> dict:
               and a.quality.balance == b.quality.balance
               and np.array_equal(a.quality.part_sizes, b.quality.part_sizes))
     if mism or not same_q:
-        raise AssertionError(f"card vs cpu: {mism} assignment mismatches, "
-                             f"quality equal: {same_q}")
-    busy = device_busy_share(
-        lambda: run_spec(spec, InMemoryEdgeStream(edges), k, device="cuda"))
-    return {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
+        raise AssertionError(f"card vs cpu ({name}): {mism} assignment "
+                             f"mismatches, quality equal: {same_q}")
+    window = edges[:busy_edges]
+    busy, n_kernels = device_busy(
+        lambda: run_spec(spec, InMemoryEdgeStream(window), k, device="cuda"))
+    return {"algorithm": name, "chunk_size": spec.chunk_size,
+            "busy_share_edges": len(window),
+            "device_kernels_profiled": n_kernels,
+            "graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
             "edges": len(edges), "k": k, "assignment_mismatches": mism,
             "replication_factor": a.quality.replication_factor,
             "balance": a.quality.balance, **out,
@@ -366,7 +604,9 @@ def least_loaded_rounds(scale: int, k: int = 32) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21,
-                    help="RMAT scale of the main-path graph (default 21)")
+                    help="RMAT scale of the 2PS-HDRF and hash graphs "
+                         "(default 21); 2PS-L runs at min(scale, 19), the "
+                         "HDRF baselines at min(scale, 18)")
     args = ap.parse_args(argv)
 
     import torch
@@ -376,6 +616,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.edge_score import kernel as es_kernel
+    from repro_torch.kernels.hdrf_score import kernel as hs_kernel
 
     smi = nvidia_smi()
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
@@ -384,7 +625,8 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    cuda_build.build({es_kernel.NAME: es_kernel.SOURCE})
+    cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
+                      hs_kernel.NAME: hs_kernel.SOURCE})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": i["seconds"],
                           "ptxas": [ln for ln in i["log"].splitlines()
@@ -393,26 +635,52 @@ def main(argv=None) -> int:
 
     check = check_edge_score((1, 1000, 65536, 65537), (0.0, 0.5, 1.0))
     timing = time_edge_score(65536)
-    emit({"phase": "kernels", "edge_score": {**check, **timing}})
+    h_check = check_hdrf_score((1, 64, 65536, 65537), (2, 32, 200))
+    h_timing = time_hdrf_score(65536)
+    h_micro = time_hdrf_score(64)
+    emit({"phase": "kernels", "edge_score": {**check, **timing},
+          "hdrf_score": {**h_check, "chunk": h_timing,
+                         "micro_batch": h_micro}})
 
     with tempfile.TemporaryDirectory() as tmp:
-        mp = main_path(args.scale, tmp)
+        # the earlier 2PS-L paths run below the slice's 2PS-HDRF path
+        # (--scale) to keep the whole run well inside its time limit
+        mp = main_path(min(args.scale, 19), tmp)
         emit({"phase": "main_path", **mp})
-        emit({"phase": "hosted", **hosted_path(min(args.scale, 18), tmp)})
-    emit({"phase": "card_vs_cpu", **card_vs_cpu(min(args.scale, 16))})
+        emit({"phase": "hosted", **hosted_path(min(args.scale, 17), tmp)})
+        hp = two_ps_hdrf_path(args.scale, tmp)
+        emit({"phase": "two_ps_hdrf", **hp})
+        emit({"phase": "hdrf_baselines",
+              **hdrf_baselines(min(args.scale, 18), tmp)})
+        emit({"phase": "hash", **hash_paths(args.scale, tmp)})
+    emit({"phase": "card_vs_cpu",
+          **card_vs_cpu(min(args.scale, 16), busy_edges=1 << 18),
+          "hdrf_family": [card_vs_cpu(min(args.scale, 14), name,
+                                      busy_edges=1 << 15)
+                          for name in ("2ps-hdrf", "hdrf", "greedy")]})
     emit({"phase": "least_loaded_rounds",
-          **least_loaded_rounds(min(args.scale, 17))})
+          **least_loaded_rounds(min(args.scale, 16))})
 
-    main_launches = mp["edge_score_launches"]
-    if main_launches == 0:
-        raise AssertionError("the main path launched no edge_score kernel")
+    paths = {"edge_score": mp["edge_score_launches"],
+             "hdrf_score": hp["launches"]["hdrf_score"]}
+    for name, n in paths.items():
+        if n == 0:
+            raise AssertionError(f"the path launched no {name} kernel")
     emit({"kernels": [{
         "name": "edge_score", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_score/csrc/edge_score.cu",
         "replaces": "src/repro/kernels/edge_score/kernel.py:103",
-        "launches": main_launches, "max_abs_err": check["max_abs_err"],
+        "launches": paths["edge_score"], "max_abs_err": check["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None}, {
+        "name": "hdrf_score", "route": "cuda",
+        "source": "src/repro_torch/kernels/hdrf_score/csrc/hdrf_score.cu",
+        "replaces": "src/repro/kernels/hdrf_score/kernel.py:72",
+        "launches": paths["hdrf_score"],
+        "max_abs_err": h_check["max_abs_err"],
+        "ms": h_timing["ms"], "plain_ms": h_timing["plain_ms"],
+        "bound_ms": h_timing["bound_ms"], "bound_by": h_timing["bound_by"],
         "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,10 @@
-"""2PS-L in PyTorch: the port's counterpart of ``repro.core``.
+"""Edge partitioning in PyTorch: the port's counterpart of ``repro.core``.
 
 The same declarative ``PartitionerSpec``s, executed by one streaming engine
 (``run_spec``) whose device state lives in torch tensors — on the card by
-default, on the CPU when asked.  This slice ports 2PS-L (flat and
-host-aware); ``build_partitioner`` names the ROADMAP item for every other
-registered spec.
+default, on the CPU when asked.  Ported: 2PS-L and 2PS-HDRF (flat and
+host-aware), HDRF and Greedy, DBH, Grid and Random; ``build_partitioner``
+names the ROADMAP item for ``hep`` and ``buffered``.
 """
 from .clustering import (ClusteringResult, cluster_sequential,
                          default_max_vol, streaming_clustering)

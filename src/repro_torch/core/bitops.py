@@ -11,8 +11,9 @@ The hard part is the scatter-OR with duplicate indices: within one chunk
 many edges may set bits in the same word.  The reference sorts and
 segment-ORs with an associative scan; torch has neither that scan nor a
 scatter-OR, so ``set_`` sorts the (word, bit) keys, keeps each distinct key
-once, sums the distinct bits of a word in int64 (a sum of distinct powers of
-two IS their OR) and ORs that into the word.  Every step is exact and needs
+once, drops the bits already set and adds the rest into their words with
+one ``index_add_`` (a sum of distinct powers of two that are not yet set IS
+their OR, and never carries).  Every step is exact and needs
 no host synchronisation, on the CPU and on the card alike.
 """
 from __future__ import annotations
@@ -80,28 +81,20 @@ def set_(bm: torch.Tensor, v: torch.Tensor, p: torch.Tensor,
     word matrix ``bm`` (where the reference returns a new matrix, this
     updates ``bm`` and returns it).  ``mask`` disables individual updates.
     """
-    n_words = bm.shape[1]
-    word = v.to(torch.int64) * n_words + torch.div(
-        p.to(torch.int64), WORD_BITS, rounding_mode="floor")
-    key = word * WORD_BITS + p.to(torch.int64) % WORD_BITS
+    # key = word * 32 + bit, with word = v * n_words + p // 32
+    key = v.to(torch.int64) * (bm.shape[1] * WORD_BITS) + p.to(torch.int64)
     if mask is not None:
         key = torch.where(mask, key, -1)
     key, _ = torch.sort(key)
-    live = key >= 0
-    first = torch.ones_like(live)
-    first[1:] = key[1:] != key[:-1]
-    bit = torch.where(first & live, torch.ones_like(key) << (key & 31), 0)
-    word = torch.where(live, key >> 5, 0)
-    # segment id of each sorted entry's word; masked entries fall into
-    # word 0's segment with bit 0, which ORs nothing in
-    seg = torch.zeros_like(word)
-    seg[1:] = torch.cumsum(word[1:] != word[:-1], 0)
-    acc = torch.zeros_like(word).index_add_(0, seg, bit)
+    fresh = key >= 0
+    fresh[1:] &= key[1:] != key[:-1]
+    word = (key >> 5).clamp_min(0)          # masked keys read word 0, add 0
+    b = key & 31
     flat = bm.view(-1)
-    new = (flat[word].to(torch.int64) & 0xFFFFFFFF) | acc[seg]
-    new = torch.where(new >= 1 << 31, new - (1 << 32), new)
-    # every entry of one word writes the same value, so duplicates agree
-    flat[word] = new.to(torch.int32)
+    fresh &= ((flat[word] >> b) & 1) == 0
+    # bit 31 is the int32 sign bit
+    bit = torch.where(b == 31, -(1 << 31), torch.ones_like(b) << b)
+    flat.index_add_(0, word, torch.where(fresh, bit, 0).to(torch.int32))
     return bm
 
 

@@ -1,8 +1,10 @@
-"""The out-of-core streaming engine, in PyTorch (2PS-L slice).
+"""The out-of-core streaming engine, in PyTorch.
 
 ``run_spec`` streams an edge list through a partitioner's passes, exactly
 as the reference engine does, with the device state held in torch tensors
-on the run's ``device`` (the card by default).
+on the run's ``device`` (the card by default).  Ported partitioners: 2PS-L
+and 2PS-HDRF, the HDRF and Greedy baselines, and the DBH, Grid and Random
+hashes; ``hep`` and ``buffered`` raise ``NotImplementedError``.
 
 Pipeline model
 --------------
@@ -35,6 +37,7 @@ merging are not ported yet; ``run_spec`` raises if they are asked for.
 """
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -52,7 +55,8 @@ from .mapping import map_clusters_lpt
 from .metrics import (PartitionQuality, capacity,
                       cross_host_replication_factor, host_assignment,
                       quality_from_bitmatrix)
-from .specs import PartitionerSpec, SpecError, TwoPSLSpec
+from .specs import (DBHSpec, HDRFSpec, PartitionerSpec, SpecError,
+                    StatelessSpec, TwoPSLSpec)
 from .stream import EdgeStream, prefetch
 
 
@@ -186,6 +190,11 @@ class StreamingPartitioner:
 
     display_name: str = ""
 
+    def __init__(self, spec: PartitionerSpec, device: torch.device):
+        self.spec = spec
+        self.device = device
+        self.display_name = spec.display_name
+
     def _init_hierarchy(self, k: int):
         """Resolve the spec's ``host_groups``/``dcn_penalty`` against the
         run's k: sets ``self.num_hosts`` (0 when flat) and ``self.hosted``
@@ -212,25 +221,29 @@ class StreamingPartitioner:
         raise NotImplementedError
 
 
+def _kernel_backend(device: torch.device) -> str:
+    return "cuda" if device.type == "cuda" else "torch-cpu"
+
+
 # ---------------------------------------------------------------------------
-# 2PS-L
+# 2PS-L / 2PS-HDRF
 # ---------------------------------------------------------------------------
 
 class _TwoPSLPartitioner(StreamingPartitioner):
-    """2PS-L, flat and host-aware: degree pass, Phase-1 clustering, LPT
-    mapping, pre-partitioning (bits folded on the host), then
-    two-candidate scoring (bits folded on the device)."""
-
-    def __init__(self, spec: TwoPSLSpec, device: torch.device):
-        self.spec = spec
-        self.device = device
-        self.display_name = spec.display_name
+    """2PS-L and 2PS-HDRF, flat and host-aware: degree pass, Phase-1
+    clustering, LPT mapping, pre-partitioning (bits folded on the host),
+    then scoring (bits folded on the device) — two candidates per edge for
+    2PS-L, all k partitions (HDRF) for 2PS-HDRF."""
 
     def init_state(self, stream, k, timer, degrees):
         sp, dev = self.spec, self.device
         self.k, self.cap = k, capacity(stream.num_edges, k, sp.alpha)
         self._num_edges = stream.num_edges
         self._init_hierarchy(k)
+        # the 2-candidate scorer gathers host presence from an O(|V|*H)-bit
+        # per-HOST replica matrix; the k-way 2PS-HDRF scorer derives it
+        # from the replica rows it gathers anyway
+        self._track_hbits = self.hosted and sp.scoring == "2psl"
         if self.num_hosts:
             self._host_of_np = host_assignment(k, self.num_hosts)
         if degrees is None:
@@ -257,7 +270,7 @@ class _TwoPSLPartitioner(StreamingPartitioner):
         # pre-partitioning only WRITES replication state -> fold it on the
         # host in the writeback stage; the scoring pass uploads it once.
         self._bits_np = bitops.alloc_np(stream.num_vertices, k)
-        if self.hosted:
+        if self._track_hbits:
             self._hbits_np = bitops.alloc_np(stream.num_vertices,
                                              self.num_hosts)
 
@@ -266,7 +279,7 @@ class _TwoPSLPartitioner(StreamingPartitioner):
         st = {"sizes": torch.zeros((k,), dtype=torch.int32, device=dev),
               "d": put(degrees), "vol": put(clus.vol), "v2c": put(clus.v2c),
               "c2p": put(c2p)}
-        if self.hosted:
+        if self._track_hbits:
             st["host_of"] = put(self._host_of_np)
         return st
 
@@ -287,19 +300,27 @@ class _TwoPSLPartitioner(StreamingPartitioner):
         p = asg[m]
         bitops.set_np(self._bits_np, chunk[m, 0], p)
         bitops.set_np(self._bits_np, chunk[m, 1], p)
-        if self.hosted:
+        if self._track_hbits:
             h = self._host_of_np[p]
             bitops.set_np(self._hbits_np, chunk[m, 0], h)
             bitops.set_np(self._hbits_np, chunk[m, 1], h)
 
     def _upload_bits(self, st):
         st = {**st, "bits": words_to_torch(self._bits_np, self.device)}
-        if self.hosted:
+        if self._track_hbits:
             st["hbits"] = words_to_torch(self._hbits_np, self.device)
         return st
 
     def _score(self, st, pc):
-        if self.hosted:
+        sp = self.spec
+        if sp.scoring == "hdrf":
+            *_, asg = P._hdrf_remaining_chunk(
+                st["bits"], st["sizes"], st["d"], st["v2c"], st["c2p"],
+                pc.edges, pc.valid, k=self.k, cap=self.cap,
+                lam=sp.hdrf_lambda,
+                num_hosts=self.num_hosts if self.hosted else 0,
+                dcn_penalty=sp.dcn_penalty if self.hosted else 0.0)
+        elif self.hosted:
             *_, asg = P._score_chunk_hosted(
                 st["bits"], st["hbits"], st["sizes"], st["d"], st["vol"],
                 st["v2c"], st["c2p"], st["host_of"], pc.edges, pc.valid,
@@ -318,21 +339,126 @@ class _TwoPSLPartitioner(StreamingPartitioner):
             "max_vol": self._clus.max_vol,
             "cluster_passes": self.spec.cluster_passes,
             "part_volumes": np.asarray(self._part_vol),
-            "kernel_backend": ("cuda" if self.device.type == "cuda"
-                               else "torch-cpu"),
+            "kernel_backend": _kernel_backend(self.device),
         }
         return (words_to_numpy(state["bits"]), state["sizes"].cpu().numpy(),
                 extras)
 
 
+# ---------------------------------------------------------------------------
+# HDRF / Greedy
+# ---------------------------------------------------------------------------
+
+class _HDRFPartitioner(StreamingPartitioner):
+    """HDRF and PowerGraph Greedy: one pass of k-way scoring in 64-edge
+    micro-batches, with the bits, sizes and HDRF's streamed partial
+    degrees ``dpart`` on the device."""
+
+    def init_state(self, stream, k, timer, degrees):
+        self.k = k
+        self.cap = capacity(stream.num_edges, k, self.spec.alpha)
+        self._init_hierarchy(k)
+        dev = self.device
+        return {"bits": torch.zeros((stream.num_vertices, bitops.num_words(k)),
+                                    dtype=torch.int32, device=dev),
+                "sizes": torch.zeros((k,), dtype=torch.int32, device=dev),
+                "dpart": torch.zeros((stream.num_vertices,),
+                                     dtype=torch.int32, device=dev)}
+
+    def passes(self):
+        return [StreamPass("scoring", self._chunk)]
+
+    def _chunk(self, st, pc):
+        sp = self.spec
+        *_, asg = P._hdrf_chunk(
+            st["bits"], st["sizes"], st["dpart"], pc.edges, pc.valid,
+            k=self.k, cap=self.cap, lam=sp.lam, use_cap=sp.use_cap,
+            sub=sp.MICRO_BATCH, degree_weighted=sp.degree_weighted,
+            num_hosts=self.num_hosts if self.hosted else 0,
+            dcn_penalty=sp.dcn_penalty if self.hosted else 0.0, n=pc.n)
+        return st, asg
+
+    def finalize(self, state, pass_counts):
+        return (words_to_numpy(state["bits"]), state["sizes"].cpu().numpy(),
+                {"kernel_backend": _kernel_backend(self.device)})
+
+
+# ---------------------------------------------------------------------------
+# stateless hashing family (DBH / Grid / Random)
+# ---------------------------------------------------------------------------
+
+class _HashPartitioner(StreamingPartitioner):
+    """Shared driver for the per-edge hash partitioners: the chunk function
+    is a pure map on the device, and the bits and sizes accumulate on the
+    host in the writeback stage, overlapped with later chunks' hashing."""
+
+    phase = "hashing"
+
+    def init_state(self, stream, k, timer, degrees):
+        self.k = k
+        self._init_hierarchy(k)   # hashes never score, but host_groups
+        #                           still gates the cross-host RF metric
+        self._bits_np = bitops.alloc_np(stream.num_vertices, k)
+        self._sizes_np = np.zeros((k,), np.int64)
+        return {}
+
+    def passes(self):
+        return [StreamPass(self.phase, self._chunk,
+                           host_fold=self._fold_host)]
+
+    def _hash_chunk(self, st, pc):
+        raise NotImplementedError
+
+    def _chunk(self, st, pc):
+        return st, self._hash_chunk(st, pc)
+
+    def _fold_host(self, chunk, asg):
+        m = asg >= 0
+        p = asg[m]
+        bitops.set_np(self._bits_np, chunk[m, 0], p)
+        bitops.set_np(self._bits_np, chunk[m, 1], p)
+        self._sizes_np += np.bincount(p, minlength=self.k)
+
+    def finalize(self, state, pass_counts):
+        return self._bits_np, self._sizes_np, {}
+
+
+class _DBHPartitioner(_HashPartitioner):
+    def init_state(self, stream, k, timer, degrees):
+        if degrees is None:
+            degrees = compute_degrees_streaming(
+                stream, self.spec.chunk_size, device=self.device,
+                readahead=self.spec.pipeline_depth - 1)
+        st = super().init_state(stream, k, timer, degrees)
+        st["d"] = torch.from_numpy(np.asarray(degrees, np.int32)).to(
+            self.device)
+        timer.lap("degrees")
+        return st
+
+    def _hash_chunk(self, st, pc):
+        return P._dbh_chunk(st["d"], pc.edges, pc.valid, k=self.k)
+
+
+class _GridPartitioner(_HashPartitioner):
+    def init_state(self, stream, k, timer, degrees):
+        rows = math.isqrt(k)
+        while k % rows:
+            rows -= 1
+        self.rows, self.cols = rows, k // rows
+        return super().init_state(stream, k, timer, degrees)
+
+    def _hash_chunk(self, st, pc):
+        return P._grid_chunk(pc.edges, pc.valid, k=self.k, rows=self.rows,
+                             cols=self.cols)
+
+
+class _RandomPartitioner(_HashPartitioner):
+    def _hash_chunk(self, st, pc):
+        return P._random_hash_chunk(pc.edges, pc.valid, k=self.k)
+
+
 #: registry name -> the ROADMAP.md Queue 1 item that ports it
 _NOT_PORTED = {
-    "2ps-hdrf": "item 5 (2PS-HDRF and HDRF with the hdrf_score kernel)",
-    "hdrf": "item 5 (2PS-HDRF and HDRF with the hdrf_score kernel)",
-    "greedy": "item 5 (2PS-HDRF and HDRF with the hdrf_score kernel)",
-    "dbh": "item 6 (the hash partitioners)",
-    "grid": "item 6 (the hash partitioners)",
-    "random": "item 6 (the hash partitioners)",
     "hep": "item 9 (the remaining partitioner families)",
     "buffered": "item 9 (the remaining partitioner families)",
 }
@@ -340,10 +466,18 @@ _NOT_PORTED = {
 
 def build_partitioner(spec: PartitionerSpec,
                       device="cuda") -> StreamingPartitioner:
-    """Spec -> plug-in state machine for ``run_spec``.  Only 2PS-L is
-    ported; every other spec raises ``NotImplementedError``."""
-    if isinstance(spec, TwoPSLSpec) and spec.scoring == "2psl":
-        return _TwoPSLPartitioner(spec, torch.device(device))
+    """Spec -> plug-in state machine for ``run_spec``.  ``hep`` and
+    ``buffered`` are not ported yet and raise ``NotImplementedError``."""
+    device = torch.device(device)
+    if isinstance(spec, TwoPSLSpec):
+        return _TwoPSLPartitioner(spec, device)
+    if isinstance(spec, HDRFSpec):
+        return _HDRFPartitioner(spec, device)
+    if isinstance(spec, DBHSpec):
+        return _DBHPartitioner(spec, device)
+    if isinstance(spec, StatelessSpec):
+        return (_GridPartitioner if spec.variant == "grid"
+                else _RandomPartitioner)(spec, device)
     item = _NOT_PORTED.get(spec.algorithm, "its queue item")
     raise NotImplementedError(
         f"{spec.algorithm!r} is not ported to repro_torch yet: see "

@@ -1,10 +1,16 @@
-"""2PS-L Phase 2 — streaming partitioning (paper Algorithm 2), in torch.
+"""2PS-L Phase 2 — streaming partitioning (paper Algorithm 2), in torch,
+plus the chunk functions of the baselines the paper measures against.
 
 Bulk-synchronous chunked implementation of the three steps:
 
   Step 1  clusters -> partitions  (mapping.py, Graham LPT)
   Step 2  pre-partitioning        (_prepartition_core)
-  Step 3  linear 2-candidate scoring for remaining edges (_score_chunk)
+  Step 3  linear 2-candidate scoring for remaining edges (_score_chunk),
+          or k-way HDRF scoring for 2PS-HDRF (_hdrf_remaining_chunk)
+
+The baselines: HDRF / Greedy (_hdrf_chunk, 64-edge micro-batches) and the
+stateless hashes DBH, Grid and Random (_dbh_chunk, _grid_chunk,
+_random_hash_chunk).
 
 The hard balance cap ``|p| <= ceil(alpha*|E|/k)`` is enforced *exactly* even
 under vectorization via per-chunk prefix ranks: within a chunk, edges
@@ -26,10 +32,12 @@ import numpy as np
 import torch
 
 from . import bitops
-from .hashing import hash_mod
-# the module, not the function: the kernel package imports this package's
-# scoring module, so either may be imported first
+from .hashing import _mul_u32, hash_mod
+from .scoring import host_any
+# the modules, not the functions: the kernel packages import this
+# package's scoring module, so either side may be imported first
 from ..kernels.edge_score import ops as edge_score_ops
+from ..kernels.hdrf_score import ops as hdrf_score_ops
 
 
 # ---------------------------------------------------------------------------
@@ -93,11 +101,14 @@ def _fill_rounds(assignment, pending, sizes, cap, k):
 
 def _apply_bits(bits, edges, assignment):
     """Fold the chunk's assignment into the replication matrix, in place."""
-    assigned = assignment >= 0
-    vv = torch.cat([edges[:, 0], edges[:, 1]])
-    pp = torch.cat([assignment, assignment]).clamp_min(0)
-    mm = torch.cat([assigned, assigned])
-    return bitops.set_(bits, vv, pp, mask=mm)
+    return _apply_bits_uv(bits, torch.cat([edges[:, 0], edges[:, 1]]),
+                          assignment)
+
+
+def _apply_bits_uv(bits, uv, assignment):
+    """``_apply_bits`` for endpoints given as one run ``uv`` = [u..., v...]."""
+    a2 = assignment.repeat(2)
+    return bitops.set_(bits, uv, a2.clamp_min(0), mask=a2 >= 0)
 
 
 def _apply_host_bits(hbits, edges, assignment, host_of):
@@ -211,6 +222,133 @@ def _score_chunk_hosted(bits, hbits, sizes, d, vol, v2c, c2p, host_of,
     _apply_bits(bits, edges, assignment)
     _apply_host_bits(hbits, edges, assignment, host_of)
     return bits, hbits, sizes, assignment
+
+
+# ---------------------------------------------------------------------------
+# Baselines: HDRF k-way scoring, DBH, Grid, random hash
+# ---------------------------------------------------------------------------
+
+def _hdrf_choose_all(bits, parts, d_uv, uv, sizes, *, lam, num_hosts,
+                     dcn_penalty, degree_weighted=True):
+    """Pick the best of all k partitions (``parts`` = arange(k)) for E
+    edges whose endpoints come as one run ``uv`` = [u..., v...] with their
+    degrees ``d_uv``: one gather of the (2E, k) replica rows, then
+    ``hdrf_choose`` (the CUDA kernel on the card, its plain version on the
+    CPU).  Host presence, when hosted, is derived from the same rows
+    (``host_any``), so no host bit matrix is carried."""
+    E = uv.shape[0] // 2
+    rep = bitops.get(bits, uv[:, None], parts[None, :])
+    host_kw = {}
+    if dcn_penalty and num_hosts > 1:
+        hrep = host_any(rep, num_hosts)
+        host_kw = dict(hrep_u=hrep[:E], hrep_v=hrep[E:],
+                       dcn_penalty=dcn_penalty)
+    chosen, _ = hdrf_score_ops.hdrf_choose(
+        d_uv[:E], d_uv[E:], rep[:E], rep[E:], sizes, lam=lam,
+        degree_weighted=degree_weighted, **host_kw)
+    return chosen
+
+
+def _hdrf_chunk(bits, sizes, dpart, edges, valid, *, k, cap, lam, use_cap,
+                sub: int = 64, degree_weighted: bool = True,
+                num_hosts: int = 0, dcn_penalty: float = 0.0,
+                n: int | None = None):
+    """HDRF (or Greedy with ``degree_weighted=False``): score EVERY
+    partition for every edge, with HDRF's own streamed partial degrees
+    ``dpart`` — the O(|E|*k) cost the paper removes.
+
+    A Python loop over ``sub``-edge micro-batches stands for the
+    reference's ``lax.scan``; each micro-batch counts its endpoints into
+    ``dpart`` (duplicates accumulate, and the degrees are read after the
+    adds), chooses with one ``hdrf_choose`` launch, admits (with ``use_cap``
+    under the hard cap, else straight to ``sizes``) and folds the bits.
+    ``bits``, ``sizes`` and ``dpart`` are updated in place.
+
+    ``n`` (the chunk's valid row count, known on the host) skips the
+    micro-batches that hold only padding: they change nothing, so the
+    result is the same and a chunk of ``n`` rows launches
+    ``ceil(n / sub)`` kernels.  ``None`` runs every micro-batch.
+
+    Returns ``(bits, sizes, dpart, assignment)``."""
+    C = edges.shape[0]
+    assert C % sub == 0
+    hosted = bool(dcn_penalty) and num_hosts > 1
+    steps = C // sub if n is None else -(-n // sub)
+    parts = torch.arange(k, device=edges.device)
+    # row i: micro-batch i's endpoints as one run, its u's then its v's
+    uv_all = edges.reshape(C // sub, sub, 2).transpose(1, 2).reshape(
+        C // sub, 2 * sub)
+    m_all = valid.view(C // sub, sub)
+    w_all = m_all.to(torch.int32).repeat(1, 2)
+    out = []
+    for i in range(steps):
+        uv, m, w = uv_all[i], m_all[i], w_all[i]
+        dpart.index_add_(0, uv, w)
+        chosen = _hdrf_choose_all(
+            bits, parts, dpart[uv], uv, sizes, lam=lam,
+            num_hosts=num_hosts if hosted else 0,
+            dcn_penalty=dcn_penalty if hosted else 0.0,
+            degree_weighted=degree_weighted)
+        if use_cap:
+            ok, sizes = _ranked_admit(chosen, m, sizes, cap, k)
+            asg = torch.where(ok, chosen, -1).to(torch.int32)
+            asg, sizes = _least_loaded_rounds(asg, m & ~ok, sizes, cap, k)
+        else:
+            asg = torch.where(m, chosen, -1).to(torch.int32)
+            sizes.index_add_(0, chosen, w[:sub])     # padding rows add 0
+        _apply_bits_uv(bits, uv, asg)
+        out.append(asg)
+    if steps * sub < C:                  # the skipped all-padding tail
+        out.append(torch.full((C - steps * sub,), -1, dtype=torch.int32,
+                              device=edges.device))
+    return bits, sizes, dpart, torch.cat(out)
+
+
+def _hdrf_remaining_chunk(bits, sizes, d, v2c, c2p, edges, valid, *, k, cap,
+                          lam, num_hosts: int = 0, dcn_penalty: float = 0.0):
+    """2PS-HDRF step 3: HDRF scoring over ALL k partitions, with Phase 1's
+    true degrees, for the edges pre-partitioning left over — one
+    ``hdrf_choose`` launch per chunk.  ``bits`` and ``sizes`` are updated
+    in place.  Returns ``(bits, sizes, assignment)``."""
+    C = edges.shape[0]
+    u, v = edges[:, 0], edges[:, 1]
+    cu, cv = v2c[u], v2c[v]
+    skip = (cu == cv) | (c2p[cu] == c2p[cv])
+    todo = valid & ~skip
+    uv = torch.cat([u, v])
+    d_uv = d[uv]
+    chosen = _hdrf_choose_all(bits, torch.arange(k, device=edges.device),
+                              d_uv, uv, sizes, lam=lam,
+                              num_hosts=num_hosts, dcn_penalty=dcn_penalty)
+    assignment, sizes = _admit_with_fallback(sizes, chosen, todo,
+                                             d_uv[:C], d_uv[C:], u, v, k,
+                                             cap)
+    _apply_bits_uv(bits, uv, assignment)
+    return bits, sizes, assignment
+
+
+def _dbh_chunk(d, edges, valid, *, k):
+    """Degree-based hashing: hash the LOWER-degree endpoint (Xie et al.)."""
+    u, v = edges[:, 0], edges[:, 1]
+    lo = torch.where(d[u] <= d[v], u, v)
+    return torch.where(valid, hash_mod(lo, k), -1).to(torch.int32)
+
+
+def _grid_chunk(edges, valid, *, k, rows, cols):
+    """Grid (GraphBuilder-style 2D hash):
+    ``p = (h(u) % rows) * cols + h1(v) % cols``."""
+    u, v = edges[:, 0], edges[:, 1]
+    p = hash_mod(u, rows) * cols + hash_mod(v, cols, seed=1)
+    return torch.where(valid, p, -1).to(torch.int32)
+
+
+def _random_hash_chunk(edges, valid, *, k):
+    """Pure edge hashing: ``h(u * 0x9E3779B9 ^ v) % k`` with the product
+    wrapped at 32 bits, as the reference's uint32 arithmetic wraps."""
+    u = edges[:, 0].to(torch.int64) & 0xFFFFFFFF
+    v = edges[:, 1].to(torch.int64) & 0xFFFFFFFF
+    mixed = _mul_u32(u, 0x9E3779B9) ^ v
+    return torch.where(valid, hash_mod(mixed, k), -1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -10,4 +10,17 @@ Each subpackage follows the contract:
 
 Kernels:
   edge_score — 2PS-L two-candidate scoring (the paper's O(|E|) hot loop)
+  hdrf_score — HDRF / Greedy k-way scoring and first-index argmax (2PS-HDRF
+               step 3, and the HDRF and Greedy baselines' micro-batches)
 """
+
+
+class LaunchCounter:
+    """Number of kernel launches, incremented by a wrapper right where it
+    launches and nowhere else; ``reset`` before a run, read after it."""
+
+    def __init__(self):
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0

@@ -8,20 +8,9 @@ from __future__ import annotations
 
 import torch
 
+from .. import LaunchCounter
 from . import kernel
 from .ref import edge_score_choose_ref
-
-
-class LaunchCounter:
-    """Number of kernel launches, incremented by the wrapper right where it
-    launches and nowhere else; ``reset`` before a run, read after it."""
-
-    def __init__(self):
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
 
 launches = LaunchCounter()
 

@@ -1,8 +1,8 @@
-"""2PS-L CLI on the card — the paper's tool: partition a binary edge list
-out-of-core.
+"""Partitioning CLI on the card — the paper's tool: partition a binary edge
+list out-of-core.
 
   python -m repro_torch.launch.partition --input graph.bin --k 32 \\
-      --out assign.bin --json
+      --algorithm 2psl --out assign.bin --json
 
 Reads the paper's binary format (pairs of little-endian uint32 vertex ids),
 builds the ``PartitionerSpec`` for ``--algorithm``, and streams the graph
@@ -17,9 +17,10 @@ card raises instead of falling back), printing the paper's metrics.
 * ``--dcn-penalty P``     (with ``--hosts``) makes the scoring pass
                           hierarchy-aware (0 = flat scoring).
 
-Only ``--algorithm 2psl`` is ported.  The reference's artifact, plan,
-checkpoint, retry and trace flags come with the slices that port
-``artifact.py``, ``robust/`` and the profiler hook.
+``--algorithm`` takes the ported partitioners: 2PS-L and 2PS-HDRF (which
+also take ``--cluster-passes``), HDRF, Greedy, DBH, Grid and Random.  The
+reference's ``hep`` and ``buffered``, and its artifact, plan, checkpoint,
+retry and trace flags, come with the slices that port them.
 """
 from __future__ import annotations
 
@@ -29,13 +30,16 @@ import json
 from repro_torch.core import (MemmapEdgeStream, SpecError, resolve_device,
                               run_spec, spec_for)
 
+#: the registered names the port runs
+ALGORITHMS = ("2psl", "2ps-hdrf", "hdrf", "greedy", "dbh", "grid", "random")
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--input", required=True,
                     help="binary edge list (uint32 pairs)")
     ap.add_argument("--k", type=int, required=True)
-    ap.add_argument("--algorithm", default="2psl", choices=("2psl",))
+    ap.add_argument("--algorithm", default="2psl", choices=ALGORITHMS)
     ap.add_argument("--alpha", type=float, default=1.05)
     ap.add_argument("--cluster-passes", type=int, default=1)
     ap.add_argument("--chunk-size", type=int, default=1 << 16)
@@ -62,8 +66,9 @@ def main(argv=None):
                  "host group)")
     device = resolve_device(args.device)
 
-    overrides = {"alpha": args.alpha, "chunk_size": args.chunk_size,
-                 "cluster_passes": args.cluster_passes}
+    overrides = {"alpha": args.alpha, "chunk_size": args.chunk_size}
+    if args.algorithm in ("2psl", "2ps-hdrf"):
+        overrides["cluster_passes"] = args.cluster_passes
     if args.hosts is not None:
         overrides["host_groups"] = args.hosts
         overrides["dcn_penalty"] = args.dcn_penalty

@@ -111,6 +111,37 @@ def test_literal_source_form_is_not_bit_equal():
                 != want.view(np.int32)).sum()) == 0
 
 
+@pytest.mark.parametrize("dw", [True, False])
+@pytest.mark.parametrize("pen,hosts", [(0.0, 0), (0.7, 4)])
+def test_hdrf_score_bit_equal_to_jitted_reference(dw, pen, hosts):
+    """The k-way HDRF / Greedy score and its argmax, on 200,000 x 32 random
+    rows, against the jitted reference (``2 - θ``, ``(λ (max - s)) /
+    ((1 + max) - min)``, ``(g_u + g_v) + c_bal``)."""
+    rng = np.random.default_rng(3)
+    E, k = 200_000, 32
+    du, dv = (rng.integers(0, 5000, E).astype(np.int32) for _ in range(2))
+    ru, rv = (rng.random((E, k)) < 0.3 for _ in range(2))
+    sizes = rng.integers(0, 100_000, k).astype(np.int32)
+
+    def ref(du, dv, ru, rv, sizes):
+        kw = {}
+        if pen:
+            kw = dict(hrep_u=rscoring.host_any(ru, hosts),
+                      hrep_v=rscoring.host_any(rv, hosts), dcn_penalty=pen)
+        return rscoring.hdrf_score(du, dv, ru, rv, sizes, lam=1.1,
+                                   degree_weighted=dw, **kw)
+    want = np.asarray(jax.jit(ref)(du, dv, ru, rv, sizes))
+    t = [torch.from_numpy(a) for a in (du, dv, ru, rv, sizes)]
+    kw = {}
+    if pen:
+        kw = dict(hrep_u=scoring.host_any(t[2], hosts),
+                  hrep_v=scoring.host_any(t[3], hosts), dcn_penalty=pen)
+    got = scoring.hdrf_score(*t, lam=1.1, degree_weighted=dw, **kw).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+
+
 def test_host_affinity_penalty_matches_reference():
     rng = np.random.default_rng(2)
     hu, hv = (rng.integers(0, 2, 1000).astype(bool) for _ in range(2))

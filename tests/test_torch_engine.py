@@ -1,7 +1,8 @@
-"""The port's 2PS-L engine end to end against the reference: byte-equal
-assignments and equal quality at every pipeline depth, for several k, flat
-and host-aware; the CLI's ``--out`` file; and the port's independence from
-jax and the reference package."""
+"""The port's engine end to end against the reference: byte-equal
+assignments and equal quality for 2PS-L at every pipeline depth, for
+2PS-HDRF, HDRF, Greedy and the DBH, Grid and Random hashes, for several k,
+flat and host-aware; the CLI's ``--out`` file; and the port's independence
+from jax and the reference package."""
 import ast
 import json
 import os
@@ -21,10 +22,10 @@ ROOT = Path(__file__).resolve().parents[1]
 _REF_CACHE: dict = {}
 
 
-def _reference(graph_name, edges, k, **kw):
-    key = (graph_name, k, tuple(sorted(kw.items())))
+def _reference(graph_name, edges, k, name="2psl", **kw):
+    key = (graph_name, name, k, tuple(sorted(kw.items())))
     if key not in _REF_CACHE:
-        _REF_CACHE[key] = R.run_spec(R.spec_for("2psl", chunk_size=512, **kw),
+        _REF_CACHE[key] = R.run_spec(R.spec_for(name, chunk_size=512, **kw),
                                      R.InMemoryEdgeStream(edges), k)
     return _REF_CACHE[key]
 
@@ -36,8 +37,46 @@ def _assert_same(res, ref):
     assert res.quality.balance == ref.quality.balance
     np.testing.assert_array_equal(res.quality.part_sizes,
                                   ref.quality.part_sizes)
-    for key in ("prepartition_ratio", "num_clusters", "max_vol"):
-        assert res.extras[key] == ref.extras[key]
+    if res.spec.algorithm in ("2psl", "2ps-hdrf"):
+        for key in ("prepartition_ratio", "num_clusters", "max_vol"):
+            assert res.extras[key] == ref.extras[key]
+    if "cross_host_rf" in ref.extras:
+        assert res.extras["cross_host_rf"] == ref.extras["cross_host_rf"]
+        assert res.extras["num_hosts"] == ref.extras["num_hosts"]
+
+
+#: (registry name, spec overrides) of the ported baselines and variants
+_BASELINES = [("2ps-hdrf", {}), ("hdrf", {}), ("hdrf", {"use_cap": True}),
+              ("greedy", {}), ("greedy", {"use_cap": True}), ("dbh", {}),
+              ("grid", {}), ("random", {})]
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("name,kw", _BASELINES,
+                         ids=[n + "-cap" * bool(kw) for n, kw in _BASELINES])
+def test_baselines_byte_equal(name, kw, k, small_rmat):
+    ref = _reference("small_rmat", small_rmat, k, name, **kw)
+    res = T.run_spec(T.spec_for(name, chunk_size=512, **kw),
+                     T.InMemoryEdgeStream(small_rmat), k, device="cpu")
+    _assert_same(res, ref)
+    assert set(res.timings) == set(ref.timings)
+    if name in ("2ps-hdrf", "hdrf", "greedy"):
+        assert res.extras["kernel_backend"] == "torch-cpu"
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("name,kw", [
+    ("2ps-hdrf", {"dcn_penalty": 1.0}), ("hdrf", {"dcn_penalty": 1.0}),
+    ("greedy", {"dcn_penalty": 1.0}), ("dbh", {}), ("random", {})])
+def test_baselines_hosted_byte_equal(name, kw, k, small_planted):
+    """4 host groups: the stateful scorers with the host penalty; the
+    hashes with ``host_groups`` alone (only the cross-host RF changes)."""
+    kw = {"host_groups": 4, **kw}
+    ref = _reference("small_planted", small_planted, k, name, **kw)
+    res = T.run_spec(T.spec_for(name, chunk_size=512, **kw),
+                     T.InMemoryEdgeStream(small_planted), k, device="cpu")
+    _assert_same(res, ref)
+    assert res.extras["num_hosts"] == 4
 
 
 @pytest.mark.parametrize("graph", ["small_rmat", "small_planted"])
@@ -119,6 +158,49 @@ def test_cli_hosted_matches_reference_cli(small_planted, tmp_path, capsys):
     assert report["cross_host_rf"] == ref_report["cross_host_rf"]
 
 
+def test_cli_2ps_hdrf_out_byte_equal_to_reference_cli(small_rmat, tmp_path,
+                                                     capsys):
+    from repro.launch.partition import main as ref_main
+    from repro_torch.launch.partition import main as port_main
+    graph = tmp_path / "g.bin"
+    np.ascontiguousarray(small_rmat, dtype=np.uint32).tofile(graph)
+    common = ["--input", str(graph), "--k", "8", "--chunk-size", "512",
+              "--algorithm", "2ps-hdrf", "--cluster-passes", "2", "--json"]
+    ref_main(common + ["--out", str(tmp_path / "ref.bin")])
+    ref_report = json.loads(capsys.readouterr().out)
+    port_main(common + ["--out", str(tmp_path / "port.bin"),
+                        "--device", "cpu"])
+    report = json.loads(capsys.readouterr().out)
+    assert ((tmp_path / "port.bin").read_bytes()
+            == (tmp_path / "ref.bin").read_bytes())
+    for key in ("algorithm", "replication_factor", "alpha_measured",
+                "prepartition_ratio", "cluster_passes"):
+        assert report[key] == ref_report[key]
+
+
+@pytest.mark.parametrize("algorithm", ["hdrf", "greedy", "dbh", "grid",
+                                       "random"])
+def test_cli_runs_every_ported_algorithm(algorithm, small_rmat, tmp_path,
+                                         capsys):
+    """``--cluster-passes`` goes only to the 2PS specs (the others have no
+    such field), so e.g. ``--algorithm hdrf --chunk-size 1024`` runs and
+    writes what the reference CLI writes."""
+    from repro.launch.partition import main as ref_main
+    from repro_torch.launch.partition import main as port_main
+    graph = tmp_path / "g.bin"
+    np.ascontiguousarray(small_rmat, dtype=np.uint32).tofile(graph)
+    common = ["--input", str(graph), "--k", "8", "--chunk-size", "1024",
+              "--algorithm", algorithm, "--json"]
+    ref_main(common + ["--out", str(tmp_path / "ref.bin")])
+    ref_report = json.loads(capsys.readouterr().out)
+    port_main(common + ["--out", str(tmp_path / "port.bin"),
+                        "--device", "cpu"])
+    report = json.loads(capsys.readouterr().out)
+    assert ((tmp_path / "port.bin").read_bytes()
+            == (tmp_path / "ref.bin").read_bytes())
+    assert report["replication_factor"] == ref_report["replication_factor"]
+
+
 def test_run_spec_defaults_to_cuda_and_raises_without_it(small_rmat,
                                                          monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -130,7 +212,10 @@ def test_run_spec_defaults_to_cuda_and_raises_without_it(small_rmat,
         main(["--input", "unused.bin", "--k", "8"])
 
 
-@pytest.mark.parametrize("name", sorted(set(R.SPEC_REGISTRY) - {"2psl"}))
+@pytest.mark.parametrize("name", sorted(set(R.SPEC_REGISTRY)
+                                         - {"2psl", "2ps-hdrf", "hdrf",
+                                            "greedy", "dbh", "grid",
+                                            "random"}))
 def test_unported_specs_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.build_partitioner(T.spec_for(name), "cpu")

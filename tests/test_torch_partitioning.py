@@ -238,3 +238,125 @@ def test_pad_chunk_and_convert_round_trip(setup):
         np.testing.assert_array_equal(back[key], arr)
         assert back[key].dtype == (np.uint32 if key in ("bits", "hbits")
                                    else np.int32)
+
+
+# ---------------------------------------------------------------------------
+# baselines: 2PS-HDRF step 3, HDRF / Greedy micro-batches, the hashes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lo,n_valid,tight,hosts", [
+    (0, C, False, 0), (C, 77, False, 0), (0, 0, False, 0), (0, C, True, 0),
+    (2 * C, C, False, 2), (C, C, False, 4)])
+def test_hdrf_remaining_chunk(setup, lo, n_valid, tight, hosts):
+    state, cap = _state(setup, 11 * lo + n_valid + hosts, 0.5)
+    chunk, valid = _chunk(setup, lo, n_valid)
+    if tight:
+        cap = int(state["sizes"].max()) + 2
+    pen = 1.0 if hosts else 0.0
+    rb, rs, ra = RP._hdrf_remaining_chunk(
+        jnp.asarray(state["bits"]), jnp.asarray(state["sizes"]), state["d"],
+        state["v2c"], state["c2p"], jnp.asarray(chunk), jnp.asarray(valid),
+        k=K, cap=cap, lam=1.1, num_hosts=hosts, dcn_penalty=pen)
+    ts, tchunk, tvalid = _torch(state, chunk, valid)
+    bits, sizes, asg = TP._hdrf_remaining_chunk(
+        ts["bits"], ts["sizes"], ts["d"], ts["v2c"], ts["c2p"], tchunk,
+        tvalid, k=K, cap=cap, lam=1.1, num_hosts=hosts, dcn_penalty=pen)
+    np.testing.assert_array_equal(asg.numpy(), np.asarray(ra))
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(rs))
+    np.testing.assert_array_equal(convert.words_to_numpy(bits),
+                                  np.asarray(rb))
+    assert bits is ts["bits"] and sizes is ts["sizes"]    # in place
+    if tight:
+        assert _overflowed(state, chunk, valid, asg.numpy()) > 0
+
+
+@pytest.mark.parametrize("n_valid,use_cap,tight,dw,hosts,pass_n", [
+    (C, False, False, True, 0, True), (C, True, False, True, 0, True),
+    (C, True, True, True, 0, True), (100, False, False, True, 0, True),
+    (100, True, False, False, 0, False), (0, False, False, True, 0, True),
+    (C, False, False, False, 0, True), (C, False, False, True, 2, True),
+    (150, True, True, True, 4, True)])
+def test_hdrf_chunk(setup, n_valid, use_cap, tight, dw, hosts, pass_n,
+                    monkeypatch):
+    """HDRF / Greedy micro-batches against the reference's ``lax.scan``,
+    with and without the hard cap (tight: all but two partitions nearly
+    full, so the least-loaded rounds run), host-aware, and with the
+    all-padding micro-batches skipped (``n``)."""
+    state, cap = _state(setup, n_valid + 3 * hosts + use_cap, 0.3)
+    chunk, valid = _chunk(setup, C, n_valid)
+    if tight:
+        cap = int(state["sizes"].max()) + 3
+        state["sizes"][:K - 2] = cap - 1
+    rounds = []
+    fill = TP._fill_rounds
+    monkeypatch.setattr(TP, "_fill_rounds",
+                        lambda *a: rounds.append(1) or fill(*a))
+    V = len(state["d"])
+    dpart = np.random.default_rng(n_valid).integers(0, 20, V).astype(
+        np.int32)
+    kw = dict(k=K, cap=cap, lam=1.1, use_cap=use_cap, degree_weighted=dw,
+              num_hosts=hosts, dcn_penalty=1.0 if hosts else 0.0)
+    rb, rs, rd, ra = RP._hdrf_chunk(
+        jnp.asarray(state["bits"]), jnp.asarray(state["sizes"]),
+        jnp.asarray(dpart), jnp.asarray(chunk), jnp.asarray(valid), **kw)
+    ts, tchunk, tvalid = _torch(state, chunk, valid)
+    tdpart = torch.from_numpy(dpart.copy())
+    bits, sizes, dp, asg = TP._hdrf_chunk(
+        ts["bits"], ts["sizes"], tdpart, tchunk, tvalid,
+        n=n_valid if pass_n else None, **kw)
+    np.testing.assert_array_equal(asg.numpy(), np.asarray(ra))
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(rs))
+    np.testing.assert_array_equal(dp.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(convert.words_to_numpy(bits),
+                                  np.asarray(rb))
+    assert bits is ts["bits"] and sizes is ts["sizes"] and dp is tdpart
+    assert bool(rounds) == tight
+
+
+def _hash_chunk(setup, big_ids):
+    """A chunk of the test graph, or of random ids in [2^31, 2^32) (the
+    reference holds those as negative int32, the port as int64)."""
+    chunk, valid = _chunk(setup, C, 300)
+    if big_ids:
+        rng = np.random.default_rng(5)
+        ids = rng.integers(1 << 31, 1 << 32, (C, 2), dtype=np.int64)
+        return ids.astype(np.uint32).view(np.int32), ids, valid
+    return chunk, chunk.astype(np.int64), valid
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+def test_dbh_chunk(setup, k):
+    chunk, tchunk, valid = _hash_chunk(setup, False)
+    deg = setup[2]
+    ra = RP._dbh_chunk(jnp.asarray(deg), jnp.asarray(chunk),
+                       jnp.asarray(valid), k=k)
+    ta = TP._dbh_chunk(torch.from_numpy(deg), torch.from_numpy(tchunk),
+                       torch.from_numpy(valid), k=k)
+    assert ta.dtype == torch.int32
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ra))
+
+
+@pytest.mark.parametrize("k,big_ids", [(4, False), (8, True), (32, False),
+                                       (12, True)])
+def test_grid_chunk(setup, k, big_ids):
+    chunk, tchunk, valid = _hash_chunk(setup, big_ids)
+    rows = int(np.sqrt(k))
+    while k % rows:
+        rows -= 1
+    ra = RP._grid_chunk(jnp.asarray(chunk), jnp.asarray(valid), k=k,
+                        rows=rows, cols=k // rows)
+    ta = TP._grid_chunk(torch.from_numpy(tchunk), torch.from_numpy(valid),
+                        k=k, rows=rows, cols=k // rows)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ra))
+
+
+@pytest.mark.parametrize("k,big_ids", [(4, False), (8, True), (32, False),
+                                       (32, True)])
+def test_random_hash_chunk(setup, k, big_ids):
+    """``u * 0x9E3779B9`` wraps at 32 bits in the reference's uint32
+    arithmetic; the port's int64 product must wrap the same way."""
+    chunk, tchunk, valid = _hash_chunk(setup, big_ids)
+    ra = RP._random_hash_chunk(jnp.asarray(chunk), jnp.asarray(valid), k=k)
+    ta = TP._random_hash_chunk(torch.from_numpy(tchunk),
+                               torch.from_numpy(valid), k=k)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ra))
