@@ -12,11 +12,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 3. kernels    each kernel against its plain torch version on the card, at
               the paths' shapes plus ragged, zero-padded and tied rows,
               flat and host-aware; device and CUDA-event timings.
-4. main_path  2PS-L through the port's CLI on an RMAT-19 stream (the
+4. main_path  2PS-L through the port's CLI on an RMAT-20 stream (the
               user's entry point, through ``MemmapEdgeStream``), k=32, with
               the kernels' launch counters reset just before and read just
               after.
-5. hosted     the host-aware 2PS-L path (RMAT-17, 4 host groups,
+5. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
               dcn_penalty 1.0).
 6. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-21 (``--scale``): one
               ``hdrf_score`` launch per scoring chunk, no ``edge_score``.
@@ -30,7 +30,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               or 2^15 edges.
 10. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
               host sync, rounds skipped when nothing is pending) against
-              running its k+1 rounds unconditionally.
+              running its k+1 rounds unconditionally (2PS-L, RMAT-17).
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -605,8 +605,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21,
                     help="RMAT scale of the 2PS-HDRF and hash graphs "
-                         "(default 21); 2PS-L runs at min(scale, 19), the "
-                         "HDRF baselines at min(scale, 18)")
+                         "(default 21); 2PS-L runs at min(scale, 20), the "
+                         "hosted 2PS-L and HDRF baselines at min(scale, 18)")
     args = ap.parse_args(argv)
 
     import torch
@@ -643,11 +643,11 @@ def main(argv=None) -> int:
                          "micro_batch": h_micro}})
 
     with tempfile.TemporaryDirectory() as tmp:
-        # the earlier 2PS-L paths run below the slice's 2PS-HDRF path
-        # (--scale) to keep the whole run well inside its time limit
-        mp = main_path(min(args.scale, 19), tmp)
+        # the 2PS-L main path runs one scale below the slice's 2PS-HDRF
+        # path (--scale) to keep the whole run inside its time limit
+        mp = main_path(min(args.scale, 20), tmp)
         emit({"phase": "main_path", **mp})
-        emit({"phase": "hosted", **hosted_path(min(args.scale, 17), tmp)})
+        emit({"phase": "hosted", **hosted_path(min(args.scale, 18), tmp)})
         hp = two_ps_hdrf_path(args.scale, tmp)
         emit({"phase": "two_ps_hdrf", **hp})
         emit({"phase": "hdrf_baselines",
@@ -659,7 +659,7 @@ def main(argv=None) -> int:
                                       busy_edges=1 << 15)
                           for name in ("2ps-hdrf", "hdrf", "greedy")]})
     emit({"phase": "least_loaded_rounds",
-          **least_loaded_rounds(min(args.scale, 16))})
+          **least_loaded_rounds(min(args.scale, 17))})
 
     paths = {"edge_score": mp["edge_score_launches"],
              "hdrf_score": hp["launches"]["hdrf_score"]}

@@ -8,8 +8,8 @@ names the ROADMAP item for ``hep`` and ``buffered``.
 """
 from .clustering import (ClusteringResult, cluster_sequential,
                          default_max_vol, streaming_clustering)
-from .engine import (PartitionRunResult, StreamingPartitioner, StreamPass,
-                     build_partitioner, compute_degrees_streaming,
+from .engine import (PORTED, PartitionRunResult, StreamingPartitioner,
+                     StreamPass, build_partitioner, compute_degrees_streaming,
                      resolve_device, run_spec)
 from .mapping import map_clusters_lpt
 from .metrics import (PartitionQuality, capacity, cross_host_replicas,
@@ -32,6 +32,7 @@ __all__ = [
     "PartitionerSpec", "TwoPSLSpec", "HDRFSpec", "DBHSpec", "StatelessSpec",
     "HEPSpec", "BufferedSpec",
     "SpecError", "SPEC_REGISTRY", "spec_for", "spec_from_dict",
-    "StreamingPartitioner", "StreamPass", "build_partitioner", "run_spec",
+    "StreamingPartitioner", "StreamPass", "build_partitioner", "PORTED",
+    "run_spec",
     "compute_degrees_streaming", "resolve_device",
 ]

@@ -55,8 +55,8 @@ from .mapping import map_clusters_lpt
 from .metrics import (PartitionQuality, capacity,
                       cross_host_replication_factor, host_assignment,
                       quality_from_bitmatrix)
-from .specs import (DBHSpec, HDRFSpec, PartitionerSpec, SpecError,
-                    StatelessSpec, TwoPSLSpec)
+from .specs import (DBHSpec, HDRFSpec, PartitionerSpec, SPEC_REGISTRY,
+                    SpecError, StatelessSpec, TwoPSLSpec)
 from .stream import EdgeStream, prefetch
 
 
@@ -462,6 +462,9 @@ _NOT_PORTED = {
     "hep": "item 9 (the remaining partitioner families)",
     "buffered": "item 9 (the remaining partitioner families)",
 }
+
+#: the registered names ``build_partitioner`` runs
+PORTED = tuple(n for n in SPEC_REGISTRY if n not in _NOT_PORTED)
 
 
 def build_partitioner(spec: PartitionerSpec,

@@ -251,8 +251,7 @@ def _hdrf_choose_all(bits, parts, d_uv, uv, sizes, *, lam, num_hosts,
 
 def _hdrf_chunk(bits, sizes, dpart, edges, valid, *, k, cap, lam, use_cap,
                 sub: int = 64, degree_weighted: bool = True,
-                num_hosts: int = 0, dcn_penalty: float = 0.0,
-                n: int | None = None):
+                n: int, num_hosts: int = 0, dcn_penalty: float = 0.0):
     """HDRF (or Greedy with ``degree_weighted=False``): score EVERY
     partition for every edge, with HDRF's own streamed partial degrees
     ``dpart`` — the O(|E|*k) cost the paper removes.
@@ -267,13 +266,13 @@ def _hdrf_chunk(bits, sizes, dpart, edges, valid, *, k, cap, lam, use_cap,
     ``n`` (the chunk's valid row count, known on the host) skips the
     micro-batches that hold only padding: they change nothing, so the
     result is the same and a chunk of ``n`` rows launches
-    ``ceil(n / sub)`` kernels.  ``None`` runs every micro-batch.
+    ``ceil(n / sub)`` kernels.
 
     Returns ``(bits, sizes, dpart, assignment)``."""
     C = edges.shape[0]
     assert C % sub == 0
     hosted = bool(dcn_penalty) and num_hosts > 1
-    steps = C // sub if n is None else -(-n // sub)
+    steps = -(-n // sub)
     parts = torch.arange(k, device=edges.device)
     # row i: micro-batch i's endpoints as one run, its u's then its v's
     uv_all = edges.reshape(C // sub, sub, 2).transpose(1, 2).reshape(

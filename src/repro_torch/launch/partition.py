@@ -27,11 +27,9 @@ from __future__ import annotations
 import argparse
 import json
 
-from repro_torch.core import (MemmapEdgeStream, SpecError, resolve_device,
-                              run_spec, spec_for)
-
-#: the registered names the port runs
-ALGORITHMS = ("2psl", "2ps-hdrf", "hdrf", "greedy", "dbh", "grid", "random")
+from repro_torch.core import (PORTED, SPEC_REGISTRY, MemmapEdgeStream,
+                              SpecError, TwoPSLSpec, resolve_device, run_spec,
+                              spec_for)
 
 
 def main(argv=None):
@@ -39,7 +37,7 @@ def main(argv=None):
     ap.add_argument("--input", required=True,
                     help="binary edge list (uint32 pairs)")
     ap.add_argument("--k", type=int, required=True)
-    ap.add_argument("--algorithm", default="2psl", choices=ALGORITHMS)
+    ap.add_argument("--algorithm", default="2psl", choices=PORTED)
     ap.add_argument("--alpha", type=float, default=1.05)
     ap.add_argument("--cluster-passes", type=int, default=1)
     ap.add_argument("--chunk-size", type=int, default=1 << 16)
@@ -67,7 +65,7 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     overrides = {"alpha": args.alpha, "chunk_size": args.chunk_size}
-    if args.algorithm in ("2psl", "2ps-hdrf"):
+    if SPEC_REGISTRY[args.algorithm][0] is TwoPSLSpec:
         overrides["cluster_passes"] = args.cluster_passes
     if args.hosts is not None:
         overrides["host_groups"] = args.hosts

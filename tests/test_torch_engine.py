@@ -201,6 +201,22 @@ def test_cli_runs_every_ported_algorithm(algorithm, small_rmat, tmp_path,
     assert report["replication_factor"] == ref_report["replication_factor"]
 
 
+def test_cli_offers_exactly_the_ported_specs(small_rmat, tmp_path):
+    """The CLI's ``--algorithm`` choices come from the registry less what
+    ``build_partitioner`` still refuses."""
+    from repro_torch.core import (PORTED, SPEC_REGISTRY, build_partitioner,
+                                  spec_for)
+    from repro_torch.launch.partition import main as port_main
+    assert set(PORTED) == set(SPEC_REGISTRY) - {"hep", "buffered"}
+    for name in PORTED:
+        build_partitioner(spec_for(name), device="cpu")
+    graph = tmp_path / "g.bin"
+    np.ascontiguousarray(small_rmat, dtype=np.uint32).tofile(graph)
+    with pytest.raises(SystemExit):
+        port_main(["--input", str(graph), "--k", "8", "--algorithm", "hep",
+                   "--device", "cpu"])
+
+
 def test_run_spec_defaults_to_cuda_and_raises_without_it(small_rmat,
                                                          monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -270,14 +270,13 @@ def test_hdrf_remaining_chunk(setup, lo, n_valid, tight, hosts):
         assert _overflowed(state, chunk, valid, asg.numpy()) > 0
 
 
-@pytest.mark.parametrize("n_valid,use_cap,tight,dw,hosts,pass_n", [
-    (C, False, False, True, 0, True), (C, True, False, True, 0, True),
-    (C, True, True, True, 0, True), (100, False, False, True, 0, True),
-    (100, True, False, False, 0, False), (0, False, False, True, 0, True),
-    (C, False, False, False, 0, True), (C, False, False, True, 2, True),
-    (150, True, True, True, 4, True)])
-def test_hdrf_chunk(setup, n_valid, use_cap, tight, dw, hosts, pass_n,
-                    monkeypatch):
+@pytest.mark.parametrize("n_valid,use_cap,tight,dw,hosts", [
+    (C, False, False, True, 0), (C, True, False, True, 0),
+    (C, True, True, True, 0), (100, False, False, True, 0),
+    (100, True, False, False, 0), (0, False, False, True, 0),
+    (C, False, False, False, 0), (C, False, False, True, 2),
+    (150, True, True, True, 4)])
+def test_hdrf_chunk(setup, n_valid, use_cap, tight, dw, hosts, monkeypatch):
     """HDRF / Greedy micro-batches against the reference's ``lax.scan``,
     with and without the hard cap (tight: all but two partitions nearly
     full, so the least-loaded rounds run), host-aware, and with the
@@ -303,7 +302,7 @@ def test_hdrf_chunk(setup, n_valid, use_cap, tight, dw, hosts, pass_n,
     tdpart = torch.from_numpy(dpart.copy())
     bits, sizes, dp, asg = TP._hdrf_chunk(
         ts["bits"], ts["sizes"], tdpart, tchunk, tvalid,
-        n=n_valid if pass_n else None, **kw)
+        n=n_valid, **kw)
     np.testing.assert_array_equal(asg.numpy(), np.asarray(ra))
     np.testing.assert_array_equal(sizes.numpy(), np.asarray(rs))
     np.testing.assert_array_equal(dp.numpy(), np.asarray(rd))
