@@ -1,36 +1,49 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's partitioning paths on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch port's partitioning and DIEN serving paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. env        the card (nvidia-smi name and power limit), torch and CUDA.
-2. build      every kernel (``edge_score``, ``hdrf_score``), compiled from
-              ``src/`` with one nvcc per source, all started together.
+2. build      every kernel (``edge_score``, ``hdrf_score``, ``augru``),
+              compiled from ``src/`` with one nvcc per source, all started
+              together.
 3. kernels    each kernel against its plain torch version on the card, at
               the paths' shapes plus ragged, zero-padded and tied rows,
-              flat and host-aware; device and CUDA-event timings.
-4. main_path  2PS-L through the port's CLI on an RMAT-20 stream (the
-              user's entry point, through ``MemmapEdgeStream``), k=32, with
-              the kernels' launch counters reset just before and read just
-              after.
-5. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
+              flat and host-aware (``augru``: att == 1 and random, and an
+              H whose U does not fit in shared memory, within 1e-5);
+              device and CUDA-event timings, ``augru`` beside cuDNN's GRU.
+4. recsys_serve  DIEN at full width through the serving CLI (``python -m
+              repro_torch.launch.serve --arch dien --full --requests N``):
+              ``serve_p99`` (512) after a warm-up, ``serve_bulk`` as four
+              calls of 65,536; exactly 2 ``augru`` launches per call.
+5. recsys_retrieval  the retrieval step at 1 user x 1,000,000 candidates,
+              top 100: 1 ``augru`` launch per call.
+6. recsys_card_vs_cpu  the same full-width weights on the card and on the
+              CPU: CTR and top-100 values within 1e-5, equal top-100 sets.
+7. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
+              stream (the user's entry point, through
+              ``MemmapEdgeStream``), k=32.
+8. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
               dcn_penalty 1.0).
-6. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-21 (``--scale``): one
+9. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-20 (``--scale``): one
               ``hdrf_score`` launch per scoring chunk, no ``edge_score``.
-7. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
-              RMAT-18: one ``hdrf_score`` launch per non-empty 64-edge
+10. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
+              RMAT-17: one ``hdrf_score`` launch per non-empty 64-edge
               micro-batch.
-8. hash       DBH, Grid and Random through the CLI at RMAT-21.
-9. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
+11. hash      DBH, Grid and Random through the CLI at RMAT-20.
+12. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
               (2PS-L at RMAT-16; 2PS-HDRF, HDRF and Greedy at RMAT-14);
               the card's busy share profiled over the first 2^18 (2PS-L)
               or 2^15 edges.
-10. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
+13. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
               host sync, rounds skipped when nothing is pending) against
               running its k+1 rounds unconditionally (2PS-L, RMAT-17).
+
+Every path phase resets every kernel's launch counter just before it and
+checks the counts just after.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -190,14 +203,18 @@ def bound(nbytes: float, ops: float) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def timed(fn, plain_fn) -> dict:
+def timed(fn, plain_fn, reps: int = 100, profile: bool = True) -> dict:
     """``ms``/``plain_ms``: device time per call (profiler); ``call_ms``/
     ``plain_call_ms``: wall time of one call between CUDA events, which on
-    an idle card is the host's launch cost."""
-    call_ms = cuda_time_ms(fn)
-    plain_call_ms = cuda_time_ms(plain_fn)
-    kernel_ms = device_ms_per_call(fn)
-    plain_ms = device_ms_per_call(plain_fn)
+    an idle card is the host's launch cost.  ``reps`` profiled calls (twice
+    as many timed by events).  ``profile=False`` takes the events' times
+    for calls of tens of ms, where the launch cost vanishes (over 3 such
+    calls the profiler lost a kernel's record)."""
+    warmup = max(1, reps // 5)
+    call_ms = cuda_time_ms(fn, 2 * reps, warmup)
+    plain_call_ms = cuda_time_ms(plain_fn, 2 * reps, warmup)
+    kernel_ms = device_ms_per_call(fn, reps) if profile else None
+    plain_ms = device_ms_per_call(plain_fn, reps) if profile else None
     source = "profiler"
     if kernel_ms is None or plain_ms is None:
         kernel_ms, plain_ms, source = call_ms, plain_call_ms, "cuda_events"
@@ -322,6 +339,284 @@ def time_hdrf_score(E: int, k: int = 32) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# augru inputs: the reference test's distributions, att == 1 or random
+# ---------------------------------------------------------------------------
+
+AUGRU_TOL = 1e-5
+#: (B, T, H) checked on the card: the reference test's shapes, the serve
+#: paths', an H whose U (3H^2 float32, 307 KB) does not fit in shared
+#: memory, so the kernel reads it from global memory, and one whose
+#: recurrent state does not fit either, so it lives in global scratch
+AUGRU_CHECK = ((1, 1, 1), (4, 7, 16), (33, 50, 108), (8, 100, 128),
+               (512, 100, 108), (65_536, 100, 108), (5, 9, 160),
+               (2, 4, 3000))
+
+
+def augru_inputs(B: int, T: int, H: int, seed: int, ones: bool, device):
+    """Drawn on ``device`` from a seeded generator (numpy takes tens of
+    seconds for the 2.1e9 gates of a 65,536-row batch).  u ~ N(0, 0.2^2) as
+    the reference test draws it, up to H = 1000; beyond, at DIEN's own init
+    scale 1/sqrt(H): with 0.2 at H = 3000, |hU| reaches ~10 and two
+    summation orders of 3000 float32 terms differ by ~4e-5, which says
+    nothing about the kernel."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    xg = normal((B, T, 3 * H), 0.5)
+    u = normal((H, 3 * H), 0.2 if H <= 1000 else 1.0 / np.sqrt(H))
+    att = (torch.ones((B, T), device=device) if ones
+           else torch.rand((B, T), generator=g, device=device))
+    return [xg, u, att, normal((B, H), 0.1)]
+
+
+def check_augru(shapes) -> dict:
+    """The CUDA kernel against its plain version on the card, att == 1 (the
+    GRU stage) and random att: every state within ``AUGRU_TOL``."""
+    import torch
+    from repro_torch.kernels.augru import augru, augru_ref
+    cases, max_err = [], 0.0
+    for B, T, H in shapes:
+        for ones in (True, False):
+            args = augru_inputs(B, T, H, seed=B + T + H, ones=ones,
+                                device="cuda")
+            got = augru(*args)
+            want = augru_ref(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            cases.append({"B": B, "T": T, "H": H, "att": "ones" if ones
+                          else "random", "max_abs_err": err,
+                          "u_bytes": 3 * H * H * 4})
+            if not err <= AUGRU_TOL:
+                raise AssertionError(f"augru disagrees: {cases[-1]}")
+    return {"tolerance": f"max |kernel - plain| <= {AUGRU_TOL}",
+            "cases": cases, "max_abs_err": max_err}
+
+
+def gru_library_ms(B: int, T: int = 100, e: int = 18, H: int = 108,
+                   reps: int = 20) -> float:
+    """cuDNN's GRU (``torch.nn.GRU``, float32 without TF32) on (B, T, e):
+    the dense 18 -> 324 and the GRU recurrence of DIEN's att == 1 stage in
+    one library call.  Its z gate is the complement of AUGRU's, so it is a
+    yardstick of speed only, never of parity."""
+    import torch
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gru = torch.nn.GRU(e, H, batch_first=True).cuda()
+        x = torch.randn(B, T, e, device="cuda")
+        with torch.no_grad():
+            return cuda_time_ms(lambda: gru(x), reps, max(1, reps // 5))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+#: torch.nn.GRU's cuDNN call faults (an illegal memory access, in a
+#: process of its own) at batch 65,536 of (100, 18) on the card, and runs
+#: at 32,768: the library is timed up to this batch
+GRU_MAX_BATCH = 32_768
+
+
+def time_augru(B: int, T: int = 100, H: int = 108, reps: int = 20,
+               profile: bool = True) -> dict:
+    import torch
+    from repro_torch.kernels.augru import augru, augru_ref
+    args = augru_inputs(B, T, H, seed=7, ones=False, device="cuda")
+    # bytes: x_gates, u, att, h0 read once, the states written once;
+    # operations: the products hU = h @ U, 2*H*3H per (row, step) (the
+    # gates add ~1% and are not counted, so the bound stays a lower one)
+    nbytes = 4 * (B * T * 3 * H + 3 * H * H + B * T + B * H + B * T * H)
+    out = {"B": B, "T": T, "H": H,
+           **timed(lambda: augru(*args), lambda: augru_ref(*args), reps,
+                   profile),
+           **bound(nbytes, 2 * B * T * H * 3 * H),
+           "library_ms": (gru_library_ms(B, T, reps=reps)
+                          if B <= GRU_MAX_BATCH else None),
+           "library": "torch.nn.GRU(18, 108) on (B, 100, 18), cuDNN, "
+                      "float32 (the att == 1 stage with its input dense)"
+                      if B <= GRU_MAX_BATCH else
+                      f"none: cuDNN's GRU faults above batch {GRU_MAX_BATCH}"}
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the DIEN serving path
+# ---------------------------------------------------------------------------
+
+SERVE_TIMED_CALLS = 3
+BULK_CALLS, BULK_BATCH = 4, 65_536
+
+
+def run_serve(argv) -> dict:
+    """The port's serving CLI, its JSON report parsed and checked."""
+    from repro_torch.launch.serve import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv + ["--json"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if set(report) != {"arch", "mode", "requests", "mean_ctr"}:
+        raise AssertionError(f"serve report keys {sorted(report)}")
+    if not 0.0 < report["mean_ctr"] < 1.0:
+        raise AssertionError(f"mean CTR {report['mean_ctr']} outside (0, 1)")
+    return report
+
+
+def serve_calls(batch: int, seeds, *, warmup: bool) -> dict:
+    """``main(--arch dien --full --requests batch --seed s)`` once per
+    seed, each with the counters reset just before and read just after
+    (exactly 2 augru launches, nothing else); then the serve step alone on
+    the first seed's request, timed between CUDA events."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_recsys_serve_step
+    if warmup:
+        run_serve(["--arch", "dien", "--full", "--requests", str(batch)])
+    walls, ctrs, launches = [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    for seed in seeds:
+        report, counts, wall = counted(lambda: run_serve(
+            ["--arch", "dien", "--full", "--requests", str(batch),
+             "--seed", str(seed)]))
+        expect_launches(counts, {"edge_score": 0, "hdrf_score": 0,
+                                 "augru": 2},
+                        f"DIEN serve of {batch} (2 augru per call)")
+        walls.append(wall)
+        ctrs.append(report["mean_ctr"])
+        launches += counts["augru"]
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params, request = serve.recsys_request(
+        "dien", batch=batch, seed=seeds[0], full=True, device="cuda")
+    step = make_recsys_serve_step(cfg)
+    ctr = step(params, request)
+    if ctr.shape != (batch,) or not bool(torch.isfinite(ctr).all()):
+        raise AssertionError("serve step: CTR not finite or misshapen")
+    step_ms = cuda_time_ms(lambda: step(params, request), reps=5, warmup=1)
+    return {"requests_per_call": batch, "calls": len(seeds),
+            "main_wall_s": walls, "mean_ctr": ctrs,
+            "augru_launches": launches, "step_ms": step_ms,
+            "requests_per_s": batch / step_ms * 1e3,
+            "step_profile": kernel_breakdown(lambda: step(params, request),
+                                             step_ms),
+            "peak_device_bytes": peak}
+
+
+def recsys_serve() -> dict:
+    """DIEN at full width through the serving CLI: ``serve_p99`` (512) in
+    ``SERVE_TIMED_CALLS`` calls after one warm-up, and ``serve_bulk`` as
+    ``BULK_CALLS`` calls of 65,536."""
+    import torch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    p99 = serve_calls(RECSYS_SHAPES["serve_p99"]["batch"],
+                      list(range(SERVE_TIMED_CALLS)), warmup=True)
+    bulk = serve_calls(BULK_BATCH, list(range(BULK_CALLS)), warmup=False)
+    torch.cuda.empty_cache()
+    full_bulk = RECSYS_SHAPES["serve_bulk"]["batch"]
+    return {"config": "configs/dien.py::full (2,097,152 x 18 table, seq "
+                      "100, GRU 108, MLP 200-80)",
+            "serve_p99": p99, "serve_bulk": bulk,
+            "serve_bulk_cut": f"{BULK_CALLS} calls of {BULK_BATCH} instead "
+                              f"of one of {full_bulk}: two (262,144, 100, "
+                              "324) float32 gate tensors are 34 GB each",
+            "augru_launches": p99["augru_launches"]
+            + bulk["augru_launches"]}
+
+
+def retrieval_request(cfg, n_candidates: int, seed: int, device):
+    """One user's history and ``n_candidates`` distinct items."""
+    import torch
+    from repro_torch.data import InteractionStream
+    b = InteractionStream(cfg.n_items, 1, cfg.seq_len, seed=seed).next_batch()
+    cand = np.random.default_rng(seed).permutation(cfg.n_items)
+    req = {"hist": b["hist"], "hist_mask": b["hist_mask"],
+           "candidates": cand[:n_candidates].astype(np.int32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in req.items()}
+
+
+def recsys_retrieval(top_k: int = 100) -> dict:
+    """``make_recsys_retrieval_step(cfg, top_k=100)`` at ``retrieval_cand``
+    (1 user x 1,000,000 candidates): one augru launch per call."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.launch.steps import make_recsys_retrieval_step
+    from repro_torch.models.recsys import dien_init
+    M = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    cfg = get_arch("dien").make_config()
+    params = dien_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    req = retrieval_request(cfg, M, seed=0, device="cuda")
+    step = make_recsys_retrieval_step(cfg, top_k=top_k)
+    (values, indices), counts, wall = counted(lambda: step(params, req))
+    expect_launches(counts, {"edge_score": 0, "hdrf_score": 0, "augru": 1},
+                    "DIEN retrieval (1 augru per call)")
+    if (values.shape != (top_k,) or not bool(torch.isfinite(values).all())
+            or not bool((values[:-1] >= values[1:]).all())
+            or not 0 <= int(indices.min()) <= int(indices.max()) < M):
+        raise AssertionError("retrieval: top-k not finite, sorted, in range")
+    ms = cuda_time_ms(lambda: step(params, req), reps=10, warmup=2)
+    return {"candidates": M, "top_k": top_k, "first_call_wall_s": wall,
+            "ms_per_call": ms, "candidates_per_s": M / ms * 1e3,
+            "step_profile": kernel_breakdown(lambda: step(params, req), ms),
+            "augru_launches": counts["augru"]}
+
+
+def recsys_card_vs_cpu(batch: int = 512, top_k: int = 100) -> dict:
+    """The same full-width weights and requests on the card and on the
+    CPU: CTR within 1e-5; retrieval values within 1e-5 and the top-k sets
+    equal except among scores that tie (within 1e-5) with the k-th."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data import InteractionStream
+    from repro_torch.launch.steps import (make_recsys_retrieval_step,
+                                          make_recsys_serve_step)
+    from repro_torch.models.recsys import (dien_init, dien_retrieval_score,
+                                           params_to)
+    cfg = get_arch("dien").make_config()
+    params = {"cuda": dien_init(cfg, torch.Generator(device="cuda")
+                                .manual_seed(1))}
+    params["cpu"] = params_to(params["cuda"], "cpu")
+    b = InteractionStream(cfg.n_items, batch, cfg.seq_len, seed=1).next_batch()
+    serve = make_recsys_serve_step(cfg)
+    ctr, wall = {}, {}
+    for dev in ("cuda", "cpu"):
+        req = {k: torch.from_numpy(b[k]).to(dev)
+               for k in ("hist", "hist_mask", "target")}
+        t0 = time.perf_counter()
+        ctr[dev] = serve(params[dev], req).cpu()
+        wall[f"serve_{dev}_s"] = time.perf_counter() - t0
+    ctr_err = float((ctr["cuda"] - ctr["cpu"]).abs().max())
+    M = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    retrieve = make_recsys_retrieval_step(cfg, top_k=top_k)
+    top = {}
+    for dev in ("cuda", "cpu"):
+        req = retrieval_request(cfg, M, seed=1, device=dev)
+        t0 = time.perf_counter()
+        top[dev] = [x.cpu().numpy() for x in retrieve(params[dev], req)]
+        wall[f"retrieval_{dev}_s"] = time.perf_counter() - t0
+    scores = dien_retrieval_score(cfg, params["cpu"], req).numpy()
+    (v_gpu, i_gpu), (v_cpu, i_cpu) = top["cuda"], top["cpu"]
+    val_err = float(np.abs(v_gpu - v_cpu).max())
+    kth = v_cpu[-1]
+    sure = set(np.flatnonzero(scores > kth + 1e-5).tolist())
+    sets_ok = (sure <= set(i_gpu.tolist()) and sure <= set(i_cpu.tolist())
+               and bool((scores[i_gpu] >= kth - 1e-5).all()))
+    line = {"batch": batch, "ctr_max_abs_err": ctr_err, "candidates": M,
+            "top_k": top_k, "retrieval_value_max_abs_err": val_err,
+            "top_k_index_differences": len(set(i_gpu.tolist())
+                                           ^ set(i_cpu.tolist())),
+            "top_k_sets_equal_where_distinct": sets_ok,
+            "tolerance": "1e-5", **wall}
+    if not (ctr_err <= 1e-5 and val_err <= 1e-5 and sets_ok):
+        raise AssertionError(f"DIEN card vs cpu disagree: {line}")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # the partitioning path
 # ---------------------------------------------------------------------------
 
@@ -366,9 +661,10 @@ def check_run(report: dict, res, k: int, num_edges: int) -> dict:
 
 def counters() -> dict:
     """Every kernel's launch counter, by kernel name."""
-    from repro_torch.kernels import edge_score, hdrf_score
+    from repro_torch.kernels import augru, edge_score, hdrf_score
     return {"edge_score": edge_score.launches,
-            "hdrf_score": hdrf_score.launches}
+            "hdrf_score": hdrf_score.launches,
+            "augru": augru.launches}
 
 
 def counted(fn):
@@ -401,7 +697,8 @@ def main_path(scale: int, tmp: str, k: int = 32) -> dict:
     n_launch = counts["edge_score"]
     checks = check_run(report, res, k, E)
     chunks = -(-E // chunk)
-    expect_launches(counts, {"edge_score": chunks, "hdrf_score": 0},
+    expect_launches(counts, {"edge_score": chunks, "hdrf_score": 0,
+                             "augru": 0},
                     "2PS-L main path (one edge_score per scoring chunk)")
     timings = report["timings_s"]
     return {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
@@ -425,7 +722,8 @@ def hosted_path(scale: int, tmp: str, k: int = 32) -> dict:
     n_launch = counts["edge_score"]
     checks = check_run(report, res, k, E)
     chunks = -(-E // spec_for("2psl").chunk_size)
-    expect_launches(counts, {"edge_score": chunks, "hdrf_score": 0},
+    expect_launches(counts, {"edge_score": chunks, "hdrf_score": 0,
+                             "augru": 0},
                     "hosted 2PS-L")
     if not 1.0 <= report["cross_host_rf"] <= report["replication_factor"]:
         raise AssertionError("cross-host RF outside [1, RF]")
@@ -458,7 +756,8 @@ def two_ps_hdrf_path(scale: int, tmp: str, k: int = 32) -> dict:
         ["--input", path, "--k", str(k), "--algorithm", "2ps-hdrf",
          "--out", os.path.join(tmp, "assign_2ps_hdrf.bin")]))
     checks = check_run(report, res, k, E)
-    expect_launches(counts, {"edge_score": 0, "hdrf_score": chunks},
+    expect_launches(counts, {"edge_score": 0, "hdrf_score": chunks,
+                             "augru": 0},
                     "2PS-HDRF (one hdrf_score per scoring chunk)")
     return path_line(scale, E, k, report, wall, counts, checks,
                      scoring_chunks=chunks,
@@ -473,9 +772,9 @@ def hdrf_launches(E: int, chunk: int, sub: int = 64) -> int:
 
 def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
     """HDRF, Greedy and host-aware HDRF through the CLI.  Each 64-edge
-    micro-batch is a few dozen eager launches; at RMAT-18 that is ~61,500
-    micro-batches per run (a minute or two each), which is why this phase
-    runs below the 2PS-HDRF path's scale."""
+    micro-batch is a few dozen eager launches; at RMAT-17 that is ~30,400
+    micro-batches per run (about half a minute each), which is why this
+    phase runs below the 2PS-HDRF path's scale."""
     path, E = write_graph(scale, tmp)
     chunk = 1 << 16                     # the CLI's --chunk-size default
     want = hdrf_launches(E, chunk)
@@ -487,7 +786,8 @@ def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
         (report, res), counts, wall = counted(lambda: run_cli(
             ["--input", path, "--k", str(k), "--algorithm", algo, *extra]))
         checks = check_run(report, res, k, E)
-        expect_launches(counts, {"edge_score": 0, "hdrf_score": want},
+        expect_launches(counts, {"edge_score": 0, "hdrf_score": want,
+                                 "augru": 0},
                         f"{name} (one hdrf_score per non-empty 64-edge "
                         f"micro-batch)")
         runs[name] = path_line(scale, E, k, report, wall, counts, checks,
@@ -495,7 +795,7 @@ def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
         if extra:
             runs[name]["cross_host_rf"] = report["cross_host_rf"]
     return {"why_reduced": "64-edge micro-batches of a few dozen eager "
-                           "launches each: ~61,500 per run at RMAT-18",
+                           "launches each: ~30,400 per run at RMAT-17",
             **runs}
 
 
@@ -508,15 +808,16 @@ def hash_paths(scale: int, tmp: str, k: int = 32) -> dict:
         (report, res), counts, wall = counted(lambda: run_cli(
             ["--input", path, "--k", str(k), "--algorithm", algo]))
         checks = check_run(report, res, k, E)
-        expect_launches(counts, {"edge_score": 0, "hdrf_score": 0}, algo)
+        expect_launches(counts, {"edge_score": 0, "hdrf_score": 0,
+                                 "augru": 0}, algo)
         runs[algo] = path_line(scale, E, k, report, wall, counts, checks)
     return runs
 
 
-def device_busy(fn) -> tuple[float | None, int]:
-    """Share of a run's wall time the card spent in kernels (the summed
-    kernel durations torch.profiler records; None when it records none),
-    and the number of kernels it ran."""
+def profile_kernels(fn) -> tuple[dict, float]:
+    """One profiled run of ``fn``: the device time (us) of the CUDA kernels
+    torch.profiler records, summed by kernel name with their count, and
+    the run's wall time (us)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -526,9 +827,41 @@ def device_busy(fn) -> tuple[float | None, int]:
         fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in kernels)
-    return (busy / wall_us if busy > 0 else None), len(kernels)
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            entry = by_name.setdefault(e.name, [0.0, 0])
+            entry[0] += e.device_time_total
+            entry[1] += 1
+    return by_name, wall_us
+
+
+def device_busy(fn) -> tuple[float | None, int]:
+    """Share of a run's wall time the card spent in kernels (the summed
+    kernel durations torch.profiler records; None when it records none),
+    and the number of kernels it ran."""
+    by_name, wall_us = profile_kernels(fn)
+    busy = sum(us for us, _ in by_name.values())
+    return (busy / wall_us if busy > 0 else None), sum(
+        n for _, n in by_name.values())
+
+
+def kernel_breakdown(fn, call_ms: float, top: int = 6) -> dict:
+    """One profiled call of ``fn`` after a warm-up: the device time its
+    kernels took, that time's share of ``call_ms`` (the call's unprofiled
+    time, since the profiler itself slows the host), the number of
+    kernels, and the ``top`` kernels by device time (ms)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    by_name, _ = profile_kernels(fn)
+    busy = sum(us for us, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"device_busy_share": busy / 1e3 / call_ms if busy
+            else "not measured",
+            "device_ms": busy / 1e3,
+            "kernels": sum(n for _, n in by_name.values()),
+            "top_kernels_ms": {k[:80]: us / 1e3 for k, (us, _) in ranked}}
 
 
 def card_vs_cpu(scale: int, name: str = "2psl", k: int = 32,
@@ -603,10 +936,11 @@ def least_loaded_rounds(scale: int, k: int = 32) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=int, default=21,
+    ap.add_argument("--scale", type=int, default=20,
                     help="RMAT scale of the 2PS-HDRF and hash graphs "
-                         "(default 21); 2PS-L runs at min(scale, 20), the "
-                         "hosted 2PS-L and HDRF baselines at min(scale, 18)")
+                         "(default 20); 2PS-L runs at min(scale, 19), the "
+                         "hosted 2PS-L at min(scale, 18), the HDRF "
+                         "baselines at min(scale, 17)")
     args = ap.parse_args(argv)
 
     import torch
@@ -615,6 +949,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.augru import kernel as ag_kernel
     from repro_torch.kernels.edge_score import kernel as es_kernel
     from repro_torch.kernels.hdrf_score import kernel as hs_kernel
 
@@ -626,7 +961,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
-                      hs_kernel.NAME: hs_kernel.SOURCE})
+                      hs_kernel.NAME: hs_kernel.SOURCE,
+                      ag_kernel.NAME: ag_kernel.SOURCE})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": i["seconds"],
                           "ptxas": [ln for ln in i["log"].splitlines()
@@ -638,20 +974,33 @@ def main(argv=None) -> int:
     h_check = check_hdrf_score((1, 64, 65536, 65537), (2, 32, 200))
     h_timing = time_hdrf_score(65536)
     h_micro = time_hdrf_score(64)
+    a_check = check_augru(AUGRU_CHECK)
+    a_timing = time_augru(512)
+    a_bulk = time_augru(BULK_BATCH, reps=3, profile=False)
+    a_one = time_augru(1)
     emit({"phase": "kernels", "edge_score": {**check, **timing},
           "hdrf_score": {**h_check, "chunk": h_timing,
-                         "micro_batch": h_micro}})
+                         "micro_batch": h_micro},
+          "augru": {**a_check, "serve_p99": a_timing, "serve_bulk": a_bulk,
+                    "retrieval": a_one}})
+
+    rs = recsys_serve()
+    emit({"phase": "recsys_serve", **rs})
+    emit({"phase": "recsys_retrieval", **recsys_retrieval()})
+    emit({"phase": "recsys_card_vs_cpu", **recsys_card_vs_cpu()})
 
     with tempfile.TemporaryDirectory() as tmp:
-        # the 2PS-L main path runs one scale below the slice's 2PS-HDRF
-        # path (--scale) to keep the whole run inside its time limit
-        mp = main_path(min(args.scale, 20), tmp)
+        # the partitioning paths run below their earlier slices' scales
+        # (2PS-HDRF and the hashes at RMAT-20, 2PS-L at 19, the HDRF
+        # baselines at 17) so that the whole run, the DIEN phases
+        # included, takes about half its time limit
+        mp = main_path(min(args.scale, 19), tmp)
         emit({"phase": "main_path", **mp})
         emit({"phase": "hosted", **hosted_path(min(args.scale, 18), tmp)})
         hp = two_ps_hdrf_path(args.scale, tmp)
         emit({"phase": "two_ps_hdrf", **hp})
         emit({"phase": "hdrf_baselines",
-              **hdrf_baselines(min(args.scale, 18), tmp)})
+              **hdrf_baselines(min(args.scale, 17), tmp)})
         emit({"phase": "hash", **hash_paths(args.scale, tmp)})
     emit({"phase": "card_vs_cpu",
           **card_vs_cpu(min(args.scale, 16), busy_edges=1 << 18),
@@ -662,7 +1011,8 @@ def main(argv=None) -> int:
           **least_loaded_rounds(min(args.scale, 17))})
 
     paths = {"edge_score": mp["edge_score_launches"],
-             "hdrf_score": hp["launches"]["hdrf_score"]}
+             "hdrf_score": hp["launches"]["hdrf_score"],
+             "augru": rs["augru_launches"]}
     for name, n in paths.items():
         if n == 0:
             raise AssertionError(f"the path launched no {name} kernel")
@@ -681,7 +1031,14 @@ def main(argv=None) -> int:
         "max_abs_err": h_check["max_abs_err"],
         "ms": h_timing["ms"], "plain_ms": h_timing["plain_ms"],
         "bound_ms": h_timing["bound_ms"], "bound_by": h_timing["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "augru", "route": "cuda",
+        "source": "src/repro_torch/kernels/augru/csrc/augru.cu",
+        "replaces": "src/repro/kernels/augru/kernel.py:53",
+        "launches": paths["augru"], "max_abs_err": a_check["max_abs_err"],
+        "ms": a_timing["ms"], "plain_ms": a_timing["plain_ms"],
+        "bound_ms": a_timing["bound_ms"], "bound_by": a_timing["bound_by"],
+        "library_ms": a_timing["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ Kernels:
   edge_score — 2PS-L two-candidate scoring (the paper's O(|E|) hot loop)
   hdrf_score — HDRF / Greedy k-way scoring and first-index argmax (2PS-HDRF
                step 3, and the HDRF and Greedy baselines' micro-batches)
+  augru      — DIEN's attention-gated GRU scan, all T states out (the GRU
+               stage at att == 1 and the interest evolution)
 """
 
 

@@ -1,0 +1,29 @@
+"""Step factories of the port, the counterparts of ``repro.launch.steps``:
+recsys (DIEN) serving and retrieval.  The reference jits these; the port
+runs them eagerly, without autograd."""
+from __future__ import annotations
+
+import torch
+
+from ..models import recsys as R
+
+
+def make_recsys_serve_step(cfg):
+    """``serve(params, batch) -> CTR (B,)``: the sigmoid of the logit
+    (without the auxiliary loss, which serving does not use)."""
+    @torch.no_grad()
+    def serve(params, batch):
+        logit, _ = R.dien_forward(cfg, params, batch, aux=False)
+        return torch.sigmoid(logit)
+    return serve
+
+
+def make_recsys_retrieval_step(cfg, top_k: int = 100):
+    """``retrieve(params, batch) -> (values, indices)``: the ``top_k``
+    highest candidate scores, sorted high to low, and their positions."""
+    @torch.no_grad()
+    def retrieve(params, batch):
+        scores = R.dien_retrieval_score(cfg, params, batch)
+        values, indices = torch.topk(scores, top_k, sorted=True)
+        return values, indices
+    return retrieve

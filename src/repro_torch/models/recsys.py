@@ -1,0 +1,180 @@
+"""DIEN (Deep Interest Evolution Network, arXiv:1809.03672) for CTR ranking,
+the port's counterpart of ``repro.models.recsys``.
+
+Structure (the published configuration: embed_dim=18, seq_len=100,
+gru_dim=108, MLP 200-80, interaction=AUGRU):
+
+  behavior seq -> item embedding -> GRU interest extraction (+ auxiliary
+  next-behavior loss) -> target-conditioned attention -> AUGRU interest
+  evolution -> MLP(interest, target) -> CTR logit.
+
+Both recurrences run through ``kernels/augru`` (a plain GRU is an AUGRU
+with attention == 1), so a forward launches the kernel twice and a
+retrieval call once.  Parameters are a plain dict with the reference's
+tree (``item_table.table``, ``gru_wx``, ``gru_u``, ``att_w``,
+``augru_wx``, ``augru_u``, ``mlp[i]``, ``head``, ``aux_w``); the dense
+layers, einsums and MLP stay ``torch.matmul``/``einsum`` in float32, as
+the reference leaves them to XLA.  ``torch.Generator`` cannot reproduce
+``jax.random``, so ``params_from_reference`` carries the reference's
+weights over for parity.  ``dien_loss`` (training) comes with the training
+slice.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..kernels.augru import augru
+from . import layers as L
+
+#: the top-level keys of the reference's parameter tree
+PARAM_KEYS = frozenset(("item_table", "gru_wx", "gru_u", "att_w",
+                        "augru_wx", "augru_u", "mlp", "head", "aux_w"))
+
+
+@dataclass(frozen=True)
+class DIENConfig:
+    name: str
+    n_items: int
+    embed_dim: int = 18
+    seq_len: int = 100
+    gru_dim: int = 108
+    mlp_dims: tuple = (200, 80)
+    aux_weight: float = 0.1
+    dtype: str = "float32"
+
+
+def dien_init(cfg: DIENConfig, generator: torch.Generator) -> dict:
+    """Random parameters drawn from ``generator``, on its device, with the
+    reference's distributions (not its numbers: see
+    ``params_from_reference``)."""
+    dt = getattr(torch, cfg.dtype)
+    e, g = cfg.embed_dim, cfg.gru_dim
+    dev = generator.device
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, dtype=dt,
+                           device=dev) * scale
+
+    def dense(d_in, d_out):
+        return L.dense_init(generator, d_in, d_out, bias=True, dtype=dt)
+
+    s = 1.0 / math.sqrt(g)
+    params = {"item_table": {"table": normal((cfg.n_items, e), 0.05)},
+              "gru_wx": dense(e, 3 * g),
+              "gru_u": normal((g, 3 * g), s),
+              "att_w": normal((g, e), s),
+              "augru_wx": dense(g, 3 * g),
+              "augru_u": normal((g, 3 * g), s)}
+    mlp, d_prev = [], g + e
+    for d in cfg.mlp_dims:
+        mlp.append(dense(d_prev, d))
+        d_prev = d
+    params["mlp"] = mlp
+    params["head"] = dense(d_prev, 1)
+    params["aux_w"] = normal((g, e), s)
+    return params
+
+
+def _tree_map(fn, node):
+    if isinstance(node, dict):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree_map(fn, v) for v in node]
+    return fn(node)
+
+
+def params_from_reference(tree, device="cpu") -> dict:
+    """The reference's ``dien_init`` parameters, as a tree of numpy arrays
+    (``jax.tree.map(np.asarray, params)``), as the port's tensors on
+    ``device``.  Raises on a tree of another shape."""
+    if set(tree) != PARAM_KEYS:
+        raise ValueError(f"not a DIEN parameter tree: keys {sorted(tree)}")
+    return _tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                     tree)
+
+
+def params_to(params: dict, device) -> dict:
+    """A copy of ``params`` on ``device``."""
+    return _tree_map(lambda t: t.to(device), params)
+
+
+def _mlp_head(params, x):
+    for p in params["mlp"]:
+        x = torch.relu(L.dense(p, x))
+    return L.dense(params["head"], x)[..., 0]
+
+
+def _interest_states(cfg, params, hist_emb, hist_mask):
+    """GRU interest extraction: (B, T, e) -> (B, T, g)."""
+    B, T, _ = hist_emb.shape
+    xg = L.dense(params["gru_wx"], hist_emb)             # (B, T, 3g)
+    ones = torch.ones((B, T), dtype=hist_emb.dtype, device=hist_emb.device)
+    h0 = torch.zeros((B, cfg.gru_dim), dtype=hist_emb.dtype,
+                     device=hist_emb.device)
+    states = augru(xg, params["gru_u"], ones, h0)        # GRU == AUGRU@att=1
+    return states * hist_mask[..., None]
+
+
+def _aux_loss(cfg, params, states, hist_emb, mask):
+    """State_t should predict behavior_{t+1} over a shifted negative
+    (DIEN's aux net, bilinear form)."""
+    pred = torch.einsum("btg,ge->bte", states[:, :-1], params["aux_w"])
+    pos = torch.einsum("bte,bte->bt", pred, hist_emb[:, 1:])
+    neg_emb = torch.roll(hist_emb[:, 1:], 1, dims=0)         # cheap negatives
+    neg = torch.einsum("bte,bte->bt", pred, neg_emb)
+    m = mask[:, 1:] * mask[:, :-1]
+    aux = -(torch.log(torch.sigmoid(pos) + 1e-9)
+            + torch.log(1.0 - torch.sigmoid(neg) + 1e-9))
+    return cfg.aux_weight * (aux * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def dien_forward(cfg: DIENConfig, params, batch, *, aux: bool = True):
+    """batch: hist (B, T) int32, hist_mask (B, T), target (B,) int32.
+    Returns (logit (B,), aux_loss scalar).  ``aux=False`` skips the
+    auxiliary loss and returns None in its place: the reference's jitted
+    serve step never computes it either, since XLA drops the unused
+    value."""
+    table = params["item_table"]["table"]
+    hist_emb = table[batch["hist"].long()]                   # (B, T, e)
+    tgt_emb = table[batch["target"].long()]                  # (B, e)
+    mask = batch["hist_mask"].to(hist_emb.dtype)
+
+    states = _interest_states(cfg, params, hist_emb, mask)
+    aux_loss = (_aux_loss(cfg, params, states, hist_emb, mask) if aux
+                else None)
+
+    # target-conditioned attention -> AUGRU interest evolution
+    att_logits = torch.einsum("btg,ge,be->bt", states, params["att_w"],
+                              tgt_emb)
+    att_logits = att_logits.masked_fill(mask <= 0, -1e30)
+    att = torch.softmax(att_logits, dim=-1) * mask
+    xg2 = L.dense(params["augru_wx"], states)
+    h0 = torch.zeros((states.shape[0], cfg.gru_dim), dtype=states.dtype,
+                     device=states.device)
+    evolved = augru(xg2, params["augru_u"], att, h0)
+    final = evolved[:, -1]                                   # (B, g)
+
+    logit = _mlp_head(params, torch.cat([final, tgt_emb], dim=-1))
+    return logit, aux_loss
+
+
+def dien_retrieval_score(cfg: DIENConfig, params, batch):
+    """Score ONE user's history against M candidates with DIN-style
+    attention pooling over precomputed GRU states (no per-candidate
+    recurrence).  batch: hist (1, T), hist_mask (1, T), candidates (M,).
+    Returns scores (M,)."""
+    table = params["item_table"]["table"]
+    hist_emb = table[batch["hist"].long()]
+    mask = batch["hist_mask"].to(hist_emb.dtype)
+    states = _interest_states(cfg, params, hist_emb, mask)[0]   # (T, g)
+    cand_emb = table[batch["candidates"].long()]                # (M, e)
+
+    att = torch.einsum("tg,ge,me->mt", states, params["att_w"], cand_emb)
+    att = att.masked_fill(mask[0][None, :] <= 0, -1e30)
+    att = torch.softmax(att, dim=-1)                            # (M, T)
+    interest = att @ states                                     # (M, g)
+    return _mlp_head(params, torch.cat([interest, cand_emb], dim=-1))

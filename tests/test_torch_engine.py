@@ -277,6 +277,10 @@ def test_port_runs_without_jax_or_repro_loaded(tmp_path):
         "np.ascontiguousarray(e, dtype=np.uint32).tofile(p)\n"
         "cli.main(['--input', p, '--k', '4', '--chunk-size', '256',\n"
         "          '--device', 'cpu', '--json'])\n"
+        "import repro_torch.launch.serve as serve\n"
+        "rep = serve.main(['--arch', 'dien', '--requests', '8',\n"
+        "                  '--device', 'cpu'])\n"
+        "assert rep['requests'] == 8 and 0 < rep['mean_ctr'] < 1, rep\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
