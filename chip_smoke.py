@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's partitioning and DIEN serving paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's partitioning, DIEN serving and LM serving paths
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. env        the card (nvidia-smi name and power limit), torch and CUDA.
-2. build      every kernel (``edge_score``, ``hdrf_score``, ``augru``),
-              compiled from ``src/`` with one nvcc per source, all started
-              together.
+2. build      every kernel (``edge_score``, ``hdrf_score``, ``augru``,
+              ``flash_attention``), compiled from ``src/`` with one nvcc
+              per source, all started together.
 3. kernels    each kernel against its plain torch version on the card, at
               the paths' shapes plus ragged, zero-padded and tied rows,
               flat and host-aware (``augru``: att == 1 and random, and an
-              H whose U does not fit in shared memory, within 1e-5);
-              device and CUDA-event timings, ``augru`` beside cuDNN's GRU.
+              H whose U does not fit in shared memory, within 1e-5;
+              ``flash_attention``: the reference test's cases,
+              starcoder2-3b's heads at 4,096 tokens, decode and chunked
+              prefill, and the prefill layer (1, 24/2, 32,768, 128) in the
+              model's layout in both dtypes, within 2e-5 in float32 and
+              2e-2 in bf16, each bf16 element also within 2^-7 of the
+              plain output plus 1e-5); device and CUDA-event timings,
+              ``augru`` beside cuDNN's GRU and ``flash_attention`` beside
+              SDPA's flash backend.
 4. recsys_serve  DIEN at full width through the serving CLI (``python -m
               repro_torch.launch.serve --arch dien --full --requests N``):
               ``serve_p99`` (512) after a warm-up, ``serve_bulk`` as four
@@ -23,24 +30,36 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               top 100: 1 ``augru`` launch per call.
 6. recsys_card_vs_cpu  the same full-width weights on the card and on the
               CPU: CTR and top-100 values within 1e-5, equal top-100 sets.
-7. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
+7. lm_prefill  starcoder2-3b at full width and depth (bf16, 30 layers):
+              ``make_lm_prefill_step`` on (1, 32,768) tokens, one warm-up
+              and two timed calls (and one profiled); exactly 30
+              ``flash_attention`` launches per call.
+8. lm_serve   ``python -m repro_torch.launch.serve --arch starcoder2-3b
+              --full --requests 4 --max-new 16``: greedy decode through the
+              plain GQA attention, no kernel launch.
+9. lm_card_vs_cpu  starcoder2-3b's widths in float32: 2 layers on (1, 512)
+              tokens, card against CPU; all 30 layers on (1, 2,048) on the
+              card, through the kernel against through the plain attention
+              (last logits within 1e-3 of their largest magnitude, the same
+              argmax).
+10. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
               stream (the user's entry point, through
               ``MemmapEdgeStream``), k=32.
-8. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
+11. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
               dcn_penalty 1.0).
-9. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-20 (``--scale``): one
+12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-20 (``--scale``): one
               ``hdrf_score`` launch per scoring chunk, no ``edge_score``.
-10. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
-              RMAT-17: one ``hdrf_score`` launch per non-empty 64-edge
+13. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
+              RMAT-16: one ``hdrf_score`` launch per non-empty 64-edge
               micro-batch.
-11. hash      DBH, Grid and Random through the CLI at RMAT-20.
-12. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
+14. hash      DBH, Grid and Random through the CLI at RMAT-20.
+15. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
               (2PS-L at RMAT-16; 2PS-HDRF, HDRF and Greedy at RMAT-14);
               the card's busy share profiled over the first 2^18 (2PS-L)
               or 2^15 edges.
-13. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
+16. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
               host sync, rounds skipped when nothing is pending) against
-              running its k+1 rounds unconditionally (2PS-L, RMAT-17).
+              running its k+1 rounds unconditionally (2PS-L, RMAT-16).
 
 Every path phase resets every kernel's launch counter just before it and
 checks the counts just after.
@@ -65,10 +84,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM peaks used for bounds (NVIDIA's data sheet: HBM3 bandwidth and
-#: float32 rate outside the tensor cores)
+#: H100 SXM peaks used for bounds (NVIDIA's data sheet: HBM3 bandwidth,
+#: float32 rate outside the tensor cores, dense bf16 tensor-core rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 
 T0 = time.perf_counter()
@@ -194,11 +214,13 @@ def device_ms_per_call(fn, reps: int = 100) -> float | None:
     return us / reps / 1e3 if us > 0 else None
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over HBM bandwidth or
-    float32 operations over the float32 peak, whichever is larger."""
+    operations over the peak rate of their type (float32 by default),
+    whichever is larger."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -445,6 +467,151 @@ def time_augru(B: int, T: int = 100, H: int = 108, reps: int = 20,
 
 
 # ---------------------------------------------------------------------------
+# flash_attention inputs: the reference test's cases and the LM's shapes
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: (B, Hq, Hkv, Sq, Skv, D, causal, dtype) checked on the card: the
+#: reference test's seven cases, starcoder2-3b's heads (24 over 2) causal at
+#: 4,096 tokens in both dtypes, one decode step against a 32,768-key cache,
+#: a chunked prefill, the largest head dim and a ragged one, non-causal
+FLASH_CHECK = (
+    (1, 2, 2, 128, 128, 64, True, "float32"),
+    (2, 4, 2, 256, 256, 32, True, "float32"),
+    (1, 8, 1, 64, 64, 128, False, "float32"),
+    (1, 2, 2, 100, 100, 16, True, "float32"),
+    (1, 4, 2, 1, 512, 64, True, "float32"),
+    (1, 2, 1, 130, 390, 32, True, "float32"),
+    (1, 2, 2, 128, 128, 64, True, "bfloat16"),
+    (1, 24, 2, 4096, 4096, 128, True, "bfloat16"),
+    (1, 24, 2, 4096, 4096, 128, True, "float32"),
+    (1, 24, 2, 1, 32768, 128, True, "bfloat16"),
+    (1, 24, 2, 1000, 5000, 128, True, "bfloat16"),
+    (1, 4, 2, 300, 300, 256, True, "float32"),
+    (1, 4, 1, 65, 65, 80, False, "float32"),
+)
+#: the prefill layer's shape, checked in float32 in the model's layout (the
+#: bf16 one is checked where it is timed, in ``time_flash_attention``)
+FLASH_MAIN = ((1, 24, 2, 32_768, 32_768, 128, True, "float32"),)
+
+
+def flash_inputs(B, Hq, Hkv, Sq, Skv, D, dtype: str, seed: int, device,
+                 model_layout: bool = False):
+    """q, k, v ~ N(0, 1), as the reference test draws them, made on
+    ``device`` from a seeded generator.  ``model_layout``: v is the (B, Hkv,
+    Skv, D) transposed view of a (B, Skv, Hkv, D) tensor, as the LM's value
+    projection reaches the kernel (q and k come out of RoPE contiguous)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    v_shape = (B, Skv, Hkv, D) if model_layout else (B, Hkv, Skv, D)
+    q, k, v = (torch.randn(shape, generator=g, device=device).to(
+        getattr(torch, dtype))
+        for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), v_shape))
+    return [q, k, v.transpose(1, 2) if model_layout else v]
+
+
+#: bf16 outputs: each element within one bf16 rounding of the plain one
+#: (both round the same float32 result once, so they differ by at most one
+#: unit in the last of bf16's 8 significant bits, 2^-7 of the value) plus
+#: 1e-5 for the float32 arithmetic's own differences (float32 cases: below
+#: 1e-6)
+BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5
+
+
+def flash_agree(got, want, dtype: str) -> dict:
+    """max |kernel - plain| against the reference test's tolerance of the
+    dtype; for bf16 also every element against ``BF16_REL`` |plain| +
+    ``BF16_ABS``, which, unlike the reference's absolute 2e-2, is smaller
+    than the outputs themselves (~0.009 at 32,768 keys)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    line = {"max_abs_err": err, "max_abs_out": float(want.abs().max())}
+    ok = err <= FLASH_TOL[dtype]
+    if dtype == "bfloat16":
+        excess = float((diff / (BF16_REL * want.abs() + BF16_ABS)).max())
+        line["max_err_over_elementwise_bound"] = excess
+        ok = ok and excess <= 1.0
+    line["ok"] = ok
+    return line
+
+
+def check_flash_attention(cases, model_layout: bool = False) -> dict:
+    """The CUDA kernel against its plain version (``gqa_attention``, as the
+    wrapper runs it on the CPU) on the card, by ``flash_agree``."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+    out, max_err = [], 0.0
+    for i, (B, Hq, Hkv, Sq, Skv, D, causal, dtype) in enumerate(cases):
+        args = flash_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, seed=i,
+                            device="cuda", model_layout=model_layout)
+        got = flash_attention(*args, causal=causal)
+        want = plain_attention(*args, causal=causal)
+        torch.cuda.synchronize()
+        out.append({"shape": [B, Hq, Hkv, Sq, Skv, D], "causal": causal,
+                    "dtype": dtype, "model_layout": model_layout,
+                    **flash_agree(got, want, dtype)})
+        max_err = max(max_err, out[-1]["max_abs_err"])
+        if not out[-1]["ok"]:
+            raise AssertionError(f"flash_attention disagrees: {out[-1]}")
+        del args, got, want
+    torch.cuda.empty_cache()
+    return {"tolerance": f"max |kernel - plain| <= {FLASH_TOL}; bf16 also "
+                         f"|kernel - plain| <= {BF16_REL} |plain| + "
+                         f"{BF16_ABS} elementwise",
+            "cases": out, "max_abs_err": max_err}
+
+
+def flash_work(B, Hq, Hkv, Sq, Skv, D, causal, itemsize) -> tuple:
+    """(bytes, operations) of one call: q, k, v read once and o written
+    once; 4 D operations (two multiply-adds of D) per visible (query, key)
+    pair and head."""
+    off = Skv - Sq
+    pairs = (sum(min(Skv, max(0, i + off + 1)) for i in range(Sq))
+             if causal else Sq * Skv)
+    nbytes = itemsize * D * (2 * B * Hq * Sq + 2 * B * Hkv * Skv)
+    return nbytes, 4 * D * pairs * B * Hq
+
+
+def time_flash_attention(S: int, Hq: int = 24, Hkv: int = 2,
+                         D: int = 128) -> dict:
+    """One causal bf16 prefill layer of (1, Hq, S, D) in the model's layout
+    (``flash_inputs(model_layout=True)``): the kernel's output held to its
+    plain version's by ``flash_agree``, then the kernel, the plain version
+    and SDPA (flash backend, GQA, causal; a yardstick of speed only, never
+    on the port's path) timed between CUDA events on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+    q, k, v = flash_inputs(1, Hq, Hkv, S, S, D, "bfloat16", seed=7,
+                           device="cuda", model_layout=True)
+    agree = flash_agree(flash_attention(q, k, v), plain_attention(q, k, v),
+                        "bfloat16")
+    if not agree["ok"]:
+        raise AssertionError(f"flash_attention disagrees at the prefill "
+                             f"shape: {agree}")
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v), reps=3, warmup=1)
+    plain_ms = cuda_time_ms(lambda: plain_attention(q, k, v), reps=2,
+                            warmup=1)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=10, warmup=2)
+    nbytes, ops = flash_work(1, Hq, Hkv, S, S, D, True, 2)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": [1, Hq, Hkv, S, S, D], "causal": True,
+            "dtype": "bfloat16", "model_layout": True, **agree, "ms": ms,
+            "plain_ms": plain_ms, "ms_source": "cuda_events",
+            "tflop_per_s": ops / ms / 1e9,
+            **bound(nbytes, ops, BF16_OPS_PER_S), "library_ms": lib_ms,
+            "library": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True), flash backend"}
+
+
+# ---------------------------------------------------------------------------
 # the DIEN serving path
 # ---------------------------------------------------------------------------
 
@@ -617,6 +784,230 @@ def recsys_card_vs_cpu(batch: int = 512, top_k: int = 100) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the LM serving path (starcoder2-3b)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "starcoder2-3b"
+#: the prefill shape: ``prefill_32k``'s length at batch 1 (cut from 32)
+PREFILL_SEQ = 32_768
+#: a timed prefill call above this many seconds times half the length
+PREFILL_CALL_LIMIT_S = 20.0
+
+
+def lm_params(cfg, seed: int, device="cuda"):
+    import torch
+    from repro_torch.models.transformer import init_params
+    return init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+
+
+def lm_tokens(cfg, seq: int, seed: int, device="cuda"):
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq))).to(device)
+
+
+def prefill_calls(step, params, tokens, n: int, n_layers: int) -> tuple:
+    """``n`` calls of the prefill step, each ending in a synchronize, with
+    every counter reset just before and read just after (exactly one
+    ``flash_attention`` launch per layer); their wall seconds and the sum
+    of the ``flash_attention`` counts read."""
+    import torch
+    walls, launches = [], 0
+    for _ in range(n):
+        logits, counts, wall = counted(lambda: (
+            step(params, {"tokens": tokens}), torch.cuda.synchronize())[0])
+        expect_launches(counts, {"flash_attention": n_layers},
+                        f"LM prefill of {tuple(tokens.shape)} (one "
+                        f"flash_attention per layer)")
+        if (logits.shape != (tokens.shape[0], params["embed"]["table"]
+                             .shape[0])
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError("prefill logits not finite or misshapen")
+        walls.append(wall)
+        launches += counts["flash_attention"]
+    return walls, launches
+
+
+def lm_prefill(seq: int = PREFILL_SEQ) -> dict:
+    """``make_lm_prefill_step`` on starcoder2-3b at full width and depth:
+    one warm-up call at ``seq`` tokens, then two timed calls (at ``seq // 2``
+    if the warm-up took more than ``PREFILL_CALL_LIMIT_S``) and one profiled
+    call; 30 ``flash_attention`` launches per call."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_lm_prefill_step
+    cfg = get_arch(LM_ARCH).make_config()
+    params = lm_params(cfg, seed=0)
+    step = make_lm_prefill_step(cfg)
+    tokens = lm_tokens(cfg, seq, seed=0)
+    warm, launches = prefill_calls(step, params, tokens, 1, cfg.n_layers)
+    timed_seq = seq if warm[0] <= PREFILL_CALL_LIMIT_S else seq // 2
+    tokens = tokens[:, :timed_seq]
+    torch.cuda.reset_peak_memory_stats()
+    walls, n = prefill_calls(step, params, tokens, 2, cfg.n_layers)
+    launches += n
+    peak = torch.cuda.max_memory_allocated()
+    call_ms = float(np.median(walls)) * 1e3
+    profiled = []
+    by_name, _ = profile_kernels(lambda: profiled.append(prefill_calls(
+        step, params, tokens, 1, cfg.n_layers)[1]))
+    launches += profiled[0]
+    busy_us = sum(us for us, _ in by_name.values())
+    flash_us = sum(us for name, (us, _) in by_name.items()
+                   if "flash_attention" in name)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    del params
+    torch.cuda.empty_cache()
+    return {"config": "configs/starcoder2_3b.py::full (30 layers, d_model "
+                      "3072, 24 heads over 2 KV heads, head dim 128, d_ff "
+                      "12288, vocab 49152, bf16, random weights, seed 0)",
+            "shape": [1, timed_seq], "warmup_shape": [1, seq],
+            "cut": "batch 1 of prefill_32k's 32 (one card; the attention "
+                   "of one sequence is the kernel's unit of work)"
+                   + ("" if timed_seq == seq else
+                      f"; timed at {timed_seq} tokens because the warm-up "
+                      f"call took {warm[0]:.1f} s"),
+            "warmup_wall_s": warm[0], "call_wall_s": walls,
+            "ms_per_call": call_ms,
+            "tokens_per_s": timed_seq / call_ms * 1e3,
+            "peak_device_bytes": peak,
+            "flash_attention_launches": launches,
+            "kernel_breakdown": {
+                "device_ms": busy_us / 1e3,
+                "device_busy_share": (busy_us / 1e3 / call_ms if busy_us
+                                      else "not measured"),
+                "flash_attention_ms": flash_us / 1e3,
+                "flash_attention_share": (flash_us / busy_us if busy_us
+                                          else "not measured"),
+                "kernels": sum(n for _, n in by_name.values()),
+                "top_kernels_ms": {k[:80]: us / 1e3
+                                   for k, (us, _) in ranked}}}
+
+
+def run_lm_serve(argv) -> dict:
+    """The port's serving CLI for an LM, its JSON report checked."""
+    from repro_torch.launch.serve import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv + ["--json"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    keys = {"arch", "mode", "requests", "generated_tokens", "decode_s",
+            "tokens_per_s"}
+    if set(report) != keys:
+        raise AssertionError(f"LM serve report keys {sorted(report)}")
+    return report
+
+
+def lm_serve(requests: int = 4, max_new: int = 16,
+             prompt_len: int = 16) -> dict:
+    """``main(--arch starcoder2-3b --full --requests 4 --max-new 16)``:
+    decode takes the plain GQA attention, as the reference's does, so no
+    kernel launches."""
+    report, counts, wall = counted(lambda: run_lm_serve(
+        ["--arch", LM_ARCH, "--full", "--requests", str(requests),
+         "--max-new", str(max_new)]))
+    expect_launches(counts, {}, "LM serve (decode through the plain "
+                                "attention)")
+    if report["generated_tokens"] != requests * max_new:
+        raise AssertionError(f"generated {report['generated_tokens']} "
+                             f"tokens, expected {requests * max_new}")
+    steps = prompt_len + max_new - 1
+    return {**report, "main_wall_s": wall, "decode_steps": steps,
+            "ms_per_decode_step": report["decode_s"] / steps * 1e3,
+            "launches": counts,
+            "decode_step_profile": decode_profile(requests,
+                                                  prompt_len + max_new)}
+
+
+def decode_profile(requests: int, max_len: int) -> dict:
+    """One full-width decode step (position ``max_len // 2`` of a cache of
+    ``max_len``) timed between CUDA events, and its kernels profiled."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_lm_decode_step
+    from repro_torch.models.transformer import init_cache
+    cfg = get_arch(LM_ARCH).make_config()
+    params = lm_params(cfg, seed=0)
+    cache = {k: t.cuda() for k, t in
+             init_cache(cfg, requests, max_len).items()}
+    batch = {"cache": cache, "pos": max_len // 2,
+             "tokens": torch.zeros((requests, 1), dtype=torch.long).cuda()}
+    step = make_lm_decode_step(cfg)
+    ms = cuda_time_ms(lambda: step(params, batch), reps=10, warmup=2)
+    out = {"step_ms": ms, **kernel_breakdown(lambda: step(params, batch),
+                                             ms)}
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def logits_agree(a, b) -> dict:
+    """max |a - b| against 1e-3 of max |b|, and the argmax of each row."""
+    import torch
+    a, b = a.float().cpu(), b.float().cpu()
+    diff = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    return {"max_abs_diff": diff, "max_abs_logit": scale,
+            "relative": diff / scale, "same_argmax": same,
+            "ok": diff <= 1e-3 * scale and same}
+
+
+def lm_card_vs_cpu(short: int = 512, long: int = 2048) -> dict:
+    """starcoder2-3b's widths in float32 (TF32 off): 2 layers on (1,
+    ``short``) on the card and on the CPU; all 30 layers on (1, ``long``)
+    on the card through the kernel and through the plain attention."""
+    import dataclasses
+    import torch
+    import repro_torch.models.transformer as T
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ops import plain_attention
+    from repro_torch.launch.steps import make_lm_prefill_step
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    full = dataclasses.replace(get_arch(LM_ARCH).make_config(),
+                               dtype="float32")
+    cfg = dataclasses.replace(full, n_layers=2)
+    step = make_lm_prefill_step(cfg)
+    cpu_params = lm_params(cfg, seed=1, device="cpu")
+    tokens = lm_tokens(cfg, short, seed=1, device="cpu")
+    t0 = time.perf_counter()
+    on_cpu = step(cpu_params, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    card_params = T.params_to(cpu_params, "cuda")
+    on_card, counts, _ = counted(lambda: step(card_params,
+                                              {"tokens": tokens.cuda()}))
+    expect_launches(counts, {"flash_attention": cfg.n_layers},
+                    "2-layer float32 prefill")
+    short_line = {"layers": 2, "shape": [1, short], "cpu_s": cpu_s,
+                  **logits_agree(on_card, on_cpu)}
+    del card_params, cpu_params
+    params = lm_params(full, seed=2)
+    step = make_lm_prefill_step(full)
+    tokens = lm_tokens(full, long, seed=2)
+    kernel, counts, _ = counted(lambda: step(params, {"tokens": tokens}))
+    expect_launches(counts, {"flash_attention": full.n_layers},
+                    "30-layer float32 prefill")
+    saved = T.flash_attention
+    T.flash_attention = plain_attention
+    try:
+        plain, counts, _ = counted(lambda: step(params, {"tokens": tokens}))
+    finally:
+        T.flash_attention = saved
+    expect_launches(counts, {}, "30-layer float32 prefill, plain attention")
+    long_line = {"layers": full.n_layers, "shape": [1, long],
+                 **logits_agree(kernel, plain)}
+    del params
+    torch.cuda.empty_cache()
+    line = {"dtype": "float32", "tolerance": "max |a - b| <= 1e-3 max |b|, "
+            "same argmax", "card_vs_cpu": short_line,
+            "kernel_vs_plain": long_line}
+    if not (short_line["ok"] and long_line["ok"]):
+        raise AssertionError(f"LM card vs cpu disagree: {line}")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # the partitioning path
 # ---------------------------------------------------------------------------
 
@@ -661,10 +1052,12 @@ def check_run(report: dict, res, k: int, num_edges: int) -> dict:
 
 def counters() -> dict:
     """Every kernel's launch counter, by kernel name."""
-    from repro_torch.kernels import augru, edge_score, hdrf_score
+    from repro_torch.kernels import (augru, edge_score, flash_attention,
+                                     hdrf_score)
     return {"edge_score": edge_score.launches,
             "hdrf_score": hdrf_score.launches,
-            "augru": augru.launches}
+            "augru": augru.launches,
+            "flash_attention": flash_attention.launches}
 
 
 def counted(fn):
@@ -680,6 +1073,8 @@ def counted(fn):
 
 
 def expect_launches(counts: dict, expected: dict, what: str) -> None:
+    """``counts`` must be ``expected``, every kernel it does not name at 0."""
+    expected = {**dict.fromkeys(counts, 0), **expected}
     if counts != expected:
         raise AssertionError(f"{what}: launches {counts}, expected "
                              f"{expected}")
@@ -772,9 +1167,9 @@ def hdrf_launches(E: int, chunk: int, sub: int = 64) -> int:
 
 def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
     """HDRF, Greedy and host-aware HDRF through the CLI.  Each 64-edge
-    micro-batch is a few dozen eager launches; at RMAT-17 that is ~30,400
-    micro-batches per run (about half a minute each), which is why this
-    phase runs below the 2PS-HDRF path's scale."""
+    micro-batch is a few dozen eager launches; at RMAT-16 that is 14,927
+    micro-batches per run (15-20 s each), which is why this phase runs
+    below the 2PS-HDRF path's scale."""
     path, E = write_graph(scale, tmp)
     chunk = 1 << 16                     # the CLI's --chunk-size default
     want = hdrf_launches(E, chunk)
@@ -795,7 +1190,7 @@ def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
         if extra:
             runs[name]["cross_host_rf"] = report["cross_host_rf"]
     return {"why_reduced": "64-edge micro-batches of a few dozen eager "
-                           "launches each: ~30,400 per run at RMAT-17",
+                           "launches each: 14,927 per run at RMAT-16",
             **runs}
 
 
@@ -940,7 +1335,8 @@ def main(argv=None) -> int:
                     help="RMAT scale of the 2PS-HDRF and hash graphs "
                          "(default 20); 2PS-L runs at min(scale, 19), the "
                          "hosted 2PS-L at min(scale, 18), the HDRF "
-                         "baselines at min(scale, 17)")
+                         "baselines and the overflow-tail comparison at "
+                         "min(scale, 16)")
     args = ap.parse_args(argv)
 
     import torch
@@ -951,6 +1347,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.augru import kernel as ag_kernel
     from repro_torch.kernels.edge_score import kernel as es_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.hdrf_score import kernel as hs_kernel
 
     smi = nvidia_smi()
@@ -962,7 +1359,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
                       hs_kernel.NAME: hs_kernel.SOURCE,
-                      ag_kernel.NAME: ag_kernel.SOURCE})
+                      ag_kernel.NAME: ag_kernel.SOURCE,
+                      fa_kernel.NAME: fa_kernel.SOURCE})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": i["seconds"],
                           "ptxas": [ln for ln in i["log"].splitlines()
@@ -978,21 +1376,32 @@ def main(argv=None) -> int:
     a_timing = time_augru(512)
     a_bulk = time_augru(BULK_BATCH, reps=3, profile=False)
     a_one = time_augru(1)
+    f_check = check_flash_attention(FLASH_CHECK)
+    f_main = check_flash_attention(FLASH_MAIN, model_layout=True)
+    f_timing = time_flash_attention(PREFILL_SEQ)
+    f_err = max(f_check["max_abs_err"], f_main["max_abs_err"],
+                f_timing["max_abs_err"])
     emit({"phase": "kernels", "edge_score": {**check, **timing},
           "hdrf_score": {**h_check, "chunk": h_timing,
                          "micro_batch": h_micro},
           "augru": {**a_check, "serve_p99": a_timing, "serve_bulk": a_bulk,
-                    "retrieval": a_one}})
+                    "retrieval": a_one},
+          "flash_attention": {**f_check, "prefill_layer_float32": f_main,
+                              "prefill_layer": f_timing}})
 
     rs = recsys_serve()
     emit({"phase": "recsys_serve", **rs})
     emit({"phase": "recsys_retrieval", **recsys_retrieval()})
     emit({"phase": "recsys_card_vs_cpu", **recsys_card_vs_cpu()})
+    lp = lm_prefill()
+    emit({"phase": "lm_prefill", **lp})
+    emit({"phase": "lm_serve", **lm_serve()})
+    emit({"phase": "lm_card_vs_cpu", **lm_card_vs_cpu()})
 
     with tempfile.TemporaryDirectory() as tmp:
         # the partitioning paths run below their earlier slices' scales
         # (2PS-HDRF and the hashes at RMAT-20, 2PS-L at 19, the HDRF
-        # baselines at 17) so that the whole run, the DIEN phases
+        # baselines at 16) so that the whole run, the DIEN and LM phases
         # included, takes about half its time limit
         mp = main_path(min(args.scale, 19), tmp)
         emit({"phase": "main_path", **mp})
@@ -1000,7 +1409,7 @@ def main(argv=None) -> int:
         hp = two_ps_hdrf_path(args.scale, tmp)
         emit({"phase": "two_ps_hdrf", **hp})
         emit({"phase": "hdrf_baselines",
-              **hdrf_baselines(min(args.scale, 17), tmp)})
+              **hdrf_baselines(min(args.scale, 16), tmp)})
         emit({"phase": "hash", **hash_paths(args.scale, tmp)})
     emit({"phase": "card_vs_cpu",
           **card_vs_cpu(min(args.scale, 16), busy_edges=1 << 18),
@@ -1008,11 +1417,12 @@ def main(argv=None) -> int:
                                       busy_edges=1 << 15)
                           for name in ("2ps-hdrf", "hdrf", "greedy")]})
     emit({"phase": "least_loaded_rounds",
-          **least_loaded_rounds(min(args.scale, 17))})
+          **least_loaded_rounds(min(args.scale, 16))})
 
     paths = {"edge_score": mp["edge_score_launches"],
              "hdrf_score": hp["launches"]["hdrf_score"],
-             "augru": rs["augru_launches"]}
+             "augru": rs["augru_launches"],
+             "flash_attention": lp["flash_attention_launches"]}
     for name, n in paths.items():
         if n == 0:
             raise AssertionError(f"the path launched no {name} kernel")
@@ -1038,7 +1448,15 @@ def main(argv=None) -> int:
         "launches": paths["augru"], "max_abs_err": a_check["max_abs_err"],
         "ms": a_timing["ms"], "plain_ms": a_timing["plain_ms"],
         "bound_ms": a_timing["bound_ms"], "bound_by": a_timing["bound_by"],
-        "library_ms": a_timing["library_ms"]}]})
+        "library_ms": a_timing["library_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+        "launches": paths["flash_attention"], "max_abs_err": f_err,
+        "ms": f_timing["ms"], "plain_ms": f_timing["plain_ms"],
+        "bound_ms": f_timing["bound_ms"], "bound_by": f_timing["bound_by"],
+        "library_ms": f_timing["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

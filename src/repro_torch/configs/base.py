@@ -7,7 +7,8 @@ Each arch module registers:
   shapes   — the arch's own input-shape set
 
 The reference's ``input_specs`` (jax ``ShapeDtypeStruct`` stand-ins) and
-``config_for_shape`` serve its dry run and come with the LM slice's.
+``config_for_shape`` serve its dry run, which is not ported.
+LM shape kinds: train, prefill (forward), decode (a KV cache of seq_len).
 Recsys kinds: train / serve / retrieval.
 """
 from __future__ import annotations
@@ -19,9 +20,8 @@ ARCHS: dict[str, "ArchSpec"] = {}
 
 #: the reference's other architecture ids -> the ROADMAP item porting them
 _NOT_PORTED = {
-    **dict.fromkeys(("qwen1.5-110b", "starcoder2-3b", "minitron-8b",
-                     "qwen2-moe-a2.7b", "olmoe-1b-7b"),
-                    "Queue 1 item 12 (the LM stack)"),
+    **dict.fromkeys(("qwen2-moe-a2.7b", "olmoe-1b-7b"),
+                    "Queue 1 item 12 (MoE dispatch)"),
     **dict.fromkeys(("egnn", "nequip", "gin-tu", "gatedgcn"),
                     "Queue 1 item 10 (GNN serving and training)"),
 }
@@ -52,6 +52,14 @@ def get_arch(arch_id: str) -> ArchSpec:
             f"see ROADMAP.md {_NOT_PORTED[arch_id]}")
     return ARCHS[arch_id]
 
+
+LM_SHAPES = {
+    "train_4k": {"seq": 4096, "batch": 256, "kind": "train"},
+    "prefill_32k": {"seq": 32768, "batch": 32, "kind": "prefill"},
+    "decode_32k": {"seq": 32768, "batch": 128, "kind": "decode"},
+    # decode against a 512k cache is O(S) per step, not O(S^2)
+    "long_500k": {"seq": 524288, "batch": 1, "kind": "decode"},
+}
 
 RECSYS_SHAPES = {
     "train_batch": {"kind": "train", "batch": 65536},

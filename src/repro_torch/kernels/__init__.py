@@ -14,6 +14,8 @@ Kernels:
                step 3, and the HDRF and Greedy baselines' micro-batches)
   augru      — DIEN's attention-gated GRU scan, all T states out (the GRU
                stage at att == 1 and the interest evolution)
+  flash_attention — causal / non-causal GQA attention with an online
+               softmax (the LM prefill forward, one launch per layer)
 """
 
 

@@ -1,1 +1,2 @@
-"""Models of the port: the counterparts of ``repro.models`` (DIEN so far)."""
+"""Models of the port: the counterparts of ``repro.models`` (DIEN and the
+dense LM so far)."""

@@ -2,14 +2,17 @@
 
 Parameters are plain dicts of tensors, as the reference's pytrees.  The
 weight keeps the reference's ``(d_in, d_out)`` layout, so ``x @ w + b`` is
-the same product (``nn.Linear`` would store the transpose).  Only what DIEN
-needs is here; the norms come with the LM slice.
+the same product (``nn.Linear`` would store the transpose).  The norms,
+RoPE and activations follow the reference's arithmetic: both norms and RoPE
+compute in float32 and cast back to the input's dtype, ``gelu`` is the tanh
+approximation (``jax.nn.gelu``'s default) and RoPE rotates halves.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
@@ -32,3 +35,103 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)   # population variance
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def norm_init(kind: str, d: int, dtype=torch.float32, device=None) -> dict:
+    return (rmsnorm_init(d, dtype, device) if kind == "rmsnorm"
+            else layernorm_init(d, dtype, device))
+
+
+def norm_apply(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(d_head: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, D); positions: broadcastable to (..., S).  Rotates the
+    halves x1 = x[..., :D/2], x2 = x[..., D/2:] (not interleaved pairs)."""
+    D = x.shape[-1]
+    inv = rope_frequencies(D, theta, device=x.device)
+    ang = positions[..., None].float() * inv                # (..., S, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+def activation(kind: str, x: torch.Tensor) -> torch.Tensor:
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "relu2":          # squared ReLU (Nemotron/Primer)
+        r = F.relu(x)
+        return r * r
+    raise ValueError(kind)
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
+             gated: bool, bias: bool = False, dtype=torch.float32) -> dict:
+    p = {"up": dense_init(generator, d_model, d_ff, bias=bias, dtype=dtype),
+         "down": dense_init(generator, d_ff, d_model, bias=bias,
+                            dtype=dtype)}
+    if gated:
+        p["gate"] = dense_init(generator, d_model, d_ff, bias=bias,
+                               dtype=dtype)
+    return p
+
+
+def mlp(p: dict, x: torch.Tensor, *, act: str) -> torch.Tensor:
+    up = dense(p["up"], x)
+    if "gate" in p:
+        h = activation(act, dense(p["gate"], x)) * up
+    else:
+        h = activation(act, up)
+    return dense(p["down"], h)
+
+
+def embedding_init(generator: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32) -> dict:
+    return {"table": torch.randn((vocab, d), generator=generator,
+                                 dtype=dtype, device=generator.device)
+            * 0.02}

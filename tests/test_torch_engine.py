@@ -281,6 +281,9 @@ def test_port_runs_without_jax_or_repro_loaded(tmp_path):
         "rep = serve.main(['--arch', 'dien', '--requests', '8',\n"
         "                  '--device', 'cpu'])\n"
         "assert rep['requests'] == 8 and 0 < rep['mean_ctr'] < 1, rep\n"
+        "rep = serve.main(['--arch', 'starcoder2-3b', '--requests', '2',\n"
+        "                  '--max-new', '3', '--device', 'cpu'])\n"
+        "assert rep['generated_tokens'] == 6, rep\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
