@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's partitioning, DIEN serving and LM serving paths
-on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's partitioning, DIEN serving, LM serving, GNN
+aggregation and embedding pooling paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -8,8 +8,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. env        the card (nvidia-smi name and power limit), torch and CUDA.
 2. build      every kernel (``edge_score``, ``hdrf_score``, ``augru``,
-              ``flash_attention``), compiled from ``src/`` with one nvcc
-              per source, all started together.
+              ``flash_attention``, ``spmm``, ``embedding_bag``), compiled
+              from ``src/`` with one nvcc per source, all started together.
 3. kernels    each kernel against its plain torch version on the card, at
               the paths' shapes plus ragged, zero-padded and tied rows,
               flat and host-aware (``augru``: att == 1 and random, and an
@@ -19,9 +19,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               prefill, and the prefill layer (1, 24/2, 32,768, 128) in the
               model's layout in both dtypes, within 2e-5 in float32 and
               2e-2 in bf16, each bf16 element also within 2^-7 of the
-              plain output plus 1e-5); device and CUDA-event timings,
-              ``augru`` beside cuDNN's GRU and ``flash_attention`` beside
-              SDPA's flash backend.
+              plain output plus 1e-5; ``spmm`` and ``segment_sum_tiles``:
+              the reference test's cases weighted and not, no edges,
+              isolated nodes, wrapped and clamped src, int64 indices, bf16
+              rows and hubs above the split length, with and without the
+              split; ``embedding_bag``: the reference test's cases, no
+              weights, an all-zero bag in ``mean``, wrapped and clamped
+              indices, int64 indices, a bf16 table and an empty bag; both
+              within 1e-5 of each element's absolute sum plus 1e-6);
+              device and CUDA-event timings, ``augru`` beside cuDNN's GRU
+              and ``flash_attention`` beside SDPA's flash backend.
 4. recsys_serve  DIEN at full width through the serving CLI (``python -m
               repro_torch.launch.serve --arch dien --full --requests N``):
               ``serve_p99`` (512) after a warm-up, ``serve_bulk`` as four
@@ -53,11 +60,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               RMAT-16: one ``hdrf_score`` launch per non-empty 64-edge
               micro-batch.
 14. hash      DBH, Grid and Random through the CLI at RMAT-20.
-15. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
+15. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
+              4 relabelled copies of the RMAT-20 graph (~2.58M nodes,
+              ~64.3M edges), ``prepare_tiles`` on the host, ``spmm(h, src,
+              edge_mask, prep)`` at gin-tu's D = 64 (a warm-up and 5 calls)
+              and ``segment_sum_tiles`` of (E, 70) messages (a warm-up and
+              2 calls), exactly one ``spmm`` launch per call; the outputs
+              against the plain versions, timed beside cuSPARSE's SpMM and
+              without the hub split.
+16. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
+              ``InteractionStream`` histories (seq 100, ``hist_mask`` as
+              the weights) at 512 and 65,536 bags, ``sum`` and ``mean``: a
+              warm-up and 3 calls each, exactly one launch per call; timed
+              beside ``F.embedding_bag``.
+17. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
+              ``embedding_bag`` at 512 bags, on the card and on the CPU
+              through the same op, within the kernels' tolerance.
+18. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
               (2PS-L at RMAT-16; 2PS-HDRF, HDRF and Greedy at RMAT-14);
               the card's busy share profiled over the first 2^18 (2PS-L)
               or 2^15 edges.
-16. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
+19. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
               host sync, rounds skipped when nothing is pending) against
               running its k+1 rounds unconditionally (2PS-L, RMAT-16).
 
@@ -212,6 +235,44 @@ def device_ms_per_call(fn, reps: int = 100) -> float | None:
     us = sum(e.device_time_total for e in prof.events()
              if e.device_type == DeviceType.CUDA)
     return us / reps / 1e3 if us > 0 else None
+
+
+def batched_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Time per call of ``reps`` back-to-back calls between two CUDA
+    events: the device time where the card, not the host's launches, sets
+    the pace."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def launch_ms(fn, kernel: str, reps: int = 50) -> tuple[float | None, int]:
+    """The mean device duration of the recorded launches of the CUDA
+    kernel whose name holds ``kernel`` over ``reps`` profiled calls of
+    ``fn`` (None when none was recorded), and how many were recorded: late
+    in a long run the profiler has kept as few as ~30% of its records, so
+    a mean over what it kept, not a sum over ``reps``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return (sum(us) / len(us) / 1e3 if us else None), len(us)
 
 
 def bound(nbytes: float, ops: float,
@@ -609,6 +670,164 @@ def time_flash_attention(S: int, Hq: int = 24, Hkv: int = 2,
             **bound(nbytes, ops, BF16_OPS_PER_S), "library_ms": lib_ms,
             "library": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True, enable_gqa=True), flash backend"}
+
+
+# ---------------------------------------------------------------------------
+# spmm and embedding_bag inputs: the reference test's cases and the edges
+# ---------------------------------------------------------------------------
+
+#: every element within SUM_REL of the absolute sum of its terms (sum_p
+#: |w(p) R[g(p), :]|, or of the bag's) plus SUM_ABS: the kernel and the plain
+#: version add in other orders; a bf16 output also within one bf16 rounding
+#: of the plain one (BF16_REL |plain|)
+SUM_REL, SUM_ABS = 1e-5, 1e-6
+SUM_TOL = (f"|kernel - plain| <= {SUM_REL} * sum |w R| + {SUM_ABS} per "
+           f"element (+ {BF16_REL} |plain| for a bf16 output)")
+#: (V, E, D, options) checked on the card, each weighted and unweighted: the
+#: reference test's six cases, no edges, nodes with no in-edge, negative and
+#: out-of-range src, int64 indices, bf16 rows, hubs above the split length
+#: (one of exactly 1,025 edges, one at a D of two column passes), a wide D
+SPMM_CHECK = (
+    (50, 300, 16, {}), (300, 2000, 70, {}), (1000, 5000, 128, {}),
+    (257, 1, 5, {}), (128, 128, 128, {}), (5, 40, 200, {}),
+    (10, 0, 16, {}), (1000, 300, 32, {"isolated": True}),
+    (50, 300, 16, {"bad_src": True}), (300, 2000, 70, {"idx": "int64"}),
+    (300, 2000, 70, {"dtype": "bfloat16"}),
+    (1000, 5000, 128, {"dtype": "bfloat16", "idx": "int64"}),
+    (100, 6000, 64, {"hub": 5000}), (200, 3000, 70, {"hub": 1025}),
+    (64, 3000, 300, {"hub": 2100, "idx": "int64", "bad_src": True}),
+    (40, 600, 520, {}))
+#: (V, D, B, L, mode, options): the reference test's four cases, no
+#: weights, a bag whose weights are all 0 (mean), negative and
+#: out-of-range indices, int64 indices, a bf16 table, an empty bag
+BAG_CHECK = (
+    (100, 16, 4, 10, "sum", {}), (1000, 18, 33, 100, "mean", {}),
+    (50, 128, 8, 5, "sum", {}), (10, 260, 1, 3, "mean", {}),
+    (100, 16, 4, 10, "sum", {"unweighted": True}),
+    (100, 16, 4, 10, "mean", {"unweighted": True}),
+    (100, 16, 4, 10, "mean", {"zero_bag": True}),
+    (10, 8, 2, 3, "sum", {"bad_idx": True}),
+    (1000, 18, 33, 100, "mean", {"idx": "int64", "bad_idx": True}),
+    (1000, 18, 33, 100, "sum", {"dtype": "bfloat16"}),
+    (1000, 18, 33, 100, "mean", {"dtype": "bfloat16"}),
+    (100, 16, 4, 0, "mean", {}))
+
+
+def sum_agree(got, want, scale) -> dict:
+    """Every element of ``got`` within ``SUM_REL`` * ``scale`` + ``SUM_ABS``
+    of ``want`` (plus one bf16 rounding for a bf16 output)."""
+    import torch
+    rel = BF16_REL if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if diff.numel() == 0:
+        return {"max_abs_err": 0.0, "max_err_over_bound": 0.0, "ok": True}
+    ratio = float((diff / (SUM_REL * scale.float() + SUM_ABS
+                           + rel * want.abs())).max())
+    return {"max_abs_err": float(diff.max()), "max_err_over_bound": ratio,
+            "ok": ratio <= 1.0}
+
+
+def spmm_inputs(V, E, D, seed, *, dtype="float32", idx="int32", hub=0,
+                isolated=False, bad_src=False):
+    """x ~ N(0, 1), w ~ N(0, 1), src and dst uniform (the reference test's
+    draws), on the card; ``hub`` edges all into node V // 2, ``isolated``
+    leaves three quarters of the nodes without an in-edge, ``bad_src``
+    makes every 7th src negative and every 7th out of range."""
+    import torch
+    from repro_torch.kernels.spmm import prepare_tiles
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, V, E)
+    dst = rng.integers(0, V, E)
+    if isolated:
+        dst %= max(1, V // 4)
+    dst[:hub] = V // 2
+    if bad_src:
+        src[::7] = -rng.integers(1, 2 * V + 1, len(src[::7]))
+        src[3::7] = V + rng.integers(0, 2 * V, len(src[3::7]))
+    w = rng.standard_normal(E).astype(np.float32)
+    x = rng.standard_normal((V, D)).astype(np.float32)
+    return (torch.from_numpy(x).to("cuda", getattr(torch, dtype)),
+            torch.from_numpy(src).to("cuda", getattr(torch, idx)),
+            torch.from_numpy(w).cuda(), torch.from_numpy(dst).cuda(),
+            prepare_tiles(dst, V).to("cuda"))
+
+
+def check_spmm(cases) -> dict:
+    """``spmm`` (weighted and not) and ``segment_sum_tiles`` through the
+    CUDA kernel against ``spmm_ref`` / ``segment_sum_ref`` on the card,
+    each element by ``sum_agree``; hub cases also with the split off."""
+    from repro_torch.kernels import wrap_clamp_index
+    from repro_torch.kernels.spmm import (segment_sum_ref, segment_sum_tiles,
+                                          spmm, spmm_ref)
+    out, max_err = [], 0.0
+    for i, (V, E, D, opt) in enumerate(cases):
+        x, src, w, dst, prep = spmm_inputs(V, E, D, seed=i, **opt)
+        preps = {"split": prep}
+        if prep.n_chunks:
+            preps["no_split"] = prep.with_split(None)
+        for name, pr in preps.items():
+            for wt in (w, None):
+                got = spmm(x, src, wt, pr)
+                want = spmm_ref(x, src, dst, wt, V)
+                scale = spmm_ref(x.float().abs(), src, dst,
+                                 None if wt is None else wt.abs(), V)
+                out.append({"op": "spmm", "V": V, "E": E, "D": D, **opt,
+                            "weighted": wt is not None, "prep": name,
+                            "hub_chunks": pr.n_chunks,
+                            **sum_agree(got, want, scale)})
+            msg = x[wrap_clamp_index(src, V)] * w[:, None].to(x.dtype)
+            got = segment_sum_tiles(msg, pr)
+            want = segment_sum_ref(msg, dst, V)
+            scale = segment_sum_ref(msg.float().abs(), dst, V)
+            out.append({"op": "segment_sum_tiles", "V": V, "E": E, "D": D,
+                        **opt, "prep": name, **sum_agree(got, want, scale)})
+    for line in out:
+        max_err = max(max_err, line["max_abs_err"])
+        if not line["ok"]:
+            raise AssertionError(f"spmm disagrees: {line}")
+    ratios = {dt: [c["max_err_over_bound"] for c in out
+                   if c.get("dtype", "float32") == dt]
+              for dt in ("float32", "bfloat16")}
+    return {"tolerance": SUM_TOL, "cases": len(out),
+            "max_err_over_bound": {dt: max(r) for dt, r in ratios.items()},
+            "max_abs_err": max_err}
+
+
+def check_embedding_bag(cases) -> dict:
+    """``embedding_bag`` through the CUDA kernel against
+    ``embedding_bag_ref`` on the card, each element by ``sum_agree``
+    (the bag's absolute sum divided, for ``mean``, as the output is)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+    out, max_err = [], 0.0
+    for i, (V, D, B, L, mode, opt) in enumerate(cases):
+        rng = np.random.default_rng(i)
+        t = rng.standard_normal((V, D)).astype(np.float32)
+        idx = rng.integers(0, V, (B, L))
+        w = rng.random((B, L)).astype(np.float32)
+        if opt.get("bad_idx"):
+            idx[:, ::3] = -rng.integers(1, 2 * V + 1, idx[:, ::3].shape)
+            idx[:, 1::3] = V + rng.integers(0, 2 * V, idx[:, 1::3].shape)
+        if opt.get("zero_bag"):
+            w[1] = 0.0
+        t = torch.from_numpy(t).to("cuda",
+                                   getattr(torch, opt.get("dtype", "float32")))
+        idx = torch.from_numpy(idx).to("cuda",
+                                       getattr(torch, opt.get("idx", "int32")))
+        w = None if opt.get("unweighted") else torch.from_numpy(w).cuda()
+        got = embedding_bag(t, idx, w, mode=mode)
+        want = embedding_bag_ref(t, idx, w, mode=mode)
+        scale = embedding_bag_ref(t.float().abs(), idx,
+                                  None if w is None else w.abs(), mode=mode)
+        torch.cuda.synchronize()
+        out.append({"V": V, "D": D, "B": B, "L": L, "mode": mode, **opt,
+                    **sum_agree(got, want, scale)})
+        max_err = max(max_err, out[-1]["max_abs_err"])
+        if not out[-1]["ok"]:
+            raise AssertionError(f"embedding_bag disagrees: {out[-1]}")
+    return {"tolerance": SUM_TOL, "cases": out, "max_abs_err": max_err}
 
 
 # ---------------------------------------------------------------------------
@@ -1052,12 +1271,14 @@ def check_run(report: dict, res, k: int, num_edges: int) -> dict:
 
 def counters() -> dict:
     """Every kernel's launch counter, by kernel name."""
-    from repro_torch.kernels import (augru, edge_score, flash_attention,
-                                     hdrf_score)
+    from repro_torch.kernels import (augru, edge_score, embedding_bag,
+                                     flash_attention, hdrf_score, spmm)
     return {"edge_score": edge_score.launches,
             "hdrf_score": hdrf_score.launches,
             "augru": augru.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "spmm": spmm.launches,
+            "embedding_bag": embedding_bag.launches}
 
 
 def counted(fn):
@@ -1209,6 +1430,316 @@ def hash_paths(scale: int, tmp: str, k: int = 32) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the GNN aggregation and embedding pooling ops at ogb_products' and DIEN's
+# scale
+# ---------------------------------------------------------------------------
+
+#: gin-tu aggregates at d_hidden 64 over 5 layers; GatedGCN's width is 70
+GIN_D, GIN_LAYERS, GATED_D = 64, 5, 70
+GNN_COPIES = 4
+#: ogb_products (configs/base.py GNN_SHAPES), for the line beside the graph
+OGB_PRODUCTS = {"n_nodes": 2_449_029, "n_edges": 61_859_140}
+
+
+def relabelled_copies(edges, copies: int, seed: int) -> tuple:
+    """``copies`` disjoint copies of the graph on its touched vertices, the
+    node ids relabelled by a seeded permutation and the edges shuffled:
+    (src, dst) int32 and the node count."""
+    touched = np.zeros(int(edges.max()) + 1, bool)
+    touched[edges.ravel()] = True
+    n1 = int(touched.sum())
+    compact = (np.cumsum(touched) - 1)[edges]
+    rng = np.random.default_rng(seed)
+    label = rng.permutation(copies * n1)
+    copy, row = np.divmod(rng.permutation(copies * len(edges)), len(edges))
+    base = copy * n1
+    return (label[compact[row, 0] + base].astype(np.int32),
+            label[compact[row, 1] + base].astype(np.int32), copies * n1)
+
+
+def counted_calls(fn, n: int, kernel: str, what: str) -> tuple:
+    """``n`` calls of ``fn``, each with every counter reset just before and
+    read just after (exactly one launch of ``kernel``, nothing else), each
+    timed between CUDA events; (the last output, ms per call, launches)."""
+    import torch
+    ms, launches, out = [], 0, None
+    for _ in range(n):
+        out = None           # as a layer loop frees the last output
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+
+        def call():
+            a.record()
+            r = fn()
+            b.record()
+            b.synchronize()
+            return r
+        out, counts, _ = counted(call)
+        expect_launches(counts, {kernel: 1}, what)
+        ms.append(a.elapsed_time(b))
+        launches += counts[kernel]
+    return out, ms, launches
+
+
+def csr_library_ms(prep, col, values, n_cols: int, rows, reps: int = 5):
+    """cuSPARSE's SpMM (``torch.sparse.mm`` of a CSR matrix built once from
+    the prep) on the same operands: a yardstick of speed only, never on the
+    port's path.  Returns (ms, its output)."""
+    import torch
+    a = torch.sparse_csr_tensor(prep.row_ptr, col, values,
+                                size=(prep.num_nodes, n_cols),
+                                check_invariants=False)
+    ms = cuda_time_ms(lambda: torch.sparse.mm(a, rows), reps, 1)
+    return ms, torch.sparse.mm(a, rows)
+
+
+def gnn_aggregate(scale: int, tmp: str) -> dict:
+    """One GIN layer's neighbour sum at ogb_products' scale: 4 relabelled
+    copies of RMAT-``scale``; ``spmm(h, src, edge_mask, prep)`` at gin-tu's
+    D = 64, one warm-up and one call per layer, and ``segment_sum_tiles``
+    of (E, 70) messages, one warm-up and two calls; exactly one ``spmm``
+    launch per call.  Then the last outputs against the plain versions,
+    and the kernel, the plain versions and cuSPARSE timed on the inputs."""
+    import torch
+    from repro_torch.kernels import wrap_clamp_index
+    from repro_torch.kernels.spmm import (prepare_tiles, segment_sum_ref,
+                                          segment_sum_tiles, spmm, spmm_ref)
+    t0 = time.perf_counter()
+    path, _ = write_graph(scale, tmp)
+    src, dst, N = relabelled_copies(np.fromfile(path, np.uint32)
+                                    .reshape(-1, 2), GNN_COPIES, seed=0)
+    graph_s = time.perf_counter() - t0
+    E = len(src)
+    t0 = time.perf_counter()
+    host_prep = prepare_tiles(dst, N)
+    prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep = host_prep.to("cuda")
+    torch.cuda.synchronize()
+    to_s = time.perf_counter() - t0
+    deg = np.diff(host_prep.row_ptr.numpy())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    src_d = torch.from_numpy(src).cuda()
+    dst_d = torch.from_numpy(dst).cuda()
+    h = torch.randn((N, GIN_D), generator=g, device="cuda")
+    mask = (torch.rand(E, generator=g, device="cuda") < 0.99).float()
+    torch.cuda.reset_peak_memory_stats()
+    y, gin_ms, gin_n = counted_calls(lambda: spmm(h, src_d, mask, prep),
+                                     1 + GIN_LAYERS, "spmm",
+                                     "gin-tu neighbour sum (one spmm)")
+    gin_peak = torch.cuda.max_memory_allocated()
+    gather = wrap_clamp_index(src_d, N)
+    touched = int(torch.unique(gather).numel())
+    # bytes: the x rows touched once (or one per edge), src, mask, perm,
+    # row_ptr read once, Y written once; 2 operations per (edge, feature)
+    rest = E * (4 + 4 + 4) + (N + 1) * 8 + N * GIN_D * 4
+    gin_bound = bound(touched * GIN_D * 4 + rest, 2 * E * GIN_D)
+    gin_gathered = bound(E * GIN_D * 4 + rest, 2 * E * GIN_D)
+    timing = timed(lambda: spmm(h, src_d, mask, prep),
+                   lambda: spmm_ref(h, src_d, dst_d, mask, N), reps=3,
+                   profile=False)
+    flat = prep.with_split(None)
+    flat_ms = cuda_time_ms(lambda: spmm(h, src_d, mask, flat), 3, 1)
+    flat_agree = sum_agree(spmm(h, src_d, mask, flat), y,
+                           spmm_ref(h.abs(), src_d, dst_d, mask, N))
+    perm = prep.perm.long()
+    lib_ms, lib_y = csr_library_ms(prep, gather[perm], mask[perm], N, h)
+    want = spmm_ref(h, src_d, dst_d, mask, N)
+    agree = sum_agree(y, want, spmm_ref(h.abs(), src_d, dst_d, mask, N))
+    lib_err = float((lib_y - want).abs().max())
+    if not (agree["ok"] and flat_agree["ok"]):
+        raise AssertionError(f"spmm disagrees at the path shape: {agree}, "
+                             f"without the split: {flat_agree}")
+    del h, y, want, lib_y, gather
+    torch.cuda.empty_cache()
+    gin = {"D": GIN_D, "calls_ms": gin_ms, "warmup_ms": gin_ms[0],
+           "ms_per_call": float(np.median(gin_ms[1:])), "launches": gin_n,
+           "peak_device_bytes": gin_peak, "touched_rows": touched,
+           "gb_per_s": (touched * GIN_D * 4 + rest) / 1e6
+           / float(np.median(gin_ms[1:])),
+           "gathered_gb_per_s": (E * GIN_D * 4 + rest) / 1e6
+           / float(np.median(gin_ms[1:])),
+           **timing, **gin_bound,
+           "gathered_bound_ms": gin_gathered["bound_ms"],
+           "no_split_ms": flat_ms, "no_split": flat_agree, **agree,
+           "library_ms": lib_ms, "library_max_abs_diff": lib_err,
+           "library": "torch.sparse.mm(CSR(row_ptr, src[perm], mask[perm]), "
+                      "h), cuSPARSE SpMM"}
+
+    msgs = torch.randn((E, GATED_D), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    y, seg_ms, seg_n = counted_calls(lambda: segment_sum_tiles(msgs, prep),
+                                     3, "spmm",
+                                     "GatedGCN message sum (one spmm)")
+    seg_peak = torch.cuda.max_memory_allocated()
+    seg_bytes = E * GATED_D * 4 + E * 4 + (N + 1) * 8 + N * GATED_D * 4
+    seg_timing = timed(lambda: segment_sum_tiles(msgs, prep),
+                       lambda: segment_sum_ref(msgs, dst_d, N), reps=2,
+                       profile=False)
+    lib_ms, lib_y = csr_library_ms(prep, perm, torch.ones_like(mask), E,
+                                   msgs, reps=2)
+    want = segment_sum_ref(msgs, dst_d, N)
+    lib_err = float((lib_y - want).abs().max())
+    del lib_y
+    agree = sum_agree(y, want, segment_sum_ref(msgs.abs_(), dst_d, N))
+    if not agree["ok"]:
+        raise AssertionError(f"segment_sum_tiles disagrees at the path "
+                             f"shape: {agree}")
+    del msgs, y, want
+    torch.cuda.empty_cache()
+    seg = {"D": GATED_D, "calls_ms": seg_ms, "warmup_ms": seg_ms[0],
+           "ms_per_call": float(np.median(seg_ms[1:])), "launches": seg_n,
+           "peak_device_bytes": seg_peak,
+           "gb_per_s": seg_bytes / 1e6 / float(np.median(seg_ms[1:])),
+           **seg_timing, **bound(seg_bytes, E * GATED_D), **agree,
+           "library_ms": lib_ms, "library_max_abs_diff": lib_err,
+           "library": "torch.sparse.mm(CSR(row_ptr, perm, ones), messages), "
+                      "cuSPARSE SpMM"}
+    return {"graph": f"{GNN_COPIES} copies of rmat_graph({scale}, "
+                     f"edge_factor=16, seed=0) on its touched vertices, ids "
+                     f"relabelled and edges shuffled (seed 0)",
+            "nodes": N, "edges": E, "ogb_products": OGB_PRODUCTS,
+            "max_in_degree": int(deg.max()),
+            "hub_rows": int(prep.hub_rows.numel()),
+            "hub_chunks": prep.n_chunks, "split": prep.split,
+            "graph_s": graph_s, "prepare_tiles_s": prepare_s,
+            "prep_to_cuda_s": to_s, "tolerance": SUM_TOL,
+            "gin_spmm": gin, "gated_segment_sum": seg,
+            "spmm_launches": gin_n + seg_n}
+
+
+def bag_pool() -> dict:
+    """``embedding_bag`` over DIEN's 2,097,152 x 18 float32 item table
+    (seeded ``torch.Generator``), batches of ``InteractionStream`` (seq
+    100, seed 0) of ``serve_p99`` (512) and ``BULK_BATCH`` rows with
+    ``hist`` as the indices and ``hist_mask`` as the weights, in ``sum``
+    and ``mean``: one warm-up and three calls each,
+    exactly one launch per call; then the last output against the plain
+    version, and the kernel, the plain version and, for ``sum``,
+    ``F.embedding_bag`` timed on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data import InteractionStream
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+    cfg = get_arch("dien").make_config()
+    V, D, L = cfg.n_items, cfg.embed_dim, cfg.seq_len
+    batches = (RECSYS_SHAPES["serve_p99"]["batch"], BULK_BATCH)
+    table = torch.randn((V, D), generator=torch.Generator(device="cuda")
+                        .manual_seed(0), device="cuda")
+    runs, launches = {}, 0
+    for B in batches:
+        b = InteractionStream(V, B, L, seed=0).next_batch()
+        idx = torch.from_numpy(b["hist"]).cuda()
+        w = torch.from_numpy(b["hist_mask"]).cuda()
+        touched = int(torch.unique(idx).numel())
+        rest = B * L * (4 + 4) + B * D * 4
+        for mode in ("sum", "mean"):
+            def op():
+                return embedding_bag(table, idx, w, mode=mode)
+
+            def plain():
+                return embedding_bag_ref(table, idx, w, mode=mode)
+            out, ms, n = counted_calls(op, 4, "embedding_bag",
+                                       f"bag pooling {B} x {L} {mode} (one "
+                                       f"embedding_bag)")
+            launches += n
+            agree = sum_agree(out, plain(), embedding_bag_ref(
+                table.abs(), idx, w, mode=mode))
+            if not agree["ok"]:
+                raise AssertionError(f"embedding_bag disagrees at ({B}, {L}) "
+                                     f"{mode}: {agree}")
+            lib_ms = lib_err = None
+            if mode == "sum":
+                def lib():
+                    return F.embedding_bag(idx, table, mode="sum",
+                                           per_sample_weights=w)
+                lib_ms = batched_ms(lib)
+                lib_err = float((lib() - out).abs().max())
+            kernel_ms, recorded = launch_ms(op, "embedding_bag_kernel")
+            op_ms = batched_ms(op)
+            runs[f"{B}_{mode}"] = {
+                "B": B, "L": L, "D": D, "mode": mode, "calls_ms": ms,
+                "ms_per_call": float(np.median(ms[1:])), "launches": n,
+                "touched_rows": touched, **agree,
+                "ms": op_ms if kernel_ms is None else kernel_ms,
+                "ms_source": (f"profiler, mean of {recorded} recorded "
+                              f"launches" if recorded else
+                              "CUDA events over 50 back-to-back calls"),
+                "batched_ms": op_ms, "plain_ms": batched_ms(plain),
+                "plain_ms_source": "CUDA events over 50 back-to-back calls",
+                **bound(touched * D * 4 + rest, 2 * B * L * D),
+                "gathered_bound_ms": bound(B * L * D * 4 + rest,
+                                           2 * B * L * D)["bound_ms"],
+                "library_ms": lib_ms, "library_max_abs_diff": lib_err,
+                "library": "F.embedding_bag(idx, table, mode='sum', "
+                           "per_sample_weights=w), CUDA events over 50 "
+                           "back-to-back calls" if mode == "sum" else
+                           "none: torch's mean ignores per-sample weights"}
+    del table
+    torch.cuda.empty_cache()
+    return {"table": [V, D], "config": "configs/dien.py::full item table, "
+            "seq 100, hist_mask as weights", "tolerance": SUM_TOL,
+            **runs, "embedding_bag_launches": launches}
+
+
+def ops_card_vs_cpu(scale: int) -> dict:
+    """The two ops on the card and on the CPU through the same call:
+    ``spmm`` at D = 64 on one relabelled copy of RMAT-``scale``, and
+    ``embedding_bag`` at B = 512 over the full DIEN table, each within the
+    tolerance (one launch on the card, none on the CPU)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import InteractionStream, rmat_graph
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.spmm import prepare_tiles, spmm, spmm_ref
+    src, dst, N = relabelled_copies(rmat_graph(scale, edge_factor=16, seed=0),
+                                    1, seed=1)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((N, GIN_D), generator=gen)
+    w = torch.rand(len(src), generator=gen)
+    src_t = torch.from_numpy(src)
+    prep = prepare_tiles(dst, N)
+    on_cpu, counts, cpu_s = counted(lambda: spmm(x, src_t, w, prep))
+    expect_launches(counts, {}, "spmm on the CPU")
+    card_prep = prep.to("cuda")
+    on_card, counts, _ = counted(lambda: spmm(x.cuda(), src_t.cuda(),
+                                              w.cuda(), card_prep).cpu())
+    expect_launches(counts, {"spmm": 1}, "spmm on the card")
+    gnn = {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0), "
+                    f"relabelled (seed 1)", "nodes": N, "edges": len(src),
+           "D": GIN_D, "cpu_s": cpu_s,
+           **sum_agree(on_card, on_cpu, spmm_ref(
+               x.abs(), src_t, torch.from_numpy(dst), w, N))}
+    cfg = get_arch("dien").make_config()
+    table = torch.randn((cfg.n_items, cfg.embed_dim),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(2), device="cuda")
+    b = InteractionStream(cfg.n_items, 512, cfg.seq_len, seed=2).next_batch()
+    idx, mask = torch.from_numpy(b["hist"]), torch.from_numpy(b["hist_mask"])
+    bags = {}
+    for mode in ("sum", "mean"):
+        on_card, counts, _ = counted(lambda: embedding_bag(
+            table, idx.cuda(), mask.cuda(), mode=mode).cpu())
+        expect_launches(counts, {"embedding_bag": 1},
+                        f"embedding_bag {mode} on the card")
+        cpu_table = table.cpu()
+        on_cpu, counts, cpu_s = counted(lambda: embedding_bag(
+            cpu_table, idx, mask, mode=mode))
+        expect_launches(counts, {}, f"embedding_bag {mode} on the CPU")
+        bags[mode] = {"B": 512, "cpu_s": cpu_s, **sum_agree(
+            on_card, on_cpu, embedding_bag_ref(cpu_table.abs(), idx, mask,
+                                               mode=mode))}
+    line = {"tolerance": SUM_TOL, "spmm": gnn, "embedding_bag": bags}
+    if not (gnn["ok"] and all(v["ok"] for v in bags.values())):
+        raise AssertionError(f"ops card vs cpu disagree: {line}")
+    return line
+
+
 def profile_kernels(fn) -> tuple[dict, float]:
     """One profiled run of ``fn``: the device time (us) of the CUDA kernels
     torch.profiler records, summed by kernel name with their count, and
@@ -1347,8 +1878,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.augru import kernel as ag_kernel
     from repro_torch.kernels.edge_score import kernel as es_kernel
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.hdrf_score import kernel as hs_kernel
+    from repro_torch.kernels.spmm import kernel as sp_kernel
 
     smi = nvidia_smi()
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
@@ -1360,7 +1893,9 @@ def main(argv=None) -> int:
     cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
                       hs_kernel.NAME: hs_kernel.SOURCE,
                       ag_kernel.NAME: ag_kernel.SOURCE,
-                      fa_kernel.NAME: fa_kernel.SOURCE})
+                      fa_kernel.NAME: fa_kernel.SOURCE,
+                      sp_kernel.NAME: sp_kernel.SOURCE,
+                      eb_kernel.NAME: eb_kernel.SOURCE})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": i["seconds"],
                           "ptxas": [ln for ln in i["log"].splitlines()
@@ -1381,13 +1916,16 @@ def main(argv=None) -> int:
     f_timing = time_flash_attention(PREFILL_SEQ)
     f_err = max(f_check["max_abs_err"], f_main["max_abs_err"],
                 f_timing["max_abs_err"])
+    s_check = check_spmm(SPMM_CHECK)
+    b_check = check_embedding_bag(BAG_CHECK)
     emit({"phase": "kernels", "edge_score": {**check, **timing},
           "hdrf_score": {**h_check, "chunk": h_timing,
                          "micro_batch": h_micro},
           "augru": {**a_check, "serve_p99": a_timing, "serve_bulk": a_bulk,
                     "retrieval": a_one},
           "flash_attention": {**f_check, "prefill_layer_float32": f_main,
-                              "prefill_layer": f_timing}})
+                              "prefill_layer": f_timing},
+          "spmm": s_check, "embedding_bag": b_check})
 
     rs = recsys_serve()
     emit({"phase": "recsys_serve", **rs})
@@ -1411,6 +1949,11 @@ def main(argv=None) -> int:
         emit({"phase": "hdrf_baselines",
               **hdrf_baselines(min(args.scale, 16), tmp)})
         emit({"phase": "hash", **hash_paths(args.scale, tmp)})
+        ga = gnn_aggregate(min(args.scale, 20), tmp)
+        emit({"phase": "gnn_aggregate", **ga})
+    bp = bag_pool()
+    emit({"phase": "bag_pool", **bp})
+    emit({"phase": "ops_card_vs_cpu", **ops_card_vs_cpu(min(args.scale, 16))})
     emit({"phase": "card_vs_cpu",
           **card_vs_cpu(min(args.scale, 16), busy_edges=1 << 18),
           "hdrf_family": [card_vs_cpu(min(args.scale, 14), name,
@@ -1419,10 +1962,14 @@ def main(argv=None) -> int:
     emit({"phase": "least_loaded_rounds",
           **least_loaded_rounds(min(args.scale, 16))})
 
+    gin = ga["gin_spmm"]
+    bulk = bp[f"{BULK_BATCH}_sum"]
     paths = {"edge_score": mp["edge_score_launches"],
              "hdrf_score": hp["launches"]["hdrf_score"],
              "augru": rs["augru_launches"],
-             "flash_attention": lp["flash_attention_launches"]}
+             "flash_attention": lp["flash_attention_launches"],
+             "spmm": ga["spmm_launches"],
+             "embedding_bag": bp["embedding_bag_launches"]}
     for name, n in paths.items():
         if n == 0:
             raise AssertionError(f"the path launched no {name} kernel")
@@ -1456,7 +2003,29 @@ def main(argv=None) -> int:
         "launches": paths["flash_attention"], "max_abs_err": f_err,
         "ms": f_timing["ms"], "plain_ms": f_timing["plain_ms"],
         "bound_ms": f_timing["bound_ms"], "bound_by": f_timing["bound_by"],
-        "library_ms": f_timing["library_ms"]}]})
+        "library_ms": f_timing["library_ms"]}, {
+        "name": "spmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
+        "replaces": "src/repro/kernels/spmm/kernel.py:52",
+        "launches": paths["spmm"],
+        "max_abs_err": max(s_check["max_abs_err"], gin["max_abs_err"],
+                           ga["gated_segment_sum"]["max_abs_err"]),
+        "ms": gin["ms"], "plain_ms": gin["plain_ms"],
+        "bound_ms": gin["bound_ms"], "bound_by": gin["bound_by"],
+        "gathered_bound_ms": gin["gathered_bound_ms"],
+        "library_ms": gin["library_ms"]}, {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                  "embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:37",
+        "launches": paths["embedding_bag"],
+        "max_abs_err": max([b_check["max_abs_err"]]
+                           + [r["max_abs_err"] for r in bp.values()
+                              if isinstance(r, dict)]),
+        "ms": bulk["ms"], "plain_ms": bulk["plain_ms"],
+        "bound_ms": bulk["bound_ms"], "bound_by": bulk["bound_by"],
+        "gathered_bound_ms": bulk["gathered_bound_ms"],
+        "library_ms": bulk["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,13 @@ Kernels:
                stage at att == 1 and the interest evolution)
   flash_attention — causal / non-causal GQA attention with an online
                softmax (the LM prefill forward, one launch per layer)
+  spmm       — destination-sorted segment sum, ``Y[dst] += w * R[g]``, with
+               the gather ``x[src]`` fused (a GNN layer's neighbour sum:
+               ``spmm`` and ``segment_sum_tiles``)
+  embedding_bag — weighted sum / mean of the rows of a bag of table
+               lookups, the gather fused (recsys history pooling)
 """
+import torch
 
 
 class LaunchCounter:
@@ -28,3 +34,12 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.count = 0
+
+
+def wrap_clamp_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """JAX's gather semantics for ``x[idx]`` on ``n`` rows, as int64: a
+    negative index wraps once (``i + n``), then every index is clamped to
+    [0, n - 1].  Torch indexing raises on both instead; the CUDA kernels
+    apply the same rule."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx).clamp_(0, max(n - 1, 0))

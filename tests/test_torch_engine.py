@@ -284,6 +284,20 @@ def test_port_runs_without_jax_or_repro_loaded(tmp_path):
         "rep = serve.main(['--arch', 'starcoder2-3b', '--requests', '2',\n"
         "                  '--max-new', '3', '--device', 'cpu'])\n"
         "assert rep['generated_tokens'] == 6, rep\n"
+        "import torch\n"
+        "from repro_torch.kernels.spmm import (prepare_tiles,\n"
+        "                                      segment_sum_tiles, spmm)\n"
+        "from repro_torch.kernels.embedding_bag import embedding_bag\n"
+        "src, dst = e[:, 0].astype(np.int64), e[:, 1].astype(np.int64)\n"
+        "n = int(e.max()) + 1\n"
+        "prep = prepare_tiles(dst, n)\n"
+        "x = torch.randn(n, 8)\n"
+        "y = spmm(x, torch.from_numpy(src), None, prep)\n"
+        "z = segment_sum_tiles(x[torch.from_numpy(src)], prep)\n"
+        "assert y.shape == (n, 8) and torch.allclose(y, z), (y - z)\n"
+        "pooled = embedding_bag(x, torch.from_numpy(e[:6].reshape(3, 4)),\n"
+        "                       mode='mean')\n"
+        "assert pooled.shape == (3, 8)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
