@@ -14,32 +14,62 @@
 // a longer cache than they have queries).  As the TPU kernel does, it
 // keeps an fp32 running max m, denominator l and accumulator per query
 // row, masks with -1e30, skips key tiles wholly above the diagonal and
-// ends with acc / max(l, 1e-30).  Operands are float32 or bfloat16; every
-// product and sum is float32 (bf16 operands are widened when staged, as
-// the TPU kernel's astype(float32)).  Any D <= 256, Sq >= 1 and Skv >= 1:
-// no padding of D to 128 lanes or of the sequences to 128-row blocks is
-// asked of the caller.  q, k and v may be strided views (the unit stride
-// must be D's), so the model's (B, S, H, D) projections are read in place.
-//
-// Design: one block of 256 threads per (64-query tile, query head,
-// batch), heaviest causal tiles first.  q's tile sits transposed in
-// shared memory for the whole block; each 64-key tile of k is staged
-// transposed, scored, and then the same buffer takes the tile of v.
-// Thread (ty, tx) of the 16 x 16 grid owns rows 4ty..4ty+3: it forms the
-// 4 x 4 scores of columns 4tx..4tx+3 (two float4 loads per 16 fmaf), and
-// the row's max and sum are reduced over the 16 threads of a half-warp by
-// shuffles, so the softmax state m, l of a row lives in the registers of
-// the threads that also hold the row's accumulator (columns 4tx + 64g +
-// e, e < 4, g < G).  p goes through shared memory (transposed) to the
-// P.V products.  Shared memory: (2 D + 64) * 68 floats, 87 KB at D = 128,
-// so two blocks share an SM.
+// ends with acc / max(l, 1e-30).  Any D <= 256, Sq >= 1 and Skv >= 1: no
+// padding of D to 128 lanes or of the sequences to 128-row blocks is asked
+// of the caller.  q, k and v may be strided views (the unit stride must be
+// D's), so the model's (B, S, H, D) projections are read in place.
 //
 // Bound: 4 D operations per visible (query, key) pair and head, 6.6e12 for
-// a causal (1, 24, 32768, 128) call, which is 6.7 ms at the bf16 tensor
-// core peak (989 TFLOP/s) against 0.13 ms for its bytes: the operations
-// bound it.  This first version runs them as float32 fmaf on the CUDA
-// cores (67 TFLOP/s peak), so it cannot come within 15x of that bound;
-// mma.sync / wgmma on bf16 tiles with TMA staging is the later speed work.
+// a causal (1, 24, 32768, 128) prefill layer, which is 6.67 ms at the bf16
+// tensor-core peak (989 TFLOP/s) against 0.13 ms for its 0.44 GB of
+// operands and output: the operations bound it, so the products have to
+// run on the tensor cores.
+//
+// Two kernels, chosen by dtype (flash_attention_launch):
+//
+// bfloat16 -> flash_tc_kernel, a FlashAttention-2-style forward on the
+// tensor cores.  One block of 4 warps per (query tile, query head, batch),
+// heaviest causal tiles first; each warp owns 16 MT query rows (MT = 2 at
+// D <= 128, 1 at 256: 128- or 64-row tiles), so a row's m, l and
+// accumulator live in one warp's registers and the row max and sum are
+// reduced over the 4 threads of a quad by shuffles (no shared memory and no
+// barrier in the softmax).  S = Q K^T and O += P V are mma.sync.m16n8k16
+// bf16 products with fp32 accumulators: Q's fragments come by ldmatrix
+// (kept in registers at D <= 64, re-read from shared memory above, where
+// the registers hold the 2 x 16 rows' accumulators instead: each K and V
+// fragment then feeds two m tiles, which halves the ldmatrix traffic per
+// product), K's by ldmatrix and V's by ldmatrix.trans.  The S accumulator,
+// scaled into the exp2 domain (scale * log2 e folded in) and exponentiated
+// by ex2.approx, is packed pairwise into the bf16 A fragments of P V (the
+// m16n8 C layout is the A layout), so P never touches shared memory.  K and
+// V tiles are staged by 16-byte cp.async copies into a 2-stage ring (tile
+// t + 1 loads while tile t computes), rows padded by 16 bytes so
+// ldmatrix's 8 rows fall in distinct banks.  Only tiles that cross the
+// diagonal or the end of the keys are masked (a per-row column limit);
+// tiles wholly above the diagonal are not visited.  D is templated at 64,
+// 128 and 256 (BK = 64, 64, 32 keys per tile); any other D is zero-padded
+// in shared memory to the next of those, and padded columns are not
+// stored.  Rows whose start is not 16-byte aligned (D or a stride not a
+// multiple of 8 elements, or a base pointer off 16 bytes) take the
+// kAligned = false variant, which stages by element loads; the wrapper
+// picks it from the pointers and strides before the launch.  Shared memory
+// at D = 128: Q 34 KB and K, V in 2 stages 70 KB, two blocks (8 warps of
+// 255 registers) per SM.  GQA: the 12 query heads of a kv head re-read its
+// K and V; both kv heads of the prefill layer (16 MB each) stay in the
+// 50 MB L2, so query heads are not packed into one block.  P is rounded to
+// bf16 before P V, as on every tensor-core flash kernel, so each output
+// differs from a float32 evaluation by up to 2^-8 sum_j p_j |v_j| / l
+// besides its own rounding (ops.bf16_output_bound).  mma.sync, not wgmma +
+// TMA, which is the later redesign that can match the card's peak.
+//
+// float32 -> simt::flash_attention_kernel, float32 fmaf on the CUDA cores
+// (67 TFLOP/s peak), so the float32 results keep full float32 products (no
+// TF32): one block of 256 threads per (64-query tile, head, batch); q's
+// tile sits transposed in shared memory, each 64-key tile of k is staged
+// transposed and scored in 4 x 4 register tiles per thread, p goes through
+// shared memory to the P.V products.  Its bf16 instantiation, the design
+// this file had before the tensor-core kernel, is reachable only through
+// flash_attention_previous_launch, to time the two on one card.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,12 +77,15 @@
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+namespace simt {
+
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 256;    // a 16 x 16 grid of (ty, tx)
 constexpr int kStride = 68;      // row stride (floats) of the transposed
                                  // tiles: 16-byte rows, 4-way store conflicts
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -258,29 +291,453 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
                       stream);
 }
 
+}  // namespace simt
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// DP: the head dim the tiles hold; MT: 16-row m tiles per warp
+template <int DP, int MT>
+struct Cfg {
+  static constexpr int BQ = 16 * MT * kWarps;  // query rows per block
+  static constexpr int BK = DP == 256 ? 32 : 64;  // keys per tile
+  static constexpr int RS = DP + 8;   // shared row stride: 16 bytes of pad
+  // Q's A fragments stay in registers for the whole block where they fit
+  static constexpr bool kQRegs = DP * MT <= 128;
+  static constexpr size_t kSmem = sizeof(bf16) * RS * (BQ + 4 * BK);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x by the special-function unit (relative error ~2^-22, subnormal
+// results flushed to 0: far below P's bf16 rounding)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two fp32 values -> one register of bf16 A fragment, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Rows [r0, r0 + ROWS) of a (S, D) operand with position stride ss into a
+// [ROWS][DP + 8] shared tile, in 16-byte chunks; rows >= S and columns >=
+// D are zeros.  kAligned: every row start is 16-byte aligned and D % 8 ==
+// 0, so a chunk is one cp.async; otherwise element loads and a 16-byte
+// shared store.
+template <int DP, int ROWS, bool kAligned>
+__device__ __forceinline__ void stage(bf16* tile, const bf16* src,
+                                      int64_t r0, int64_t S, int D,
+                                      int64_t ss, int tid) {
+  constexpr int kChunks = DP / 8;
+  static_assert((ROWS * kChunks) % kThreads == 0, "uneven staging");
+#pragma unroll
+  for (int idx = tid; idx < ROWS * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, d = (idx % kChunks) * 8;
+    const int64_t row = r0 + r;
+    bf16* dst = tile + r * (DP + 8) + d;
+    if (kAligned) {
+      const bool ok = row < S && d < D;
+      cp_async16(smem_u32(dst), ok ? src + row * ss + d : src, ok ? 16 : 0);
+    } else {
+      const unsigned short* s16 =
+          reinterpret_cast<const unsigned short*>(src) + row * ss;
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t lo = row < S && d + 2 * e < D ? s16[d + 2 * e] : 0u;
+        const uint32_t hi =
+            row < S && d + 2 * e + 1 < D ? s16[d + 2 * e + 1] : 0u;
+        w[e] = lo | (hi << 16);
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <int DP, int MT, bool kAligned>
+__global__ void __launch_bounds__(kThreads) flash_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int Hq, int Hkv,
+    int Sq, int Skv, int D, int causal, float scale_log2, int64_t qsb,
+    int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
+    int64_t vsb, int64_t vsh, int64_t vss) {
+  using C = Cfg<DP, MT>;
+  constexpr int BQ = C::BQ, BK = C::BK, RS = C::RS;
+  constexpr int NK = DP / 16;   // k steps of Q K^T over d
+  constexpr int NT = BK / 8;    // n tiles of S over keys
+  constexpr int NP = BK / 16;   // k steps of P V over keys
+  constexpr int ND = DP / 8;    // n tiles of O over d
+  extern __shared__ uint4 smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BQ][RS]
+  bf16* sK = sQ + BQ * RS;                        // [2][BK][RS]
+  bf16* sV = sK + 2 * BK * RS;                    // [2][BK][RS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;   // row in 8, column pair in 4
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const bf16* qb = q + b * qsb + h * qsh;
+  const bf16* kb = k + b * ksb + hk * ksh;
+  const bf16* vb = v + b * vsb + hk * vsh;
+  const int64_t offset = (int64_t)Skv - Sq;
+
+  // causal: the last key the block's last row sees bounds the tiles
+  int64_t kv_end = Skv;
+  if (causal) {
+    const int64_t last = (int64_t)q0 + BQ - 1 + offset;
+    kv_end = last + 1 < kv_end ? last + 1 : kv_end;
+    if (kv_end < 0) kv_end = 0;
+  }
+  const int n_tiles = (int)((kv_end + BK - 1) / BK);
+
+  stage<DP, BQ, kAligned>(sQ, qb, q0, Sq, D, qss, tid);
+  if (n_tiles > 0) {
+    stage<DP, BK, kAligned>(sK, kb, 0, Skv, D, kss, tid);
+    stage<DP, BK, kAligned>(sV, vb, 0, Skv, D, vss, tid);
+  }
+  cp_async_commit();
+
+  // ldmatrix row addresses of this lane: the A operand (Q) and V^T take
+  // rows lane % 16 at column 8 (lane / 16); K takes rows 8 (lane / 16) +
+  // lane % 8 at column 8 ((lane / 8) % 2)
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int k_row = ((lane >> 4) << 3) + (lane & 7);
+  const int k_col = ((lane >> 3) & 1) * 8;
+  const uint32_t q_addr =
+      smem_u32(sQ + (warp * 16 * MT + a_row) * RS + a_col);
+  const uint32_t k_addr = smem_u32(sK + k_row * RS + k_col);
+  const uint32_t v_addr = smem_u32(sV + a_row * RS + a_col);
+  constexpr uint32_t kStageBytes = BK * RS * sizeof(bf16);
+
+  float acc[MT][ND][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nd][e] = 0.0f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.0f;   // this thread's share of the row sum
+  }
+  uint32_t qf[C::kQRegs ? MT : 1][C::kQRegs ? NK : 1][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {       // the ring's other stage, read at t - 1
+      const int64_t j1 = (int64_t)(t + 1) * BK;
+      stage<DP, BK, kAligned>(sK + (st ^ 1) * BK * RS, kb, j1, Skv, D, kss,
+                              tid);
+      stage<DP, BK, kAligned>(sV + (st ^ 1) * BK * RS, vb, j1, Skv, D, vss,
+                              tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();             // tile t (and Q) landed for every warp
+
+    if (C::kQRegs && t == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk)
+          ldsm_x4(q_addr + (mt * 16 * RS + kk * 16) * 2,
+                  qf[C::kQRegs ? mt : 0][C::kQRegs ? kk : 0]);
+    }
+
+    // S = Q K^T
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.0f;
+    const uint32_t kt_addr = k_addr + st * kStageBytes;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (C::kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            a[mt][e] = qf[C::kQRegs ? mt : 0][C::kQRegs ? kk : 0][e];
+        } else {
+          ldsm_x4(q_addr + (mt * 16 * RS + kk * 16) * 2, a[mt]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t bk[4];
+        ldsm_x4(kt_addr + (nt * 8 * RS + kk * 16) * 2, bk);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][nt], a[mt], bk[0], bk[1]);
+          mma_bf16(s[mt][nt + 1], a[mt], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // scale into the exp2 domain, mask the tiles that cross the diagonal
+    // or the end of the keys, online softmax per row
+    const int64_t j0 = (int64_t)t * BK;
+    const bool masked = j0 + BK > Skv
+                        || (causal && j0 + BK - 1 > (int64_t)q0 + offset);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] *= scale_log2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {        // rows g and g + 8
+        if (masked) {   // the tile's columns c < lim are visible to the row
+          const int64_t row =
+              (int64_t)q0 + (warp * MT + mt) * 16 + g + 8 * r;
+          int64_t lim = Skv - j0;
+          if (causal && row + offset + 1 - j0 < lim)
+            lim = row + offset + 1 - j0;
+          const int lim_c = lim < 0 ? 0 : (lim > BK ? BK : (int)lim);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int c = nt * 8 + 2 * tig;
+            if (c >= lim_c) s[mt][nt][2 * r] = kNegInf;
+            if (c + 1 >= lim_c) s[mt][nt][2 * r + 1] = kNegInf;
+          }
+        }
+        float mx = kNegInf;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mx = fmaxf(mx, fmaxf(s[mt][nt][2 * r], s[mt][nt][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[mt][r], mx);
+        const float alpha = ex2(m[mt][r] - m_new);
+        m[mt][r] = m_new;
+        float sum = 0.0f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          s[mt][nt][2 * r] = ex2(s[mt][nt][2 * r] - m_new);
+          s[mt][nt][2 * r + 1] = ex2(s[mt][nt][2 * r + 1] - m_new);
+          sum += s[mt][nt][2 * r] + s[mt][nt][2 * r + 1];
+        }
+        l[mt][r] = l[mt][r] * alpha + sum;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          acc[mt][nd][2 * r] *= alpha;
+          acc[mt][nd][2 * r + 1] *= alpha;
+        }
+      }
+    }
+
+    // O += P V, P's bf16 A fragments packed from the S accumulators
+    const uint32_t vt_addr = v_addr + st * kStageBytes;
+#pragma unroll
+    for (int kp = 0; kp < NP; ++kp) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        pa[mt][0] = pack_bf16(s[mt][2 * kp][0], s[mt][2 * kp][1]);
+        pa[mt][1] = pack_bf16(s[mt][2 * kp][2], s[mt][2 * kp][3]);
+        pa[mt][2] = pack_bf16(s[mt][2 * kp + 1][0], s[mt][2 * kp + 1][1]);
+        pa[mt][3] = pack_bf16(s[mt][2 * kp + 1][2], s[mt][2 * kp + 1][3]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(vt_addr + (kp * 16 * RS + nd * 8) * 2, bv);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][nd], pa[mt], bv[0], bv[1]);
+          mma_bf16(acc[mt][nd + 1], pa[mt], bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();             // stage st is read before t + 1 refills it
+  }
+  if (n_tiles == 0) cp_async_wait<0>();
+
+  bf16* ob = o + ((int64_t)b * Hq + h) * Sq * D;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[mt][r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float denom = fmaxf(sum, 1e-30f);
+      const int64_t row = (int64_t)q0 + (warp * MT + mt) * 16 + g + 8 * r;
+      if (row >= Sq) continue;
+      bf16* orow = ob + row * D;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        const int d = nd * 8 + 2 * tig;
+        if (d >= D) continue;
+        const float x0 = acc[mt][nd][2 * r] / denom;
+        const float x1 = acc[mt][nd][2 * r + 1] / denom;
+        if ((D & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+              __floats2bfloat162_rn(x0, x1);
+        } else {
+          orow[d] = __float2bfloat16_rn(x0);
+          if (d + 1 < D) orow[d + 1] = __float2bfloat16_rn(x1);
+        }
+      }
+    }
+}
+
+template <int DP, int MT, bool kAligned>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int Sq, int Skv, int D, int causal, float scale,
+           const int64_t* st, cudaStream_t stream) {
+  using C = Cfg<DP, MT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<DP, MT, kAligned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + C::BQ - 1) / C::BQ, Hq, B);
+  flash_tc_kernel<DP, MT, kAligned><<<grid, kThreads, C::kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Sq, Skv,
+      D, causal, scale * kLog2e, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8]);
+  return (int)cudaGetLastError();
+}
+
+template <bool kAligned>
+int launch_d(const void* q, const void* k, const void* v, void* o, int B,
+             int Hq, int Hkv, int Sq, int Skv, int D, int causal,
+             float scale, const int64_t* st, cudaStream_t stream) {
+  if (D <= 64)
+    return launch<64, 2, kAligned>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                   causal, scale, st, stream);
+  if (D <= 128)
+    return launch<128, 2, kAligned>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                    causal, scale, st, stream);
+  return launch<256, 1, kAligned>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                  causal, scale, st, stream);
+}
+
+// what the wrapper's `aligned` claims: every row start of q, k and v on 16
+// bytes (the pointers, D and the strides of every axis longer than 1)
+bool rows_aligned(const void* q, const void* k, const void* v, int B,
+                  int Hq, int Hkv, int Sq, int Skv, int D,
+                  const int64_t* st) {
+  const void* ptrs[3] = {q, k, v};
+  const int64_t extent[3][3] = {{B, Hq, Sq}, {B, Hkv, Skv}, {B, Hkv, Skv}};
+  if (D % 8) return false;
+  for (int t = 0; t < 3; ++t) {
+    if (reinterpret_cast<uintptr_t>(ptrs[t]) % 16) return false;
+    for (int a = 0; a < 3; ++a)
+      if (extent[t][a] > 1 && st[3 * t + a] % 8) return false;
+  }
+  return true;
+}
+
+}  // namespace tc
+
+bool shape_ok(int B, int Hq, int Hkv, int Sq, int Skv, int D) {
+  return !(B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Skv < 1
+           || D < 1 || D > 256 || Hq > 65535 || B > 65535);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  strides: q's, k's, v's (batch, head,
-// position) strides in elements.  Returns the CUDA error of the launch
-// (0 on success); shapes the kernel does not take return
+// dtype: 0 float32 (the SIMT kernel), 1 bfloat16 (the tensor-core
+// kernel).  strides: q's, k's, v's (batch, head, position) strides in
+// elements.  aligned (bfloat16 only): 1 if every row start of q, k and v
+// is 16-byte aligned, so rows are staged by cp.async; a claim the pointers
+// and strides do not bear out is refused.  Returns the CUDA error of the
+// launch (0 on success); shapes the kernels do not take return
 // cudaErrorInvalidValue without launching.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int Hq, int Hkv,
                            int Sq, int Skv, int D, int causal, float scale,
-                           const int64_t* strides, void* stream) {
-  if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Skv < 1 || D < 1
-      || D > 256 || Hq > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+                           const int64_t* strides, int aligned,
+                           void* stream) {
+  if (!shape_ok(B, Hq, Hkv, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
-                           scale, strides, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                                   causal, scale, strides, s);
-  return (int)cudaErrorInvalidValue;
+    return simt::launch_d<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
+                                 scale, strides, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (!aligned)
+    return tc::launch_d<false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
+                               scale, strides, s);
+  if (!tc::rows_aligned(q, k, v, B, Hq, Hkv, Sq, Skv, D, strides))
+    return (int)cudaErrorInvalidValue;
+  return tc::launch_d<true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
+                            scale, strides, s);
+}
+
+// The previous bfloat16 design (the SIMT kernel), kept to be timed beside
+// the tensor-core kernel on the same card; the op never routes to it.
+int flash_attention_previous_launch(const void* q, const void* k,
+                                    const void* v, void* o, int B, int Hq,
+                                    int Hkv, int Sq, int Skv, int D,
+                                    int causal, float scale,
+                                    const int64_t* strides, void* stream) {
+  if (!shape_ok(B, Hq, Hkv, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
+  return simt::launch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
+                                       causal, scale, strides,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -36,6 +36,39 @@ def plain_attention(q, k, v, *, causal: bool = True):
                          scale=1.0 / (q.shape[-1] ** 0.5), block_kv=block_kv)
 
 
+#: the bf16 elementwise bound's terms: one bf16 rounding of each p_j
+#: (weighted by |v_j|), one rounding of the output, float32 slack
+BF16_P_REL, BF16_OUT_REL, BF16_ABS = 2.0 ** -8, 2.0 ** -7, 1e-5
+
+
+def bf16_output_bound(q, k, v, *, causal: bool = True):
+    """How far the bf16 kernel's output may lie from ``plain_attention``'s,
+    element by element, in float32:
+
+        2^-8 * plain_attention(q, k, |v|) + 2^-7 * |plain_attention(q, k, v)|
+        + 1e-5
+
+    Derivation.  Both sides form the same float32 scores and softmax weights
+    p_j = exp(s_j - m) up to float32 rounding, and the same denominator l =
+    sum_j p_j (the kernel sums its float32 p).  The plain version then
+    computes sum_j p_j v_j / l in float32; the tensor-core kernel feeds P to
+    a bf16 product, so it sums bf16(p_j) v_j, where |bf16(p_j) - p_j| <=
+    2^-9 p_j (round to nearest, 8 significant bits).  The numerators thus
+    differ by at most 2^-9 sum_j p_j |v_j|, the outputs by 2^-9 sum_j p_j
+    |v_j| / l, which is 2^-9 plain_attention(q, k, |v|); the bound takes
+    2^-8, twice that.  Each side then rounds its float32 result to bf16
+    once, so the two roundings differ by at most one unit in the last of
+    bf16's 8 bits, 2^-7 of the value.  1e-5 covers the float32 arithmetic
+    of the two summation orders (float32 outputs agree below 1e-6).  The
+    earlier check, 2^-7 |plain| + 1e-5, assumed both sides round one float32
+    result once; P in bf16 breaks that assumption (a CPU emulation of the
+    kernel's arithmetic exceeds it, and stays within this bound, in
+    ``tests/test_torch_flash_attention.py``)."""
+    want = plain_attention(q, k, v, causal=causal).float()
+    weighted = plain_attention(q, k, v.abs(), causal=causal).float()
+    return BF16_P_REL * weighted + BF16_OUT_REL * want.abs() + BF16_ABS
+
+
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:

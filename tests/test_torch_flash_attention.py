@@ -10,7 +10,11 @@ atol 2e-5 for float32, 2e-2 for bfloat16 (the frameworks sum in other
 orders; bf16 outputs are one rounding of a float32 result).  The CUDA
 kernel is held to the plain version by the ``gpu`` cases, which need a
 card and are skipped without one (``chip_smoke.py`` runs the same check on
-the card).
+the card).  The bf16 kernel feeds P to its tensor-core products in bf16,
+so each bf16 output is also held to ``ops.bf16_output_bound``; a plain
+emulation of that arithmetic shows here, on the CPU, that the rounding of P
+alone moves outputs past the earlier one-rounding bound and stays within
+the re-derived one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +28,7 @@ from repro_torch.kernels.flash_attention import (BLOCKWISE_KV_THRESHOLD,
                                                  attention_ref,
                                                  flash_attention,
                                                  gqa_attention, launches)
-from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import kernel, ops
 
 #: the reference test's seven cases (tests/test_kernels.py)
 CASES = [
@@ -139,15 +143,110 @@ def test_plain_attention_picks_the_reference_block(monkeypatch):
     assert seen == [None, 512]
 
 
+#: the tensor-core kernel's edges in bf16: head dims padded to 64, 128 and
+#: 256 and an odd one (element staging), a query run that is not a multiple
+#: of the 64-row tile, non-causal 8:1 GQA, decode and chunked prefill
+BF16_EDGES = [(1, 2, 2, 100, 100, 16, True, "bfloat16"),
+              (2, 4, 2, 256, 256, 32, True, "bfloat16"),
+              (1, 4, 1, 65, 65, 80, False, "bfloat16"),
+              (1, 4, 2, 300, 300, 256, True, "bfloat16"),
+              (1, 4, 2, 130, 130, 33, True, "bfloat16"),
+              (1, 8, 1, 1000, 1000, 128, False, "bfloat16"),
+              (1, 4, 2, 1, 512, 64, True, "bfloat16"),
+              (1, 2, 1, 130, 390, 32, True, "bfloat16")]
+
+
+def _emulate_tensor_core_kernel(q, k, v, *, causal, p_dtype, block=64):
+    """The bf16 kernel's arithmetic in plain torch: float32 scores in the
+    exp2 domain, an online softmax over ``block``-key tiles with a float32
+    max and denominator, P rounded to ``p_dtype`` before P V, one rounding
+    of the output."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, g, Sq, D)
+    scale = D ** -0.5 * 1.4426950408889634
+    m = torch.full((B, Hkv, g, Sq, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, g, Sq, D))
+    rows = torch.arange(Sq)[:, None] + (Skv - Sq)
+    for j0 in range(0, Skv, block):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf,
+                         k[:, :, j0:j0 + block].float()) * scale
+        cols = j0 + torch.arange(s.shape[-1])[None, :]
+        if causal:
+            s = torch.where(cols <= rows, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(getattr(torch, p_dtype)).float(),
+            v[:, :, j0:j0 + block].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("p_dtype", ["bfloat16", "float32"])
+def test_bf16_p_needs_the_rederived_bound(p_dtype):
+    """At (1, 4/2, 2,048, 64), causal: P rounded to bf16 keeps every output
+    within ``bf16_output_bound`` and the reference's 2e-2, but breaks the
+    one-rounding bound 2^-7 |plain| + 1e-5 that held before; with P kept in
+    float32 the one-rounding bound holds.  So the re-derived bound answers
+    the arithmetic, not a fault."""
+    q, k, v = _torch(_inputs(1, 4, 2, 2048, 2048, 64, seed=0), "bfloat16")
+    got = _emulate_tensor_core_kernel(q, k, v, causal=True, p_dtype=p_dtype)
+    want = ops.plain_attention(q, k, v, causal=True)
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= TOL["bfloat16"]
+    assert float((diff / ops.bf16_output_bound(q, k, v)).max()) <= 1.0
+    one_rounding = float((diff / (ops.BF16_OUT_REL * want.float().abs()
+                                  + ops.BF16_ABS)).max())
+    if p_dtype == "bfloat16":
+        assert one_rounding > 1.0
+    else:
+        assert one_rounding <= 1.0
+
+
+def test_bf16_output_bound_is_its_formula():
+    q, k, v = _torch(_inputs(2, 4, 2, 40, 70, 16, seed=3), "bfloat16")
+    plain = attention_ref(q, k, v, causal=True).float()
+    weighted = attention_ref(q, k, v.abs(), causal=True).float()
+    want = 2.0 ** -8 * weighted + 2.0 ** -7 * plain.abs() + 1e-5
+    torch.testing.assert_close(ops.bf16_output_bound(q, k, v), want,
+                               rtol=0, atol=1e-6)
+
+
+def test_rows_aligned_picks_the_staging():
+    """cp.async staging only where every row start lies on 16 bytes: the
+    model's layouts (v a transposed view) yes; an odd D, an odd position
+    stride or a base pointer off 16 bytes take the element staging."""
+    def bf16(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    q, k = bf16(1, 24, 64, 128), bf16(1, 2, 64, 128)
+    v = bf16(1, 64, 2, 128).transpose(1, 2)
+    assert kernel.rows_aligned(q, k, v)
+    odd = bf16(1, 2, 8, 33)
+    assert not kernel.rows_aligned(odd, odd, odd)
+    wide = bf16(1, 2, 8, 41)[..., :40]             # position stride 41
+    assert not kernel.rows_aligned(wide, wide, wide)
+    shifted = bf16(1, 2, 8, 65)[..., 1:]           # base 2 bytes off
+    assert not kernel.rows_aligned(q, shifted, shifted)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,dtype",
-                         CASES + GQA12 + [
+                         CASES + GQA12 + BF16_EDGES + [
                              (1, 24, 2, 1, 9000, 128, True, "bfloat16"),
                              (1, 24, 2, 1000, 5000, 128, True, "bfloat16"),
                              (1, 4, 2, 300, 300, 256, True, "float32"),
                              (1, 4, 1, 65, 65, 80, False, "float32")])
 def test_cuda_kernel_matches_plain_version(B, Hq, Hkv, Sq, Skv, D, causal,
                                            dtype):
+    """Within the reference's tolerance; bf16 also each element within
+    ``bf16_output_bound``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     t = [x.cuda() for x in _torch(_inputs(B, Hq, Hkv, Sq, Skv, D, seed=D),
@@ -157,7 +256,28 @@ def test_cuda_kernel_matches_plain_version(B, Hq, Hkv, Sq, Skv, D, causal,
     want = ops.plain_attention(*t, causal=causal)
     torch.cuda.synchronize()
     assert launches.count == before + 1
-    assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= TOL[dtype]
+    if dtype == "bfloat16":
+        bound = ops.bf16_output_bound(*t, causal=causal)
+        assert float((diff / bound).max()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_in_the_model_layout():
+    """starcoder2-3b's prefill heads (24 over 2, D 128) at 4,096 tokens in
+    bf16, v the transposed view of a (B, S, Hkv, D) projection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v = _torch(_inputs(1, 24, 2, 4096, 4096, 128, seed=5), "bfloat16")
+    v = v.transpose(1, 2).contiguous().transpose(1, 2)
+    q, k, v = q.cuda(), k.cuda(), v.cuda()
+    assert v.stride(2) == 2 * 128
+    got = flash_attention(q, k, v)
+    want = ops.plain_attention(q, k, v)
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= TOL["bfloat16"]
+    assert float((diff / ops.bf16_output_bound(q, k, v)).max()) <= 1.0
 
 
 @pytest.mark.gpu
