@@ -14,8 +14,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               template instantiation.
 3. kernels    each kernel against its plain torch version on the card, at
               the paths' shapes plus ragged, zero-padded and tied rows,
-              flat and host-aware (``augru``: att == 1 and random, and an
-              H whose U does not fit in shared memory, within 1e-5;
+              flat and host-aware (``augru``: att == 1 and random on each
+              route, small (U in registers), large (register-tiled outer
+              products) and general (the previous design, H above 108),
+              at the routes' edges, T = 1 and H = 37 on both register
+              routes, within 1e-5, each case's route reported, two
+              launches bit-equal and the previous design within 1e-5 of
+              the new one at the serve shapes;
               ``flash_attention``: the reference test's cases,
               starcoder2-3b's heads at 4,096 tokens (bf16 also in the
               model's layout), decode and chunked prefill, the bf16
@@ -35,9 +40,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               weights, an all-zero bag in ``mean``, wrapped and clamped
               indices, int64 indices, a bf16 table and an empty bag; both
               within 1e-5 of each element's absolute sum plus 1e-6);
-              device and CUDA-event timings, ``augru`` beside cuDNN's GRU
-              (at 65,536 rows as equal sub-batches, in a process of its
-              own).
+              device and CUDA-event timings; ``augru`` at 1, 512 and
+              65,536 rows beside the previous design and cuDNN's GRU (at
+              65,536 rows as equal sub-batches, in a process of its own),
+              back to back between CUDA events (cuDNN also as CUDA-graph
+              replays), per step and by route, and both register routes
+              at 8 to 64 rows per SM, around where the plan switches.
 4. recsys_serve  DIEN at full width through the serving CLI (``python -m
               repro_torch.launch.serve --arch dien --full --requests N``):
               ``serve_p99`` (512) after a warm-up, ``serve_bulk`` as four
@@ -464,13 +472,27 @@ def time_hdrf_score(E: int, k: int = 32) -> dict:
 # ---------------------------------------------------------------------------
 
 AUGRU_TOL = 1e-5
-#: (B, T, H) checked on the card: the reference test's shapes, the serve
-#: paths', an H whose U (3H^2 float32, 307 KB) does not fit in shared
-#: memory, so the kernel reads it from global memory, and one whose
-#: recurrent state does not fit either, so it lives in global scratch
+#: (B, T, H) checked on the card: the reference test's shapes; the serve
+#: paths'; the small route's edges at DIEN's H (one row, and B around
+#: one, two and four rows per SM on 132 SMs), T = 1 and an H that is not a
+#: multiple of 4 on it; an H whose U (3H^2 float32, 307 KB) does not fit in
+#: shared memory, so the general route reads it from global memory, and
+#: one whose recurrent state does not fit either, so it lives in global
+#: scratch.  ``augru_check_shapes`` adds the large route's edges on this
+#: card.
 AUGRU_CHECK = ((1, 1, 1), (4, 7, 16), (33, 50, 108), (8, 100, 128),
                (512, 100, 108), (65_536, 100, 108), (5, 9, 160),
-               (2, 4, 3000))
+               (2, 4, 3000), (1, 100, 108), (2, 100, 108), (131, 100, 108),
+               (132, 100, 108), (133, 100, 108), (511, 100, 108),
+               (513, 100, 108), (3, 1, 108), (7, 20, 37))
+#: (route, T == 1, H % 4 != 0) that the checked shapes must reach: T = 1
+#: and an H off a multiple of 4 (the large route's scalar variant,
+#: ``tile::augru_kernel<false>``) on both register routes
+AUGRU_EDGES = (("small", True, False), ("small", False, True),
+               ("large", True, False), ("large", False, True))
+#: the serve and retrieval shapes, where the previous design is also held
+#: to the new one
+AUGRU_SERVE = ((1, 100, 108), (512, 100, 108), (65_536, 100, 108))
 
 
 def augru_inputs(B: int, T: int, H: int, seed: int, ones: bool, device):
@@ -493,37 +515,76 @@ def augru_inputs(B: int, T: int, H: int, seed: int, ones: bool, device):
     return [xg, u, att, normal((B, H), 0.1)]
 
 
+def augru_check_shapes() -> tuple:
+    """``AUGRU_CHECK`` and the large route's edges on this card: the first
+    B that ``kernel.plan`` sends there at H = 108 and the B just below it,
+    and that B at T = 1 and at H = 37."""
+    from repro_torch.kernels.augru import kernel
+    sms, smem = kernel.device_limits(0)
+    first = next(B for B in range(1, 64 * sms)
+                 if kernel.plan(B, 108, sms, smem).route == "large")
+    return AUGRU_CHECK + ((first - 1, 100, 108), (first, 100, 108),
+                          (first, 1, 108), (first, 5, 37))
+
+
 def check_augru(shapes) -> dict:
     """The CUDA kernel against its plain version on the card, att == 1 (the
-    GRU stage) and random att: every state within ``AUGRU_TOL``."""
+    GRU stage) and random att: every state within ``AUGRU_TOL``, each
+    case's route reported; a second launch on the same inputs bit-equal to
+    the first; on ``AUGRU_SERVE`` the previous design within
+    ``AUGRU_TOL`` of the new one."""
     import torch
-    from repro_torch.kernels.augru import augru, augru_ref
+    from repro_torch.kernels.augru import augru, augru_ref, kernel
     cases, max_err = [], 0.0
     for B, T, H in shapes:
         for ones in (True, False):
             args = augru_inputs(B, T, H, seed=B + T + H, ones=ones,
                                 device="cuda")
             got = augru(*args)
+            again = augru(*args)
             want = augru_ref(*args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             max_err = max(max_err, err)
-            cases.append({"B": B, "T": T, "H": H, "att": "ones" if ones
-                          else "random", "max_abs_err": err,
-                          "u_bytes": 3 * H * H * 4})
-            if not err <= AUGRU_TOL:
-                raise AssertionError(f"augru disagrees: {cases[-1]}")
-    return {"tolerance": f"max |kernel - plain| <= {AUGRU_TOL}",
+            case = {"B": B, "T": T, "H": H, "att": "ones" if ones
+                    else "random", "route": kernel.plan_for(got).route,
+                    "max_abs_err": err, "bit_equal": torch.equal(got, again),
+                    "u_bytes": 3 * H * H * 4}
+            if (B, T, H) in AUGRU_SERVE:
+                prev = torch.empty_like(got)
+                kernel.launch_previous(*args, out=prev)
+                torch.cuda.synchronize()
+                case["previous_max_abs_diff"] = float(
+                    (prev - got).abs().max())
+                del prev
+            cases.append(case)
+            if not (err <= AUGRU_TOL and case["bit_equal"]
+                    and case.get("previous_max_abs_diff", 0.0)
+                    <= AUGRU_TOL):
+                raise AssertionError(f"augru disagrees: {case}")
+            del args, got, again, want
+    torch.cuda.empty_cache()
+    reached = {(c["route"], c["T"] == 1, c["H"] % 4 != 0) for c in cases}
+    missing = [e for e in AUGRU_EDGES if e not in reached]
+    if missing:
+        raise AssertionError(f"augru: no checked shape reached {missing}")
+    return {"tolerance": f"max |kernel - plain| <= {AUGRU_TOL}; two "
+                         f"launches bit-equal; max |previous - kernel| <= "
+                         f"{AUGRU_TOL} on the serve shapes",
             "cases": cases, "max_abs_err": max_err}
 
 
 def gru_library_ms(B: int, T: int = 100, e: int = 18, H: int = 108,
-                   reps: int = 20, split: int = 1) -> float:
+                   reps: int = 20, split: int = 1,
+                   graph: bool = False) -> float:
     """cuDNN's GRU (``torch.nn.GRU``, float32 without TF32) on (B, T, e):
     the dense 18 -> 324 and the GRU recurrence of DIEN's att == 1 stage in
     one library call, or in ``split`` calls on equal sub-batches, timed
-    together.  Its z gate is the complement of AUGRU's, so it is a
-    yardstick of speed only, never of parity."""
+    together back to back between CUDA events (``batched_ms``).  With
+    ``graph``, the calls are captured in a CUDA graph and its replays
+    timed, which leaves out the host's time per call: at one row the host
+    takes longer than the device.  Its z gate is the complement of AUGRU's,
+    so it is a yardstick of speed only, never of parity."""
     import torch
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -532,8 +593,21 @@ def gru_library_ms(B: int, T: int = 100, e: int = 18, H: int = 108,
         x = torch.randn(B, T, e, device="cuda")
         parts = x.chunk(split)
         with torch.no_grad():
-            return cuda_time_ms(lambda: [gru(p) for p in parts], reps,
-                                max(1, reps // 5))
+            if not graph:
+                return batched_ms(lambda: [gru(p) for p in parts], reps,
+                                  max(1, reps // 5))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for p in parts:
+                    gru(p)
+            torch.cuda.current_stream().wait_stream(side)
+            g, calls = torch.cuda.CUDAGraph(), min(reps, 20)
+            with torch.cuda.graph(g):
+                for _ in range(calls):
+                    for p in parts:
+                        gru(p)
+            return batched_ms(g.replay, 5, 1) / calls
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -571,26 +645,76 @@ def gru_split_library(B: int, reps: int = 5) -> dict:
                        f"{GRU_SPLITS} equal sub-batches"}
 
 
-def time_augru(B: int, T: int = 100, H: int = 108, reps: int = 20,
-               profile: bool = True) -> dict:
+def time_augru(B: int, T: int = 100, H: int = 108, reps: int = 50) -> dict:
+    """The kernel (by ``kernel.launch``, the route ``ops.augru`` takes),
+    the previous design (``kernel.launch_previous``), the plain version and
+    cuDNN's GRU at (B, T, H), each as ``reps`` back-to-back calls between
+    CUDA events (``batched_ms``) in this run, cuDNN also as CUDA-graph
+    replays (``library_ms`` up to ``GRU_MAX_BATCH``: the device's time
+    alone); per step (ms / T) beside each.  ``op_call_ms``: one
+    ``ops.augru`` call between events, the host's checks and launch
+    included."""
     import torch
-    from repro_torch.kernels.augru import augru, augru_ref
+    from repro_torch.kernels.augru import augru, augru_ref, kernel
     args = augru_inputs(B, T, H, seed=7, ones=False, device="cuda")
+    out = torch.empty((B, T, H), device="cuda")
+    warm = max(1, reps // 10)
+    ms = batched_ms(lambda: kernel.launch(*args, out=out), reps, warm)
+    previous_ms = batched_ms(lambda: kernel.launch_previous(*args, out=out),
+                             reps, warm)
+    plain_ms = batched_ms(lambda: augru_ref(*args), max(2, reps // 10), 1)
+    op_call_ms = cuda_time_ms(lambda: augru(*args), max(5, reps // 2), 2)
     # bytes: x_gates, u, att, h0 read once, the states written once;
     # operations: the products hU = h @ U, 2*H*3H per (row, step) (the
     # gates add ~1% and are not counted, so the bound stays a lower one)
     nbytes = 4 * (B * T * 3 * H + 3 * H * H + B * T + B * H + B * T * H)
-    out = {"B": B, "T": T, "H": H,
-           **timed(lambda: augru(*args), lambda: augru_ref(*args), reps,
-                   profile),
-           **bound(nbytes, 2 * B * T * H * 3 * H),
-           **({"library_ms": gru_library_ms(B, T, reps=reps),
-               "library": "torch.nn.GRU(18, 108) on (B, 100, 18), cuDNN, "
-                          "float32 (the att == 1 stage with its input dense)"}
-              if B <= GRU_MAX_BATCH else gru_split_library(B))}
-    del args
+    res = {"B": B, "T": T, "H": H, "route": kernel.plan_for(out).route,
+           "ms": ms, "us_per_step": ms / T * 1e3,
+           "previous_ms": previous_ms,
+           "previous_us_per_step": previous_ms / T * 1e3,
+           "speedup_over_previous": previous_ms / ms,
+           "plain_ms": plain_ms, "op_call_ms": op_call_ms,
+           "ms_source": "cuda_events (batched_ms)",
+           **bound(nbytes, 2 * B * T * H * 3 * H)}
+    del args, out
     torch.cuda.empty_cache()
-    return out
+    res.update({"library_ms": gru_library_ms(B, T, reps=reps, graph=True),
+                "library_batched_ms": gru_library_ms(B, T, reps=reps),
+                "library": "torch.nn.GRU(18, 108) on (B, 100, 18), cuDNN, "
+                           "float32 (the att == 1 stage with its input "
+                           "dense), replays of a CUDA graph of the calls "
+                           "(library_batched_ms: back to back)"}
+               if B <= GRU_MAX_BATCH else gru_split_library(B, reps))
+    if res["library_ms"] is not None:
+        res["library_us_per_step"] = res["library_ms"] / T * 1e3
+        res["library_over_kernel"] = res["library_ms"] / ms
+    return res
+
+
+def time_augru_edge(rows_per_sm=(8, 16, 32, 48, 56, 64), T: int = 100, H: int = 108,
+                    reps: int = 10) -> dict:
+    """Both register routes at B = ``rows_per_sm`` x the card's SMs, where
+    ``kernel.plan`` switches from the small route (R = 4 over several tiles
+    a block) to the large one at ``kernel.LARGE_ROWS_PER_SM``: each timed
+    back to back between CUDA events (``batched_ms``) in this run, beside
+    the route the plan picks."""
+    import torch
+    from repro_torch.kernels.augru import kernel
+    sms, smem = kernel.device_limits(0)
+    res = {"sms": sms, "large_rows_per_sm": kernel.LARGE_ROWS_PER_SM}
+    for n in rows_per_sm:
+        B = n * sms
+        args = augru_inputs(B, T, H, seed=11, ones=False, device="cuda")
+        out = torch.empty((B, T, H), device="cuda")
+        plans = {"small": kernel.small_plan(B, H, 4, sms),
+                 "large": kernel.tile_plan(B, H, sms, smem)}
+        res[str(n)] = {"B": B, "plan": kernel.plan_for(out).route, **{
+            f"{name}_ms": batched_ms(lambda p=p: kernel.launch(
+                *args, out=out, use_plan=p), reps, 2)
+            for name, p in plans.items()}}
+        del args, out
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2069,10 +2193,11 @@ def main(argv=None) -> int:
     h_check = check_hdrf_score((1, 64, 65536, 65537), (2, 32, 200))
     h_timing = time_hdrf_score(65536)
     h_micro = time_hdrf_score(64)
-    a_check = check_augru(AUGRU_CHECK)
-    a_timing = time_augru(512)
-    a_bulk = time_augru(BULK_BATCH, reps=3, profile=False)
-    a_one = time_augru(1)
+    a_check = check_augru(augru_check_shapes())
+    a_one = time_augru(1, reps=200)
+    a_timing = time_augru(512, reps=200)
+    a_bulk = time_augru(BULK_BATCH, reps=5)
+    a_edge = time_augru_edge()
     f_check = check_flash_attention(FLASH_CHECK)
     f_model = check_flash_attention(FLASH_MODEL, model_layout=True)
     f_main = check_flash_attention(FLASH_MAIN, model_layout=True)
@@ -2085,7 +2210,7 @@ def main(argv=None) -> int:
           "hdrf_score": {**h_check, "chunk": h_timing,
                          "micro_batch": h_micro},
           "augru": {**a_check, "serve_p99": a_timing, "serve_bulk": a_bulk,
-                    "retrieval": a_one},
+                    "retrieval": a_one, "route_edge": a_edge},
           "flash_attention": {**f_check, "model_layout_4096": f_model,
                               "prefill_layer_float32": f_main,
                               "prefill_layer": f_timing},
@@ -2157,7 +2282,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/augru/csrc/augru.cu",
         "replaces": "src/repro/kernels/augru/kernel.py:53",
         "launches": paths["augru"], "max_abs_err": a_check["max_abs_err"],
-        "ms": a_timing["ms"], "plain_ms": a_timing["plain_ms"],
+        "ms": a_timing["ms"], "previous_ms": a_timing["previous_ms"],
+        "plain_ms": a_timing["plain_ms"],
         "bound_ms": a_timing["bound_ms"], "bound_by": a_timing["bound_by"],
         "library_ms": a_timing["library_ms"]}, {
         "name": "flash_attention", "route": "cuda",

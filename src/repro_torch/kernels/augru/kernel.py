@@ -1,16 +1,28 @@
-"""ctypes binding of the CUDA ``augru`` kernel (``csrc/augru.cu``).
+"""ctypes binding of the CUDA ``augru`` kernels (``csrc/augru.cu``) and
+their launch plan.
 
 The port of the reference's Pallas ``augru_pallas``.  The TPU kernel padded
 each gate section to 128 lanes and the batch to blocks of 8 rows; on Hopper
-the kernel takes the unpadded ``(B, T, 3H)`` gates, ``(H, 3H)`` recurrent
-weights, ``(B, T)`` attention and ``(B, H)`` initial state as they are, one
-persistent block per group of rows with U in shared memory where it fits
-(see the source comment for its bound and design).
+the kernels take the unpadded ``(B, T, 3H)`` gates, ``(H, 3H)`` recurrent
+weights, ``(B, T)`` attention and ``(B, H)`` initial state as they are.
+``plan`` picks the route by shape before the launch (see the source
+comment for each route's bound and design):
+
+* ``small`` (H <= 108, B below 56 rows per SM): U in registers, a block
+  of R = 1, 2 or 4 rows per SM, only the rows that exist;
+* ``large`` (H <= 108, larger B): register-tiled outer products with U and
+  h in shared memory, one persistent block per SM over tiles of rows;
+* ``general`` (H > 108): the previous design, U in shared memory or L2.
+
+The C entries derive the shared memory and scratch a plan needs and refuse
+one that does not fit; nothing falls back when a launch fails.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -19,7 +31,183 @@ from .. import cuda_build
 NAME = "augru"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "augru.cu"
 
+#: route codes of the C ``Plan``
+ROUTES = {"small": 0, "large": 1, "general": 2}
+#: the small route holds U's slice (3 x 108 / S words, S k slices per
+#: unit) in registers, for H up to 108; the large route covers the same H
+MAX_H = 108
+#: rows per block the small route is compiled for (8 spilled)
+ROWS = (1, 2, 4)
+#: the large route: rows and units a thread computes, threads per block at
+#: most (8 warps leave 255 registers a thread)
+TILE_ROWS, TILE_UNITS, TILE_MAX_THREADS = 8, 4, 256
+#: the large route from B >= LARGE_ROWS_PER_SM * SMs, where the two meet:
+#: ``chip_smoke.py``'s ``route_edge`` times both at 8 to 64 rows per SM.
+#: On the H100 at (., 100, 108) the large route stays near 2.2 ms from 48
+#: rows per SM up and the small one adds ~0.154 ms for every 4 rows per
+#: SM (PERF.md section 6)
+LARGE_ROWS_PER_SM = 56
+#: the previous design: rows per row group, threads per block at most
+PREV_ROWS, PREV_MAX_THREADS = 4, 512
+
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+
+
+class Plan(NamedTuple):
+    """One launch: the route, the rows a block serves at once, blocks and
+    threads; on the large route the 8-row groups of a tile; on the general
+    route its 4-row groups, k slices, whether U and the state sit in
+    shared memory, and the floats of global scratch allocated for the
+    state when it does not."""
+    route: str
+    rows: int
+    blocks: int
+    threads: int
+    groups: int = 0
+    splits: int = 0
+    u_shared: bool = False
+    state_shared: bool = False
+    scratch_floats: int = 0
+
+
+class CPlan(ctypes.Structure):
+    """The C ``AugruPlan`` the entry points receive."""
+    _fields_ = [("route", _I), ("rows", _I), ("groups", _I),
+                ("splits", _I), ("u_shared", _I), ("state_shared", _I),
+                ("threads", _I), ("blocks", _I64), ("scratch_floats", _I64)]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def reg_threads(H: int, rows: int) -> int:
+    """Threads of a small-route block at R = ``rows``: S k slices per unit,
+    4 at R = 4 (what 128 registers a thread hold beside 12 accumulators),
+    else 2 (255 registers; one row's step is 0.70 us against 0.85 at 4
+    slices, PERF.md section 6)."""
+    return 32 * _ceil_div((4 if rows == 4 else 2) * H, 32)
+
+
+def small_plan(B: int, H: int, rows: int, sm_count: int) -> Plan:
+    """The small route at ``rows`` per tile, at most one block per SM."""
+    return Plan("small", rows, min(sm_count, _ceil_div(B, rows)),
+                reg_threads(H, rows))
+
+
+def tile_smem(H: int, rows: int) -> int:
+    """The large route's shared memory: U as (H, unit groups, 12) and h
+    twice as (H, rows + 4), float32."""
+    ug = _ceil_div(H, TILE_UNITS)
+    return 4 * (H * ug * 3 * TILE_UNITS + 2 * H * (rows + 4))
+
+
+def tile_plan(B: int, H: int, sm_count: int, max_smem: int) -> Plan:
+    """The large route's plan: the count of 8-row groups per tile that
+    minimises rounds x (groups + 1), a round's time growing with its rows
+    plus about one group's worth of latency a step, among those within
+    ``TILE_MAX_THREADS`` and ``max_smem``."""
+    ug = _ceil_div(H, TILE_UNITS)
+    fits = [g for g in range(1, TILE_MAX_THREADS // ug + 1)
+            if tile_smem(H, TILE_ROWS * g) <= max_smem]
+    groups = min(fits, key=lambda g: (_ceil_div(_ceil_div(
+        B, TILE_ROWS * g), sm_count) * (g + 1), -g))
+    rows = TILE_ROWS * groups
+    return Plan("large", rows, min(sm_count, _ceil_div(B, rows)),
+                32 * _ceil_div(ug * groups, 32), groups)
+
+
+def _state_floats(H: int, groups: int, splits: int) -> int:
+    return (2 * groups * PREV_ROWS * _round4(H)
+            + groups * splits * PREV_ROWS * 3 * H)
+
+
+def shared_bytes(p: Plan, H: int) -> int:
+    """The dynamic shared memory of a launch, as the C entries derive it."""
+    if p.route == "small":
+        return 4 * 2 * MAX_H * p.rows          # h twice, (MAX_H, R)
+    if p.route == "large":
+        return tile_smem(H, TILE_ROWS * p.groups)
+    return 4 * ((_state_floats(H, p.groups, p.splits) if p.state_shared
+                 else 0) + (_round4(3 * H * H) if p.u_shared else 0))
+
+
+def previous_plan(B: int, H: int, sm_count: int, max_smem: int) -> Plan:
+    """The previous design's plan (the first port's C ``make_plan``): at
+    most one 4-row block per SM gets 4 k slices, larger batches 2 or 4 row
+    groups; the state and then U go to shared memory as far as they fit."""
+    per_wave = PREV_ROWS * sm_count
+    groups = 1 if B <= per_wave else 2 if B <= 2 * per_wave else 4
+    splits = 4 // groups
+    if 4 * _state_floats(H, groups, splits) > max_smem:
+        groups = splits = 1
+    state = _state_floats(H, groups, splits)
+    state_shared = 4 * state <= max_smem
+    u_shared = (state_shared
+                and 4 * (_round4(3 * H * H) + state) <= max_smem)
+    rows = PREV_ROWS * groups
+    blocks = _ceil_div(B, rows)
+    return Plan("general", rows, blocks,
+                min(PREV_MAX_THREADS, 32 * _ceil_div(groups * splits * H, 32)),
+                groups, splits, u_shared, state_shared,
+                0 if state_shared else blocks * state)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, H: int, sm_count: int, max_smem: int) -> Plan:
+    """The launch of (B, T, H) on a card with ``sm_count`` SMs and
+    ``max_smem`` bytes of opt-in shared memory per block (T does not
+    matter).  H <= 108: ``large`` from ``LARGE_ROWS_PER_SM`` rows per SM,
+    else ``small`` with the least R of ``ROWS`` that puts at most one
+    tile of R rows on each SM (R = 4 over several tiles a block beyond 4
+    rows per SM); larger H: ``general``."""
+    if B < 1 or H < 1 or sm_count < 1:
+        raise ValueError(f"augru plan: B, H and sm_count must be >= 1, got "
+                         f"{(B, H, sm_count)}")
+    if H > MAX_H:
+        return previous_plan(B, H, sm_count, max_smem)
+    if B >= LARGE_ROWS_PER_SM * sm_count:
+        return tile_plan(B, H, sm_count, max_smem)
+    rows = next((r for r in ROWS if _ceil_div(B, r) <= sm_count), ROWS[-1])
+    return small_plan(B, H, rows, sm_count)
+
+
+@functools.lru_cache(maxsize=256)
+def check(p: Plan, H: int, max_smem: int) -> None:
+    """Raise ValueError for a plan over the card's limits, as the C entry
+    points refuse it: shared memory over ``max_smem``; on the register
+    routes an H whose U does not fit in registers, rows the small route was
+    not compiled for, or a large tile beyond ``TILE_MAX_THREADS`` (the
+    register limit).  The C entries also refuse threads, blocks or scratch
+    that the kernel cannot run with."""
+    def refuse(why):
+        raise ValueError(f"augru: plan {p} refused for H={H}: {why}")
+
+    if p.route not in ROUTES:
+        refuse("unknown route")
+    if p.route != "general" and H > MAX_H:
+        refuse(f"the small and large routes cover H up to {MAX_H}")
+    if p.route == "small" and p.rows not in ROWS:
+        refuse(f"rows must be one of {ROWS} (the register limit)")
+    if p.route == "large" and not (
+            1 <= p.groups
+            and _ceil_div(H, TILE_UNITS) * p.groups <= TILE_MAX_THREADS):
+        refuse(f"at most {TILE_MAX_THREADS} threads (the register limit)")
+    if shared_bytes(p, H) > max_smem:
+        refuse(f"{shared_bytes(p, H)} bytes of shared memory, the card has "
+               f"{max_smem}")
+
+
+def c_plan(p: Plan) -> CPlan:
+    return CPlan(ROUTES[p.route], p.rows, p.groups, p.splits,
+                 int(p.u_shared), int(p.state_shared), p.threads, p.blocks,
+                 p.scratch_floats)
 
 
 def library() -> ctypes.CDLL:
@@ -27,39 +215,79 @@ def library() -> ctypes.CDLL:
     lib = cuda_build.load(NAME, SOURCE)
     fn = lib.augru_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [ctypes.c_int] * 3 + [_P]
-        fn.restype = ctypes.c_int
-        sz = lib.augru_scratch_floats
-        sz.argtypes = [ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int)]
-        sz.restype = ctypes.c_int64
+        plan_p = ctypes.POINTER(CPlan)
+        fn.argtypes = [_P] * 5 + [_I] * 3 + [plan_p, _P]
+        fn.restype = _I
+        prev = lib.augru_previous_launch
+        prev.argtypes = [_P] * 6 + [_I] * 3 + [plan_p, _P]
+        prev.restype = _I
+        lim = lib.augru_device_limits
+        lim.argtypes = [ctypes.POINTER(_I)] * 2
+        lim.restype = _I
     return lib
 
 
-def launch(x_gates, u, att, h0, *, out: torch.Tensor) -> None:
-    """Launch on the current stream of ``out``'s device.
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory bytes per block) of CUDA device
+    ``index``, the inputs of ``plan``."""
+    sms, smem = _I(0), _I(0)
+    with torch.cuda.device(index):
+        rc = library().augru_device_limits(ctypes.byref(sms),
+                                           ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"augru: CUDA error {rc} reading the device's "
+                           f"limits")
+    return sms.value, smem.value
 
-    All operands contiguous float32 on one card: ``x_gates`` (B, T, 3H),
-    ``u`` (H, 3H), ``att`` (B, T), ``h0`` (B, H); ``out`` (B, T, H).  When
-    the recurrent state of a block does not fit in shared memory (H in the
-    thousands) the kernel keeps it in a global scratch buffer allocated
-    here.  Raises if the launch is refused.
-    """
-    B, T, H = out.shape
+
+def plan_for(out: torch.Tensor) -> Plan:
+    """The plan ``launch`` takes for ``out`` (B, T, H) on its card."""
+    B, _, H = out.shape
+    return plan(int(B), int(H), *device_limits(out.device.index))
+
+
+def _launch(p: Plan, x_gates, u, att, h0, out: torch.Tensor) -> None:
+    B, T, H = (int(n) for n in out.shape)
+    check(p, H, device_limits(out.device.index)[1])
     with torch.cuda.device(out.device):
         lib = library()
-        err = ctypes.c_int(0)
-        n = lib.augru_scratch_floats(int(B), int(H), ctypes.byref(err))
-        if n < 0:
-            raise RuntimeError(f"augru: CUDA error {err.value} while "
-                               f"planning the launch")
-        scratch = (torch.empty(n, dtype=torch.float32, device=out.device)
-                   if n else None)
+        scratch = (torch.empty(p.scratch_floats, dtype=torch.float32,
+                               device=out.device)
+                   if p.scratch_floats else None)
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = lib.augru_launch(
-            x_gates.data_ptr(), u.data_ptr(), att.data_ptr(), h0.data_ptr(),
-            out.data_ptr(), scratch.data_ptr() if n else None, int(B),
-            int(T), int(H), stream)
+        ptrs = (x_gates.data_ptr(), u.data_ptr(), att.data_ptr(),
+                h0.data_ptr(), out.data_ptr())
+        cp = ctypes.byref(c_plan(p))
+        if p.route == "general":
+            rc = lib.augru_previous_launch(
+                *ptrs, scratch.data_ptr() if scratch is not None else None,
+                B, T, H, cp, stream)
+        else:
+            rc = lib.augru_launch(*ptrs, B, T, H, cp, stream)
     if rc != 0:
         raise RuntimeError(f"augru kernel launch failed: CUDA error {rc} "
-                           f"(B={B}, T={T}, H={H})")
+                           f"(B={B}, T={T}, H={H}, {p})")
+
+
+def launch(x_gates, u, att, h0, *, out: torch.Tensor,
+           use_plan: Plan | None = None) -> None:
+    """Launch on the current stream of ``out``'s device, by ``plan_for``
+    (or by ``use_plan``, to time one route against another).
+
+    All operands contiguous float32 on one card: ``x_gates`` (B, T, 3H),
+    ``u`` (H, 3H), ``att`` (B, T), ``h0`` (B, H); ``out`` (B, T, H).  On
+    the general route, when the recurrent state of a block does not fit in
+    shared memory (H in the thousands), the kernel keeps it in a global
+    scratch buffer allocated here.  Raises if the launch is refused.
+    """
+    _launch(use_plan or plan_for(out), x_gates, u, att, h0, out)
+
+
+def launch_previous(x_gates, u, att, h0, *, out: torch.Tensor) -> None:
+    """The previous design (the first port's kernel) on the same arguments as
+    ``launch``, at any shape, to time it beside the new routes;
+    ``ops.augru`` reaches it only on the general route."""
+    B, _, H = out.shape
+    _launch(previous_plan(int(B), int(H), *device_limits(out.device.index)),
+            x_gates, u, att, h0, out)
