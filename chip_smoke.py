@@ -32,13 +32,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               + 2^-7 |plain| + 1e-5: P is rounded to bf16 on the tensor
               cores), timed beside the previous design (the SIMT kernel
               in bf16) and SDPA's flash backend; ``spmm`` and
-              ``segment_sum_tiles``:
+              ``segment_sum_tiles``, each on both routes (edges bound in
+              destination order with ``with_edges``, and the previous route
+              through ``perm``), the route of each call counted:
               the reference test's cases weighted and not, no edges,
               isolated nodes, wrapped and clamped src, int64 indices, bf16
               rows and hubs above the split length, with and without the
-              split; ``embedding_bag``: the reference test's cases, no
-              weights, an all-zero bag in ``mean``, wrapped and clamped
-              indices, int64 indices, a bf16 table and an empty bag; both
+              split, the bound route's load widths (D = 4, 63, 64, 65, 70,
+              bf16 at 64) and a view one element off the 16 bytes, its two
+              launches bit-equal; ``embedding_bag``: the reference test's
+              cases, no weights, an all-zero bag in ``mean``, wrapped
+              and clamped indices, int64 indices, a bf16 table and an
+              empty bag; both
               within 1e-5 of each element's absolute sum plus 1e-6);
               device and CUDA-event timings; ``augru`` at 1, 512 and
               65,536 rows beside the previous design and cuDNN's GRU (at
@@ -81,12 +86,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 14. hash      DBH, Grid and Random through the CLI at RMAT-20.
 15. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
               4 relabelled copies of the RMAT-20 graph (~2.58M nodes,
-              ~64.3M edges), ``prepare_tiles`` on the host, ``spmm(h, src,
-              edge_mask, prep)`` at gin-tu's D = 64 (a warm-up and 5 calls)
-              and ``segment_sum_tiles`` of (E, 70) messages (a warm-up and
-              2 calls), exactly one ``spmm`` launch per call; the outputs
-              against the plain versions, timed beside cuSPARSE's SpMM and
-              without the hub split.
+              ~64.3M edges), ``prepare_tiles`` on the host, src and the
+              edge mask bound once (``with_edges``, ``bind_s``),
+              ``spmm(h, src, edge_mask, prep)`` at gin-tu's D = 64 (a
+              warm-up and 5 calls, each on the bound route) and
+              ``segment_sum_tiles`` of (E, 70) messages (a warm-up and 2
+              calls, on the previous route), exactly one ``spmm`` launch per
+              call; the outputs against the plain versions, timed by CUDA
+              events beside the previous route (``previous_ms``), cuSPARSE's
+              SpMM and without the hub split; the messages' sum also timed
+              and checked on the bound route.
 16. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
               ``InteractionStream`` histories (seq 100, ``hist_mask`` as
               the weights) at 512 and 65,536 bags, ``sum`` and ``mean``: a
@@ -109,6 +118,11 @@ checks the counts just after.
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --spmm-tune   # the spmm bound route's shapes
+
+rebuilds ``spmm.cu`` at each launch shape of ``SPMM_TUNE`` and times it on
+``gnn_aggregate``'s graph (one JSON line each), and does nothing else.
 """
 from __future__ import annotations
 
@@ -913,10 +927,13 @@ def time_flash_attention(S: int, Hq: int = 24, Hkv: int = 2,
 SUM_REL, SUM_ABS, BF16_REL = 1e-5, 1e-6, 2.0 ** -7
 SUM_TOL = (f"|kernel - plain| <= {SUM_REL} * sum |w R| + {SUM_ABS} per "
            f"element (+ {BF16_REL} |plain| for a bf16 output)")
-#: (V, E, D, options) checked on the card, each weighted and unweighted: the
-#: reference test's six cases, no edges, nodes with no in-edge, negative and
-#: out-of-range src, int64 indices, bf16 rows, hubs above the split length
-#: (one of exactly 1,025 edges, one at a D of two column passes), a wide D
+#: (V, E, D, options) checked on the card, each weighted and unweighted, on
+#: both routes: the reference test's six cases, no edges, nodes with no
+#: in-edge, negative and out-of-range src, int64 indices, bf16 rows, hubs
+#: above the split length (one of exactly 1,025 edges, one at a D of two
+#: column passes), a wide D; the bound route's load widths (D = 4 and 64 in
+#: 16 bytes, 70 in 8, 63 and 65 one element, bf16 at 64) and a view whose
+#: base is one element off the 16 bytes
 SPMM_CHECK = (
     (50, 300, 16, {}), (300, 2000, 70, {}), (1000, 5000, 128, {}),
     (257, 1, 5, {}), (128, 128, 128, {}), (5, 40, 200, {}),
@@ -926,7 +943,9 @@ SPMM_CHECK = (
     (1000, 5000, 128, {"dtype": "bfloat16", "idx": "int64"}),
     (100, 6000, 64, {"hub": 5000}), (200, 3000, 70, {"hub": 1025}),
     (64, 3000, 300, {"hub": 2100, "idx": "int64", "bad_src": True}),
-    (40, 600, 520, {}))
+    (40, 600, 520, {}), (300, 4000, 63, {}), (300, 4000, 65, {}),
+    (300, 4000, 4, {"hub": 1500}), (300, 4000, 64, {"offset": 1}),
+    (300, 4000, 64, {"dtype": "bfloat16", "hub": 1500}))
 #: (V, D, B, L, mode, options): the reference test's four cases, no
 #: weights, a bag whose weights are all 0 (mean), negative and
 #: out-of-range indices, int64 indices, a bf16 table, an empty bag
@@ -959,11 +978,12 @@ def sum_agree(got, want, scale) -> dict:
 
 
 def spmm_inputs(V, E, D, seed, *, dtype="float32", idx="int32", hub=0,
-                isolated=False, bad_src=False):
+                isolated=False, bad_src=False, offset=0):
     """x ~ N(0, 1), w ~ N(0, 1), src and dst uniform (the reference test's
     draws), on the card; ``hub`` edges all into node V // 2, ``isolated``
     leaves three quarters of the nodes without an in-edge, ``bad_src``
-    makes every 7th src negative and every 7th out of range."""
+    makes every 7th src negative and every 7th out of range, ``offset``
+    makes x a view that starts that many elements into a buffer."""
     import torch
     from repro_torch.kernels.spmm import prepare_tiles
     rng = np.random.default_rng(seed)
@@ -976,42 +996,87 @@ def spmm_inputs(V, E, D, seed, *, dtype="float32", idx="int32", hub=0,
         src[::7] = -rng.integers(1, 2 * V + 1, len(src[::7]))
         src[3::7] = V + rng.integers(0, 2 * V, len(src[3::7]))
     w = rng.standard_normal(E).astype(np.float32)
-    x = rng.standard_normal((V, D)).astype(np.float32)
-    return (torch.from_numpy(x).to("cuda", getattr(torch, dtype)),
+    x = rng.standard_normal(V * D + offset).astype(np.float32)
+    x = torch.from_numpy(x).to("cuda", getattr(torch, dtype))[offset:]
+    return (x.view(V, D),
             torch.from_numpy(src).to("cuda", getattr(torch, idx)),
             torch.from_numpy(w).cuda(), torch.from_numpy(dst).cuda(),
             prepare_tiles(dst, V).to("cuda"))
 
 
+def spmm_route(fn, route: str, what: str):
+    """``fn()`` (one ``spmm`` launch) with the counters reset just before:
+    it must have taken ``route``.  Returns its output."""
+    from repro_torch.kernels import spmm
+    spmm.launches.reset()
+    out = fn()
+    by = dict(spmm.launches.by_route)
+    if by != {**dict.fromkeys(by, 0), route: 1}:
+        raise AssertionError(f"{what}: launches by route {by}, expected "
+                             f"one on {route}")
+    return out
+
+
+def segment_sum_bound(messages, prep):
+    """``segment_sum_tiles``' sum through the bound route's kernel, with
+    ``perm`` as the row ids: a comparison, never on the port's path (the
+    op takes the previous route), so its launch is not counted."""
+    import torch
+    from repro_torch.kernels.spmm import kernel
+    out = torch.empty((prep.num_nodes, messages.shape[1]),
+                      dtype=messages.dtype, device=messages.device)
+    kernel.launch_bound(messages, prep.perm, None, prep, blocks=prep.blocks,
+                        out=out)
+    return out
+
+
 def check_spmm(cases) -> dict:
-    """``spmm`` (weighted and not) and ``segment_sum_tiles`` through the
-    CUDA kernel against ``spmm_ref`` / ``segment_sum_ref`` on the card,
-    each element by ``sum_agree``; hub cases also with the split off."""
+    """``spmm`` (weighted and not, on both routes: the edges bound with
+    ``with_edges`` and gathered through ``perm``) and ``segment_sum_tiles``
+    (and its sum through the bound route's kernel) against ``spmm_ref`` /
+    ``segment_sum_ref`` on the card, each element by ``sum_agree``; hub
+    cases also with the split off; the bound route's two launches
+    bit-equal."""
+    import torch
     from repro_torch.kernels import wrap_clamp_index
-    from repro_torch.kernels.spmm import (segment_sum_ref, segment_sum_tiles,
-                                          spmm, spmm_ref)
+    from repro_torch.kernels.spmm import (kernel, segment_sum_ref,
+                                          segment_sum_tiles, spmm, spmm_ref)
     out, max_err = [], 0.0
     for i, (V, E, D, opt) in enumerate(cases):
         x, src, w, dst, prep = spmm_inputs(V, E, D, seed=i, **opt)
+        case = {"V": V, "E": E, "D": D, **opt,
+                "plan": vars(kernel.plan_for(x))}
         preps = {"split": prep}
         if prep.n_chunks:
             preps["no_split"] = prep.with_split(None)
         for name, pr in preps.items():
             for wt in (w, None):
-                got = spmm(x, src, wt, pr)
+                bound = pr.with_edges(src, wt, num_rows=V)
                 want = spmm_ref(x, src, dst, wt, V)
                 scale = spmm_ref(x.float().abs(), src, dst,
                                  None if wt is None else wt.abs(), V)
-                out.append({"op": "spmm", "V": V, "E": E, "D": D, **opt,
+                for route, p in (("perm", pr), ("bound", bound)):
+                    got = spmm_route(lambda: spmm(x, src, wt, p), route,
+                                     f"spmm {case}")
+                    line = {"op": "spmm", **case, "route": route,
                             "weighted": wt is not None, "prep": name,
                             "hub_chunks": pr.n_chunks,
-                            **sum_agree(got, want, scale)})
+                            **sum_agree(got, want, scale)}
+                    if route == "bound":
+                        line["bit_equal"] = bool(torch.equal(
+                            got, spmm(x, src, wt, p)))
+                        line["ok"] = line["ok"] and line["bit_equal"]
+                    out.append(line)
             msg = x[wrap_clamp_index(src, V)] * w[:, None].to(x.dtype)
-            got = segment_sum_tiles(msg, pr)
             want = segment_sum_ref(msg, dst, V)
             scale = segment_sum_ref(msg.float().abs(), dst, V)
-            out.append({"op": "segment_sum_tiles", "V": V, "E": E, "D": D,
-                        **opt, "prep": name, **sum_agree(got, want, scale)})
+            for route, got in (
+                    ("perm", spmm_route(lambda: segment_sum_tiles(msg, pr),
+                                        "perm", f"segment_sum_tiles {case}")),
+                    ("bound", segment_sum_bound(msg, pr))):
+                out.append({"op": "segment_sum_tiles", **case,
+                            "route": route, "prep": name,
+                            **sum_agree(got, want, scale)})
     for line in out:
         max_err = max(max_err, line["max_abs_err"])
         if not line["ok"]:
@@ -1020,6 +1085,7 @@ def check_spmm(cases) -> dict:
                    if c.get("dtype", "float32") == dt]
               for dt in ("float32", "bfloat16")}
     return {"tolerance": SUM_TOL, "cases": len(out),
+            "bound_cases_bit_equal": sum("bit_equal" in c for c in out),
             "max_err_over_bound": {dt: max(r) for dt, r in ratios.items()},
             "max_abs_err": max_err}
 
@@ -1736,10 +1802,12 @@ def relabelled_copies(edges, copies: int, seed: int) -> tuple:
             label[compact[row, 1] + base].astype(np.int32), copies * n1)
 
 
-def counted_calls(fn, n: int, kernel: str, what: str) -> tuple:
+def counted_calls(fn, n: int, kernel: str, what: str,
+                  route: str | None = None) -> tuple:
     """``n`` calls of ``fn``, each with every counter reset just before and
-    read just after (exactly one launch of ``kernel``, nothing else), each
-    timed between CUDA events; (the last output, ms per call, launches)."""
+    read just after (exactly one launch of ``kernel``, nothing else, and
+    on ``route`` where one is named), each timed between CUDA events; (the
+    last output, ms per call, launches)."""
     import torch
     ms, launches, out = [], 0, None
     for _ in range(n):
@@ -1755,6 +1823,10 @@ def counted_calls(fn, n: int, kernel: str, what: str) -> tuple:
             return r
         out, counts, _ = counted(call)
         expect_launches(counts, {kernel: 1}, what)
+        by = counters()[kernel].by_route if route else {}
+        if route and by[route] != 1:
+            raise AssertionError(f"{what}: launches by route {by}, "
+                                 f"expected one on {route}")
         ms.append(a.elapsed_time(b))
         launches += counts[kernel]
     return out, ms, launches
@@ -1774,15 +1846,18 @@ def csr_library_ms(prep, col, values, n_cols: int, rows, reps: int = 5):
 
 def gnn_aggregate(scale: int, tmp: str) -> dict:
     """One GIN layer's neighbour sum at ogb_products' scale: 4 relabelled
-    copies of RMAT-``scale``; ``spmm(h, src, edge_mask, prep)`` at gin-tu's
-    D = 64, one warm-up and one call per layer, and ``segment_sum_tiles``
-    of (E, 70) messages, one warm-up and two calls; exactly one ``spmm``
-    launch per call.  Then the last outputs against the plain versions,
-    and the kernel, the plain versions and cuSPARSE timed on the inputs."""
+    copies of RMAT-``scale``; the graph's src and edge mask bound once
+    (``with_edges``), then ``spmm(h, src, edge_mask, prep)`` at gin-tu's
+    D = 64, one warm-up and one call per layer, each on the bound route,
+    and ``segment_sum_tiles`` of (E, 70) messages, one warm-up and two
+    calls; exactly one ``spmm`` launch per call.  Then the last outputs
+    against the plain versions, and the kernel's routes, the plain
+    versions and cuSPARSE timed on the same inputs by CUDA events."""
     import torch
     from repro_torch.kernels import wrap_clamp_index
-    from repro_torch.kernels.spmm import (prepare_tiles, segment_sum_ref,
-                                          segment_sum_tiles, spmm, spmm_ref)
+    from repro_torch.kernels.spmm import (kernel, prepare_tiles,
+                                          segment_sum_ref, segment_sum_tiles,
+                                          spmm, spmm_ref)
     t0 = time.perf_counter()
     path, _ = write_graph(scale, tmp)
     src, dst, N = relabelled_copies(np.fromfile(path, np.uint32)
@@ -1803,9 +1878,13 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
     h = torch.randn((N, GIN_D), generator=g, device="cuda")
     mask = (torch.rand(E, generator=g, device="cuda") < 0.99).float()
     torch.cuda.reset_peak_memory_stats()
-    y, gin_ms, gin_n = counted_calls(lambda: spmm(h, src_d, mask, prep),
-                                     1 + GIN_LAYERS, "spmm",
-                                     "gin-tu neighbour sum (one spmm)")
+    t0 = time.perf_counter()
+    bound_prep = prep.with_edges(src_d, mask, num_rows=N)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    y, gin_ms, gin_n = counted_calls(
+        lambda: spmm(h, src_d, mask, bound_prep), 1 + GIN_LAYERS, "spmm",
+        "gin-tu neighbour sum (one spmm)", route="bound")
     gin_peak = torch.cuda.max_memory_allocated()
     gather = wrap_clamp_index(src_d, N)
     touched = int(torch.unique(gather).numel())
@@ -1814,32 +1893,47 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
     rest = E * (4 + 4 + 4) + (N + 1) * 8 + N * GIN_D * 4
     gin_bound = bound(touched * GIN_D * 4 + rest, 2 * E * GIN_D)
     gin_gathered = bound(E * GIN_D * 4 + rest, 2 * E * GIN_D)
-    timing = timed(lambda: spmm(h, src_d, mask, prep),
+    # in turns: the bound route, the previous route, no split, cuSPARSE
+    timing = timed(lambda: spmm(h, src_d, mask, bound_prep),
                    lambda: spmm_ref(h, src_d, dst_d, mask, N), reps=3,
                    profile=False)
-    flat = prep.with_split(None)
+    previous_ms = cuda_time_ms(lambda: spmm(h, src_d, mask, prep), 6, 1)
+    previous_y = spmm_route(lambda: spmm(h, src_d, mask, prep), "perm",
+                            "the previous route at the path shape")
+    flat = bound_prep.with_split(None)
     flat_ms = cuda_time_ms(lambda: spmm(h, src_d, mask, flat), 3, 1)
-    flat_agree = sum_agree(spmm(h, src_d, mask, flat), y,
-                           spmm_ref(h.abs(), src_d, dst_d, mask, N))
+    scale_y = spmm_ref(h.abs(), src_d, dst_d, mask, N)
+    flat_agree = sum_agree(spmm_route(lambda: spmm(h, src_d, mask, flat),
+                                      "bound", "the bound route unsplit"),
+                           y, scale_y)
     perm = prep.perm.long()
     lib_ms, lib_y = csr_library_ms(prep, gather[perm], mask[perm], N, h)
+    ms_again = cuda_time_ms(lambda: spmm(h, src_d, mask, bound_prep), 6, 1)
     want = spmm_ref(h, src_d, dst_d, mask, N)
-    agree = sum_agree(y, want, spmm_ref(h.abs(), src_d, dst_d, mask, N))
+    agree = sum_agree(y, want, scale_y)
+    previous_agree = sum_agree(previous_y, want, scale_y)
     lib_err = float((lib_y - want).abs().max())
-    if not (agree["ok"] and flat_agree["ok"]):
+    gin_plan = vars(kernel.plan_for(h))
+    if not (agree["ok"] and flat_agree["ok"] and previous_agree["ok"]):
         raise AssertionError(f"spmm disagrees at the path shape: {agree}, "
-                             f"without the split: {flat_agree}")
-    del h, y, want, lib_y, gather
+                             f"without the split: {flat_agree}, on the "
+                             f"previous route: {previous_agree}")
+    del h, y, want, lib_y, gather, previous_y, scale_y
+    del bound_prep, flat       # the bound arrays, before the messages
     torch.cuda.empty_cache()
-    gin = {"D": GIN_D, "calls_ms": gin_ms, "warmup_ms": gin_ms[0],
+    gin = {"D": GIN_D, "route": "bound", "bind_s": bind_s,
+           "plan": gin_plan,
+           "calls_ms": gin_ms, "warmup_ms": gin_ms[0],
            "ms_per_call": float(np.median(gin_ms[1:])), "launches": gin_n,
+           "launches_by_route": {"bound": gin_n},
            "peak_device_bytes": gin_peak, "touched_rows": touched,
            "gb_per_s": (touched * GIN_D * 4 + rest) / 1e6
            / float(np.median(gin_ms[1:])),
            "gathered_gb_per_s": (E * GIN_D * 4 + rest) / 1e6
            / float(np.median(gin_ms[1:])),
-           **timing, **gin_bound,
+           **timing, "ms_again": ms_again, **gin_bound,
            "gathered_bound_ms": gin_gathered["bound_ms"],
+           "previous_ms": previous_ms, "previous": previous_agree,
            "no_split_ms": flat_ms, "no_split": flat_agree, **agree,
            "library_ms": lib_ms, "library_max_abs_diff": lib_err,
            "library": "torch.sparse.mm(CSR(row_ptr, src[perm], mask[perm]), "
@@ -1849,28 +1943,40 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     y, seg_ms, seg_n = counted_calls(lambda: segment_sum_tiles(msgs, prep),
                                      3, "spmm",
-                                     "GatedGCN message sum (one spmm)")
+                                     "GatedGCN message sum (one spmm)",
+                                     route="perm")
     seg_peak = torch.cuda.max_memory_allocated()
     seg_bytes = E * GATED_D * 4 + E * 4 + (N + 1) * 8 + N * GATED_D * 4
     seg_timing = timed(lambda: segment_sum_tiles(msgs, prep),
                        lambda: segment_sum_ref(msgs, dst_d, N), reps=2,
                        profile=False)
+    vec_ms = cuda_time_ms(lambda: segment_sum_bound(msgs, prep), 4, 1)
+    vec_y = segment_sum_bound(msgs, prep)
     lib_ms, lib_y = csr_library_ms(prep, perm, torch.ones_like(mask), E,
                                    msgs, reps=2)
     want = segment_sum_ref(msgs, dst_d, N)
     lib_err = float((lib_y - want).abs().max())
     del lib_y
-    agree = sum_agree(y, want, segment_sum_ref(msgs.abs_(), dst_d, N))
-    if not agree["ok"]:
+    vec_plan = vars(kernel.plan_for(msgs))
+    seg_scale = segment_sum_ref(msgs.abs_(), dst_d, N)
+    agree = sum_agree(y, want, seg_scale)
+    vec_agree = sum_agree(vec_y, want, seg_scale)
+    if not (agree["ok"] and vec_agree["ok"]):
         raise AssertionError(f"segment_sum_tiles disagrees at the path "
-                             f"shape: {agree}")
-    del msgs, y, want
+                             f"shape: {agree}, on the bound route: "
+                             f"{vec_agree}")
+    del msgs, y, want, vec_y, seg_scale
     torch.cuda.empty_cache()
-    seg = {"D": GATED_D, "calls_ms": seg_ms, "warmup_ms": seg_ms[0],
+    seg = {"D": GATED_D, "route": "perm", "calls_ms": seg_ms,
+           "warmup_ms": seg_ms[0],
            "ms_per_call": float(np.median(seg_ms[1:])), "launches": seg_n,
+           "launches_by_route": {"perm": seg_n},
            "peak_device_bytes": seg_peak,
            "gb_per_s": seg_bytes / 1e6 / float(np.median(seg_ms[1:])),
            **seg_timing, **bound(seg_bytes, E * GATED_D), **agree,
+           "bound_route_ms": vec_ms,
+           "bound_route_plan": vec_plan,
+           "bound_route": vec_agree,
            "library_ms": lib_ms, "library_max_abs_diff": lib_err,
            "library": "torch.sparse.mm(CSR(row_ptr, perm, ones), messages), "
                       "cuSPARSE SpMM"}
@@ -1884,7 +1990,84 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
             "graph_s": graph_s, "prepare_tiles_s": prepare_s,
             "prep_to_cuda_s": to_s, "tolerance": SUM_TOL,
             "gin_spmm": gin, "gated_segment_sum": seg,
-            "spmm_launches": gin_n + seg_n}
+            "spmm_launches": gin_n + seg_n,
+            "launches_by_route": {"bound": gin_n, "perm": seg_n}}
+
+
+#: the bound route's launch shapes --spmm-tune times, (SPMM_STEPS,
+#: SPMM_WARPS, SPMM_MIN_BLOCKS): the shipped (4, 4, 8) first
+SPMM_TUNE = ((4, 4, 8), (8, 8, 1), (4, 8, 1), (2, 4, 1), (2, 4, 10),
+             (2, 2, 16), (1, 4, 8), (8, 4, 8))
+
+
+def spmm_tune(scale: int, tmp: str) -> list:
+    """The bound route rebuilt with -D overrides of its launch shape
+    (``SPMM_TUNE``), each timed by CUDA events on ``gnn_aggregate``'s
+    graph at D = 64 (two rounds, in turns, the previous route at both ends),
+    with its registers and spills (ptxas) and its agreement with the plain
+    version.  One line per shape."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.spmm import kernel, prepare_tiles, spmm, spmm_ref
+    out_dir = os.path.join(tmp, "spmm_tune")
+    os.makedirs(out_dir)
+    procs = {}
+    for shape in SPMM_TUNE:
+        flags = [f"-D{k}={v}" for k, v in zip(
+            ("SPMM_STEPS", "SPMM_WARPS", "SPMM_MIN_BLOCKS"), shape)]
+        lib = os.path.join(out_dir, "spmm_%d_%d_%d.so" % shape)
+        procs[shape] = (lib, subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, *flags, "-o",
+             lib, str(kernel.SOURCE)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    shipped = kernel.library()
+    libs, ptxas = {}, {}
+    for shape, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {shape}:\n{log}")
+        lib = ctypes.CDLL(path)
+        for name in ("spmm_launch", "spmm_bound_launch"):
+            getattr(lib, name).argtypes = getattr(shipped, name).argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        libs[shape] = lib
+        ptxas[shape] = [f for f in ptxas_report(log) if any(
+            n in f["function"] for n in (
+                "bound::spmm_kernel<float, float, int, 16, 1>",
+                "bound11spmm_kernelIffiLi16ELi1E"))]
+    path, _ = write_graph(scale, tmp)
+    src, dst, N = relabelled_copies(np.fromfile(path, np.uint32)
+                                    .reshape(-1, 2), GNN_COPIES, seed=0)
+    prep = prepare_tiles(dst, N).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    src_d = torch.from_numpy(src).cuda()
+    dst_d = torch.from_numpy(dst).cuda()
+    h = torch.randn((N, GIN_D), generator=g, device="cuda")
+    mask = (torch.rand(len(src), generator=g, device="cuda") < 0.99).float()
+    bound_prep = prep.with_edges(src_d, mask, num_rows=N)
+    want = spmm_ref(h, src_d, dst_d, mask, N)
+    scale_y = spmm_ref(h.abs(), src_d, dst_d, mask, N)
+    library = kernel.library
+    ms = {shape: [] for shape in libs}
+    agree = {}
+    try:
+        previous = [cuda_time_ms(lambda: spmm(h, src_d, mask, prep), 6, 1)]
+        for order in (list(libs), list(libs)[::-1]):
+            for shape in order:
+                kernel.library = lambda lib=libs[shape]: lib
+                ms[shape].append(cuda_time_ms(
+                    lambda: spmm(h, src_d, mask, bound_prep), 6, 1))
+                agree.setdefault(shape, sum_agree(
+                    spmm(h, src_d, mask, bound_prep), want, scale_y))
+        kernel.library = library
+        previous.append(cuda_time_ms(lambda: spmm(h, src_d, mask, prep), 6,
+                                     1))
+    finally:
+        kernel.library = library
+    return [{"steps": k, "warps": w, "min_blocks": b, "ms": ms[(k, w, b)],
+             "ptxas": ptxas[(k, w, b)], **agree[(k, w, b)]}
+            for k, w, b in libs] + [{"previous_ms": previous}]
 
 
 def bag_pool() -> dict:
@@ -1984,15 +2167,21 @@ def ops_card_vs_cpu(scale: int) -> dict:
     prep = prepare_tiles(dst, N)
     on_cpu, counts, cpu_s = counted(lambda: spmm(x, src_t, w, prep))
     expect_launches(counts, {}, "spmm on the CPU")
+    scale_cpu = spmm_ref(x.abs(), src_t, torch.from_numpy(dst), w, N)
     card_prep = prep.to("cuda")
-    on_card, counts, _ = counted(lambda: spmm(x.cuda(), src_t.cuda(),
-                                              w.cuda(), card_prep).cpu())
-    expect_launches(counts, {"spmm": 1}, "spmm on the card")
+    x_c, src_c, w_c = x.cuda(), src_t.cuda(), w.cuda()
     gnn = {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0), "
                     f"relabelled (seed 1)", "nodes": N, "edges": len(src),
-           "D": GIN_D, "cpu_s": cpu_s,
-           **sum_agree(on_card, on_cpu, spmm_ref(
-               x.abs(), src_t, torch.from_numpy(dst), w, N))}
+           "D": GIN_D, "cpu_s": cpu_s}
+    for route, p in (("perm", card_prep),
+                     ("bound", card_prep.with_edges(src_c, w_c,
+                                                    num_rows=N))):
+        on_card, counts, _ = counted(
+            lambda: spmm_route(lambda: spmm(x_c, src_c, w_c, p), route,
+                               "spmm on the card").cpu())
+        expect_launches(counts, {"spmm": 1}, f"spmm on the card, {route}")
+        gnn[route] = sum_agree(on_card, on_cpu, scale_cpu)
+    gnn["ok"] = gnn["perm"]["ok"] and gnn["bound"]["ok"]
     cfg = get_arch("dien").make_config()
     table = torch.randn((cfg.n_items, cfg.embed_dim),
                         generator=torch.Generator(device="cuda")
@@ -2146,6 +2335,10 @@ def main(argv=None) -> int:
                          "hosted 2PS-L at min(scale, 18), the HDRF "
                          "baselines and the overflow-tail comparison at "
                          "min(scale, 16)")
+    ap.add_argument("--spmm-tune", action="store_true",
+                    help="only time the spmm bound route's launch shapes "
+                         "(SPMM_TUNE) on gnn_aggregate's graph and print "
+                         "one line each")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
@@ -2162,6 +2355,12 @@ def main(argv=None) -> int:
         emit({"ms": gru_library_ms(batch, reps=reps, split=split)})
         return 0
     sys.path.insert(0, os.path.join(REPO, "src"))
+    if args.spmm_tune:
+        print(nvidia_smi(), flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            for line in spmm_tune(min(args.scale, 20), tmp):
+                emit(line)
+        return 0
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.augru import kernel as ag_kernel
     from repro_torch.kernels.edge_score import kernel as es_kernel
@@ -2301,7 +2500,10 @@ def main(argv=None) -> int:
         "launches": paths["spmm"],
         "max_abs_err": max(s_check["max_abs_err"], gin["max_abs_err"],
                            ga["gated_segment_sum"]["max_abs_err"]),
-        "ms": gin["ms"], "plain_ms": gin["plain_ms"],
+        "kernel_route": gin["route"],
+        "launches_by_route": ga["launches_by_route"],
+        "ms": gin["ms"], "previous_ms": gin["previous_ms"],
+        "plain_ms": gin["plain_ms"],
         "bound_ms": gin["bound_ms"], "bound_by": gin["bound_by"],
         "gathered_bound_ms": gin["gathered_bound_ms"],
         "library_ms": gin["library_ms"]}, {

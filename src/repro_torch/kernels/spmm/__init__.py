@@ -1,3 +1,3 @@
-from .ops import (SPLIT_EDGES, TilePrep, launches, prepare_tiles,
-                  segment_sum_tiles, spmm)
-from .ref import segment_sum_ref, spmm_ref
+from .ops import (ROUTES, SPLIT_EDGES, BoundEdges, TilePrep, launches,
+                  prepare_tiles, route, segment_sum_tiles, spmm)
+from .ref import segment_sum_ref, sorted_sum_ref, spmm_ref

@@ -1,8 +1,9 @@
 """Plain torch versions of the ``spmm`` kernel: the CPU path of ``spmm`` and
-``segment_sum_tiles``, and the yardstick the CUDA kernel is held to on the
-card.  Sums are float32 (``index_add_`` into a float32 buffer), cast to the
-messages' dtype, as the reference's ``jax.ops.segment_sum`` of float32
-messages; the gather follows JAX's index semantics (``wrap_clamp_index``).
+``segment_sum_tiles`` (``sorted_sum_ref`` for the bound route), and the
+yardstick the CUDA kernel is held to on the card.  Sums are float32
+(``index_add_`` into a float32 buffer), cast to the messages' dtype, as
+the reference's ``jax.ops.segment_sum`` of float32 messages; the gather
+follows JAX's index semantics (``wrap_clamp_index``).
 """
 from __future__ import annotations
 
@@ -25,3 +26,16 @@ def spmm_ref(x, src, dst, weights, num_nodes: int):
     if weights is not None:
         msg = msg * weights[:, None]
     return segment_sum_ref(msg, dst, num_nodes)
+
+
+def sorted_sum_ref(rows, idx, weights, row_ptr):
+    """The bound route: Y[i] = sum_p w[p] * rows[idx[p]] over p in
+    [row_ptr[i], row_ptr[i + 1]), with ``idx`` (in range) and ``weights``
+    (or None) already in destination order."""
+    n = row_ptr.numel() - 1
+    dst = torch.repeat_interleave(torch.arange(n, device=rows.device),
+                                  row_ptr[1:] - row_ptr[:-1])
+    msg = rows[idx.long()]
+    if weights is not None:
+        msg = msg * weights[:, None]
+    return segment_sum_ref(msg, dst, n)
