@@ -43,8 +43,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               launches bit-equal; ``embedding_bag``: the reference test's
               cases, no weights, an all-zero bag in ``mean``, wrapped
               and clamped indices, int64 indices, a bf16 table and an
-              empty bag; both
+              empty bag, then each load width of its plan (D = 1, 3, 18,
+              32, 64, 65, bf16 at 18, 64 and 65, views off the 16 bytes),
+              L = 0, 1, 100 and 257 and B = 1, 512 and 65,536, two
+              launches bit-equal; both
               within 1e-5 of each element's absolute sum plus 1e-6);
+              ``hdrf_score``'s two entries (``hdrf_choose`` on flags,
+              ``hdrf_choose_bits`` on the packed bit matrix) at k = 1, 2,
+              7, 31, 32, 33, 48, 64 and 200 and E = 1, 64, 65,536 and
+              65,537, flat and with 4 hosts (k = 48: groups of 12 bits
+              that straddle a word), HDRF and Greedy, equal sizes (ties to
+              partition 0), chosen equal and best bit-equal, each timed
+              by CUDA-graph replays beside the previous design (the bits
+              entry beside the previous gather + ``host_any`` + kernel),
+              at every lane count per edge;
               device and CUDA-event timings; ``augru`` at 1, 512 and
               65,536 rows beside the previous design and cuDNN's GRU (at
               65,536 rows as equal sub-batches, in a process of its own),
@@ -79,10 +91,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 11. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
               dcn_penalty 1.0).
 12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-20 (``--scale``): one
-              ``hdrf_score`` launch per scoring chunk, no ``edge_score``.
+              ``hdrf_score`` launch per scoring chunk, all through
+              ``hdrf_choose_bits``, no ``edge_score``.
 13. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
               RMAT-16: one ``hdrf_score`` launch per non-empty 64-edge
-              micro-batch.
+              micro-batch, all through ``hdrf_choose_bits``; each run
+              again with the previous composition of the choice,
+              byte-equal, its wall beside; the device operations per
+              micro-batch of both, profiled over one 4,096-edge chunk.
 14. hash      DBH, Grid and Random through the CLI at RMAT-20.
 15. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
               4 relabelled copies of the RMAT-20 graph (~2.58M nodes,
@@ -100,7 +116,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               ``InteractionStream`` histories (seq 100, ``hist_mask`` as
               the weights) at 512 and 65,536 bags, ``sum`` and ``mean``: a
               warm-up and 3 calls each, exactly one launch per call; timed
-              beside ``F.embedding_bag``.
+              by CUDA-graph replays beside the previous design and by
+              events beside ``F.embedding_bag``; bounds on the touched
+              rows, a row per lookup and the sectors each row spans.
 17. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
               ``embedding_bag`` at 512 bags, on the card and on the CPU
               through the same op, within the kernels' tolerance.
@@ -314,27 +332,6 @@ def batched_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return a.elapsed_time(b) / reps
 
 
-def launch_ms(fn, kernel: str, reps: int = 50) -> tuple[float | None, int]:
-    """The mean device duration of the recorded launches of the CUDA
-    kernel whose name holds ``kernel`` over ``reps`` profiled calls of
-    ``fn`` (None when none was recorded), and how many were recorded: late
-    in a long run the profiler has kept as few as ~30% of its records, so
-    a mean over what it kept, not a sum over ``reps``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.device_time_total for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return (sum(us) / len(us) / 1e3 if us else None), len(us)
-
-
 def bound(nbytes: float, ops: float,
           ops_per_s: float = FP32_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over HBM bandwidth or
@@ -383,6 +380,16 @@ def time_edge_score(E: int) -> dict:
 # ---------------------------------------------------------------------------
 
 HDRF_LAM = 1.1
+#: k checked on the card: one partition, the thread route's edges (31-33,
+#: 64), host groups of 12 bits that straddle a word (48 with 4 hosts), the
+#: warp route (200)
+HDRF_KS = (1, 2, 7, 31, 32, 33, 48, 64, 200)
+HDRF_ES = (1, 64, 65536, 65537)
+#: k at the edge of c_bal in shared memory (the largest in it, and the
+#: first 48 KB of c_bal, which is past it), checked at 64 edges
+HDRF_WIDE_KS = (12160, 12288)
+#: host groups of the host-aware cases, where they divide k
+HDRF_HOSTS = 4
 
 
 def hdrf_inputs(E: int, k: int, seed: int, hosts: int, equal_sizes: bool,
@@ -412,53 +419,91 @@ def hdrf_inputs(E: int, k: int, seed: int, hosts: int, equal_sizes: bool,
     return t, host, np.asarray(tie, np.int64)
 
 
-def check_hdrf_score(sizes, ks) -> dict:
-    """The CUDA kernel against its plain version on the card (and the
-    plain version on the card against the CPU), flat and host-aware
-    (4 hosts, penalty 0.7, where 4 divides k), HDRF and Greedy, random
-    and equal partition sizes: chosen equal, best bit-equal."""
+def hdrf_bits_inputs(E: int, k: int, seed: int, equal_sizes: bool, device,
+                     idx: str = "int64"):
+    """The bits entry's operands as the chunk functions hold them: a
+    packed (V, ceil(k/32)) int32 bit matrix (a third of the bits set, a
+    tenth of the rows empty), int32 degrees, endpoints ``uv`` = [u...,
+    v...] with the engine's zero-padded tail, and sizes.  A tenth of the
+    live edges join two empty rows: under ``equal_sizes`` they tie on every
+    partition and must pick 0.  Returns (bits, d, uv, sizes) and the tie
+    edges."""
     import torch
-    from repro_torch.kernels.hdrf_score import hdrf_choose, hdrf_choose_ref
-    cases, max_err = [], 0.0
+    rng = np.random.default_rng(seed)
+    V = 4096 if E <= 4096 else 65536
+    W = -(-k // 32)
+    flags = rng.random((V, W * 32)) < 0.3
+    flags[:, k:] = False
+    empty = rng.choice(V, size=V // 10, replace=False)
+    flags[empty] = False
+    words = (flags.reshape(V, W, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    d = rng.integers(1, 5000, V).astype(np.int32)
+    uv = rng.integers(0, V, (2, E))
+    sizes = (np.full(k, 1000, np.int32) if equal_sizes
+             else rng.integers(0, 100_000, k).astype(np.int32))
+    live = E - E // 10
+    tie = rng.choice(live, size=live // 10, replace=False) if live else []
+    uv[:, tie] = rng.choice(empty, size=(2, len(tie)))
+    uv[:, live:] = 0
+    t = [torch.from_numpy(a).to(device) for a in
+         (words.view(np.int32), d, uv.reshape(-1).astype(idx), sizes)]
+    return t, np.asarray(tie, np.int64)
+
+
+def _exact(c_k, b_k, c_p, b_p) -> tuple[int, int]:
+    """(chosen mismatches, best bit mismatches) of two results."""
+    import torch
+    return (int((c_k != c_p).sum()),
+            int((b_k.view(torch.int32) != b_p.view(torch.int32)).sum()))
+
+
+def hdrf_cases(sizes, ks):
+    """(E, k, degree_weighted, dcn_penalty, hosts, equal_sizes): flat and
+    with ``HDRF_HOSTS`` host groups where they divide k, HDRF and Greedy,
+    random and equal sizes."""
     for E in sizes:
         for k in ks:
             for dw in (True, False):
-                for pen, hosts in ((0.0, 0), (0.7, 4)):
+                for pen, hosts in ((0.0, 0), (0.7, HDRF_HOSTS)):
                     if hosts and k % hosts:
                         continue
                     for eq in (False, True):
-                        args, host, tie = hdrf_inputs(
-                            E, k, seed=E + k, hosts=hosts, equal_sizes=eq,
-                            device="cuda")
-                        kw = dict(lam=HDRF_LAM, dcn_penalty=pen,
-                                  degree_weighted=dw)
-                        c_k, b_k = hdrf_choose(*args, *host, **kw)
-                        c_p, b_p = hdrf_choose_ref(*args, *host, **kw)
-                        cpu = [a.cpu() for a in args + host]
-                        c_c, b_c = hdrf_choose_ref(*cpu, **kw)
-                        torch.cuda.synchronize()
-                        c_k, b_k, c_p, b_p = (x.cpu() for x in
-                                              (c_k, b_k, c_p, b_p))
-                        mism = int((c_k != c_p).sum())
-                        bits_diff = int((b_k.view(torch.int32)
-                                         != b_p.view(torch.int32)).sum())
-                        cpu_diff = int((c_p != c_c).sum()) + int(
-                            (b_p.view(torch.int32)
-                             != b_c.view(torch.int32)).sum())
-                        ties_to_0 = (not eq) or bool((c_k[tie] == 0).all())
-                        err = float((b_k - b_p).abs().max()) if E else 0.0
-                        max_err = max(max_err, err)
-                        cases.append({
-                            "E": E, "k": k, "degree_weighted": dw,
-                            "dcn_penalty": pen, "equal_sizes": eq,
-                            "chosen_mismatches": mism,
-                            "best_bit_mismatches": bits_diff,
-                            "plain_card_vs_cpu_mismatches": cpu_diff,
-                            "tie_rows": len(tie) if eq else 0,
-                            "ties_to_partition_0": ties_to_0})
-                        if mism or bits_diff or cpu_diff or not ties_to_0:
-                            raise AssertionError(
-                                f"hdrf_score disagrees: {cases[-1]}")
+                        yield E, k, dw, pen, hosts, eq
+
+
+def check_hdrf_score(sizes, ks) -> dict:
+    """The flag entry (``hdrf_choose``) against its plain version on the
+    card (and the plain version on the card against the CPU), flat and
+    host-aware, HDRF and Greedy, random and equal partition sizes: chosen
+    equal, best bit-equal."""
+    import torch
+    from repro_torch.kernels.hdrf_score import hdrf_choose, hdrf_choose_ref
+    cases, max_err = [], 0.0
+    for E, k, dw, pen, hosts, eq in hdrf_cases(sizes, ks):
+        args, host, tie = hdrf_inputs(E, k, seed=E + k, hosts=hosts,
+                                      equal_sizes=eq, device="cuda")
+        kw = dict(lam=HDRF_LAM, dcn_penalty=pen, degree_weighted=dw)
+        c_k, b_k = hdrf_choose(*args, *host, **kw)
+        c_p, b_p = hdrf_choose_ref(*args, *host, **kw)
+        cpu = [a.cpu() for a in args + host]
+        c_c, b_c = hdrf_choose_ref(*cpu, **kw)
+        torch.cuda.synchronize()
+        c_k, b_k, c_p, b_p = (x.cpu() for x in (c_k, b_k, c_p, b_p))
+        mism, bits_diff = _exact(c_k, b_k, c_p, b_p)
+        cpu_diff = sum(_exact(c_p, b_p, c_c, b_c))
+        ties_to_0 = (not eq) or bool((c_k[tie] == 0).all())
+        err = float((b_k - b_p).abs().max()) if E else 0.0
+        max_err = max(max_err, err)
+        cases.append({
+            "E": E, "k": k, "degree_weighted": dw, "dcn_penalty": pen,
+            "equal_sizes": eq, "chosen_mismatches": mism,
+            "best_bit_mismatches": bits_diff,
+            "plain_card_vs_cpu_mismatches": cpu_diff,
+            "tie_rows": len(tie) if eq else 0,
+            "ties_to_partition_0": ties_to_0})
+        if mism or bits_diff or cpu_diff or not ties_to_0:
+            raise AssertionError(f"hdrf_score disagrees: {cases[-1]}")
     return {"tolerance": "exact: chosen equal, best bit-equal",
             "cases": len(cases),
             "tie_rows": sum(c["tie_rows"] for c in cases),
@@ -466,19 +511,186 @@ def check_hdrf_score(sizes, ks) -> dict:
             "max_abs_err": max_err}
 
 
-def time_hdrf_score(E: int, k: int = 32) -> dict:
-    from repro_torch.kernels.hdrf_score import hdrf_choose, hdrf_choose_ref
+def check_hdrf_bits(sizes, ks) -> dict:
+    """The bits entry (``hdrf_choose_bits``) against its plain version on
+    the card, in the same cases as the flag entry (every third case with
+    int32 endpoints), each case's route noted: chosen equal, best
+    bit-equal, the tie edges on partition 0 under equal sizes."""
+    import torch
+    from repro_torch.kernels.hdrf_score import (hdrf_choose_bits,
+                                                hdrf_choose_bits_ref, kernel)
+    cases, routes, max_err = 0, {}, 0.0
+    for i, (E, k, dw, pen, hosts, eq) in enumerate(hdrf_cases(sizes, ks)):
+        args, tie = hdrf_bits_inputs(E, k, seed=E * 7 + k, equal_sizes=eq,
+                                     device="cuda",
+                                     idx="int32" if i % 3 == 0 else "int64")
+        kw = dict(k=k, lam=HDRF_LAM, num_hosts=hosts, dcn_penalty=pen,
+                  degree_weighted=dw)
+        c_k, b_k = hdrf_choose_bits(*args, **kw)
+        c_p, b_p = hdrf_choose_bits_ref(*args, **kw)
+        torch.cuda.synchronize()
+        mism, bits_diff = _exact(c_k, b_k, c_p, b_p)
+        ties_to_0 = (not eq) or bool((c_k.cpu()[tie] == 0).all())
+        max_err = max(max_err, float((b_k - b_p).abs().max()))
+        route = kernel.plan(E, k, kernel.sm_count(0)).route
+        routes[route] = routes.get(route, 0) + 1
+        cases += 1
+        if mism or bits_diff or not ties_to_0:
+            raise AssertionError(
+                f"hdrf_choose_bits disagrees: E={E} k={k} dw={dw} "
+                f"pen={pen} equal_sizes={eq} route={route}: {mism} chosen, "
+                f"{bits_diff} best mismatches, ties to 0: {ties_to_0}")
+    return {"tolerance": "exact: chosen equal, best bit-equal",
+            "cases": cases, "cases_by_route": routes,
+            "chosen_mismatches": 0, "best_bit_mismatches": 0,
+            "max_abs_err": max_err}
+
+
+def graph_ms(fn, calls: int = 50, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph after a warm-up, its replays timed back to back between CUDA
+    events, which leaves out the host's launch cost (longer than a short
+    kernel)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    ms = batched_ms(g.replay, reps, 1) / calls
+    del g
+    return ms
+
+
+_PARTS: dict = {}
+
+
+def previous_choose_bits(bits, d, uv, sizes, *, k, lam, num_hosts=0,
+                         dcn_penalty=0.0, degree_weighted=True):
+    """The chunk functions' choice as the previous slice composed it (a
+    comparison, never on the port's path, so not counted): the (2E, k)
+    flags gathered with ``bitops.get`` (``parts`` made once per k), the
+    degrees ``d[uv]``, ``host_any`` when hosted, then the previous kernel
+    on the flag entry's arguments."""
+    import torch
+    from repro_torch.core import bitops
+    from repro_torch.core.scoring import host_any
+    from repro_torch.kernels.hdrf_score import kernel
+    E = uv.shape[0] // 2
+    key = (k, str(uv.device))
+    if key not in _PARTS:
+        _PARTS[key] = torch.arange(k, device=uv.device)
+    rep = bitops.get(bits, uv[:, None], _PARTS[key][None, :])
+    d_uv = d[uv]
+    hosted = bool(dcn_penalty) and num_hosts > 1
+    h = host_any(rep, num_hosts) if hosted else None
+    chosen = torch.empty(E, dtype=torch.int32, device=uv.device)
+    best = torch.empty(E, dtype=torch.float32, device=uv.device)
+    kernel.launch_previous(
+        d_uv[:E], d_uv[E:], rep[:E], rep[E:], sizes,
+        h[:E] if hosted else None, h[E:] if hosted else None, lam=lam,
+        dcn_penalty=float(dcn_penalty) if hosted else 0.0,
+        degree_weighted=degree_weighted, chosen=chosen, best=best)
+    return chosen, best
+
+
+def hdrf_bits_bound(bits, uv, k: int) -> dict:
+    """Bounds of the bits entry on this run's endpoints: each touched
+    vertex's words and degree read once, the endpoints, sizes and outputs
+    (``bound_ms``); and at sector granularity, each endpoint's degree and
+    words as the 32-byte sectors they touch (``sector_bound_ms``)."""
+    import torch
+    E = uv.shape[0] // 2
+    W = bits.shape[1]
+    touched = int(torch.unique(uv).numel())
+    flat = uv.numel() * uv.element_size() + 4 * k + 8 * E
+    sectors = 2 * E * 32 * (1 + -(-4 * W // 32))
+    ops = E * (5 + 3 * k)
+    return {**bound(flat + touched * (4 * W + 4), ops),
+            "sector_bound_ms": bound(flat + sectors, ops)["bound_ms"],
+            "touched_vertices": touched}
+
+
+def time_hdrf_score(E: int, k: int = 32, lanes=(1, 2, 4, 8, 16, 32)) -> dict:
+    """Both entries at (E, k) beside the previous design, device time per
+    call by CUDA-graph replays (``graph_ms``): the flag entry's kernel
+    against the previous kernel; the bits entry's whole choice (one
+    launch) against the previous composition (gather, ``host_any`` and the
+    previous kernel), flat and with 4 hosts; each plain version; each lane
+    count forced (``lanes_ms``); the device time of the same calls summed
+    by torch.profiler (``profiler_ms``, the source of the earlier records);
+    and the host's time per call between CUDA events (``call_ms``)."""
+    import torch
+    from repro_torch.kernels.hdrf_score import (hdrf_choose, hdrf_choose_bits,
+                                                hdrf_choose_bits_ref,
+                                                hdrf_choose_ref, kernel)
     args, _, _ = hdrf_inputs(E, k, seed=7, hosts=0, equal_sizes=False,
                              device="cuda")
-    # bytes each input read once, each output written once: two int32
-    # degrees + 2k one-byte flags per edge and k int32 sizes in, int32 +
-    # float32 out; ~5 float32 operations per edge (theta, g) and ~3 per
-    # (edge, partition) (two adds, the compare)
-    return {"E": E, "k": k,
-            **timed(lambda: hdrf_choose(*args, lam=HDRF_LAM),
-                    lambda: hdrf_choose_ref(*args, lam=HDRF_LAM)),
-            **bound(E * (4 + 4 + 2 * k + 4 + 4) + 4 * k, E * (5 + 3 * k)),
-            "library_ms": None}
+    bargs, _ = hdrf_bits_inputs(E, k, seed=7, equal_sizes=False,
+                                device="cuda")
+    out = [torch.empty(E, dtype=torch.int32, device="cuda"),
+           torch.empty(E, device="cuda")]
+    kw = dict(lam=HDRF_LAM, dcn_penalty=0.0, degree_weighted=True)
+
+    def previous():
+        kernel.launch_previous(*args, None, None, **kw, chosen=out[0],
+                               best=out[1])
+
+    def bits(hosts=0):
+        return lambda: hdrf_choose_bits(*bargs, k=k, lam=HDRF_LAM,
+                                        num_hosts=hosts,
+                                        dcn_penalty=0.7 if hosts else 0.0)
+
+    def bits_previous(hosts=0):
+        return lambda: previous_choose_bits(*bargs, k=k, lam=HDRF_LAM,
+                                            num_hosts=hosts,
+                                            dcn_penalty=0.7 if hosts else 0.0)
+
+    sms = kernel.sm_count(0)
+    vec = kernel.flag_vec(k, args[2].data_ptr() | args[3].data_ptr())
+    forced = {}
+    for n in lanes:
+        pf = kernel.plan(E, k, sms, vec, lanes=n)
+        pb = kernel.plan(E, k, sms, lanes=n)
+        forced[n] = {
+            "flags": graph_ms(lambda: kernel.launch_flags(
+                *args, None, None, **kw, chosen=out[0], best=out[1],
+                use_plan=pf)),
+            "bits": graph_ms(lambda: kernel.launch_bits(
+                *bargs, k=k, lam=HDRF_LAM, dcn_penalty=0.0, group=k,
+                degree_weighted=True, chosen=out[0], best=out[1],
+                use_plan=pb))}
+    res = {"E": E, "k": k, "plan": vars(kernel.plan(E, k, sms)),
+           "flags_plan": vars(kernel.plan(E, k, sms, vec)),
+           "ms_source": "CUDA events over CUDA-graph replays of 50 calls",
+           "flags_ms": graph_ms(lambda: hdrf_choose(*args, lam=HDRF_LAM)),
+           "flags_previous_ms": graph_ms(previous),
+           "flags_plain_ms": graph_ms(
+               lambda: hdrf_choose_ref(*args, lam=HDRF_LAM), calls=10),
+           "bits_ms": graph_ms(bits()),
+           "bits_previous_ms": graph_ms(bits_previous()),
+           "bits_plain_ms": graph_ms(lambda: hdrf_choose_bits_ref(
+               *bargs, k=k, lam=HDRF_LAM), calls=10),
+           "bits_hosted_ms": graph_ms(bits(HDRF_HOSTS)),
+           "bits_hosted_previous_ms": graph_ms(bits_previous(HDRF_HOSTS)),
+           "lanes_ms": forced,
+           "profiler_ms": {
+               "flags": device_ms_per_call(
+                   lambda: hdrf_choose(*args, lam=HDRF_LAM)),
+               "flags_previous": device_ms_per_call(previous),
+               "bits": device_ms_per_call(bits()),
+               "bits_previous": device_ms_per_call(bits_previous())},
+           "call_ms": cuda_time_ms(bits(), 200, 20),
+           "previous_call_ms": cuda_time_ms(bits_previous(), 200, 20),
+           "flags_bound_ms": bound(E * (4 + 4 + 2 * k + 4 + 4) + 4 * k,
+                                   E * (5 + 3 * k))["bound_ms"],
+           **hdrf_bits_bound(bargs[0], bargs[2], k), "library_ms": None}
+    res["bits_speedup"] = res["bits_previous_ms"] / res["bits_ms"]
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -948,7 +1160,8 @@ SPMM_CHECK = (
     (300, 4000, 64, {"dtype": "bfloat16", "hub": 1500}))
 #: (V, D, B, L, mode, options): the reference test's four cases, no
 #: weights, a bag whose weights are all 0 (mean), negative and
-#: out-of-range indices, int64 indices, a bf16 table, an empty bag
+#: out-of-range indices, int64 indices, a bf16 table, an empty bag, then
+#: the kernel's load widths, bag lengths and warps per bag
 BAG_CHECK = (
     (100, 16, 4, 10, "sum", {}), (1000, 18, 33, 100, "mean", {}),
     (50, 128, 8, 5, "sum", {}), (10, 260, 1, 3, "mean", {}),
@@ -959,7 +1172,24 @@ BAG_CHECK = (
     (1000, 18, 33, 100, "mean", {"idx": "int64", "bad_idx": True}),
     (1000, 18, 33, 100, "sum", {"dtype": "bfloat16"}),
     (1000, 18, 33, 100, "mean", {"dtype": "bfloat16"}),
-    (100, 16, 4, 0, "mean", {}))
+    (100, 16, 4, 0, "mean", {}),
+    # each load width of kernel.plan: D = 1, 3 (4 bytes), 18 (8), 32 and
+    # 64 (16), 65 (4, three column passes), bf16 at 18 (4) and 64 (16), a
+    # view one element off the 16 bytes (4), bf16 at an odd D (2); L = 0,
+    # 1, 100 and 257; B = 1 (8 warps a bag), 512 (8) and 65,536 (1)
+    (1000, 1, 512, 100, "sum", {}), (1000, 3, 512, 100, "mean", {}),
+    (1000, 18, 512, 100, "sum", {}), (1000, 32, 512, 100, "mean", {}),
+    (1000, 64, 512, 100, "sum", {}), (1000, 65, 512, 100, "mean", {}),
+    (1000, 18, 512, 100, "sum", {"dtype": "bfloat16"}),
+    (1000, 64, 512, 100, "mean", {"dtype": "bfloat16"}),
+    (1000, 65, 512, 100, "sum", {"dtype": "bfloat16"}),
+    (1000, 64, 512, 100, "sum", {"offset": 1}),
+    (1000, 18, 512, 100, "mean", {"offset": 1, "dtype": "bfloat16"}),
+    (1000, 18, 512, 0, "sum", {}), (1000, 18, 512, 1, "mean", {}),
+    (1000, 18, 1, 257, "sum", {}), (1000, 64, 1, 257, "mean",
+                                    {"dtype": "bfloat16", "idx": "int64"}),
+    (100_000, 18, 65_536, 100, "sum", {}),
+    (100_000, 18, 65_536, 100, "mean", {"idx": "int64", "bad_idx": True}))
 
 
 def sum_agree(got, want, scale) -> dict:
@@ -1093,14 +1323,16 @@ def check_spmm(cases) -> dict:
 def check_embedding_bag(cases) -> dict:
     """``embedding_bag`` through the CUDA kernel against
     ``embedding_bag_ref`` on the card, each element by ``sum_agree``
-    (the bag's absolute sum divided, for ``mean``, as the output is)."""
+    (the bag's absolute sum divided, for ``mean``, as the output is); two
+    launches bit-equal; each case's load plan."""
     import torch
     from repro_torch.kernels.embedding_bag import (embedding_bag,
-                                                   embedding_bag_ref)
+                                                   embedding_bag_ref, kernel)
     out, max_err = [], 0.0
     for i, (V, D, B, L, mode, opt) in enumerate(cases):
         rng = np.random.default_rng(i)
-        t = rng.standard_normal((V, D)).astype(np.float32)
+        off = opt.get("offset", 0)
+        t = rng.standard_normal(V * D + off).astype(np.float32)
         idx = rng.integers(0, V, (B, L))
         w = rng.random((B, L)).astype(np.float32)
         if opt.get("bad_idx"):
@@ -1108,20 +1340,25 @@ def check_embedding_bag(cases) -> dict:
             idx[:, 1::3] = V + rng.integers(0, 2 * V, idx[:, 1::3].shape)
         if opt.get("zero_bag"):
             w[1] = 0.0
-        t = torch.from_numpy(t).to("cuda",
-                                   getattr(torch, opt.get("dtype", "float32")))
+        t = torch.from_numpy(t).to(
+            "cuda", getattr(torch, opt.get("dtype", "float32")))[off:]
+        t = t.view(V, D)
         idx = torch.from_numpy(idx).to("cuda",
                                        getattr(torch, opt.get("idx", "int32")))
         w = None if opt.get("unweighted") else torch.from_numpy(w).cuda()
         got = embedding_bag(t, idx, w, mode=mode)
+        again = embedding_bag(t, idx, w, mode=mode)
         want = embedding_bag_ref(t, idx, w, mode=mode)
         scale = embedding_bag_ref(t.float().abs(), idx,
                                   None if w is None else w.abs(), mode=mode)
         torch.cuda.synchronize()
+        p = kernel.plan(D, t.element_size(), t.data_ptr())
         out.append({"V": V, "D": D, "B": B, "L": L, "mode": mode, **opt,
+                    "vec_bytes": p.vec_bytes, "lanes": p.lanes,
+                    "bit_equal": bool(torch.equal(got, again)),
                     **sum_agree(got, want, scale)})
         max_err = max(max_err, out[-1]["max_abs_err"])
-        if not out[-1]["ok"]:
+        if not (out[-1]["ok"] and out[-1]["bit_equal"]):
             raise AssertionError(f"embedding_bag disagrees: {out[-1]}")
     return {"tolerance": SUM_TOL, "cases": out, "max_abs_err": max_err}
 
@@ -1719,9 +1956,21 @@ def two_ps_hdrf_path(scale: int, tmp: str, k: int = 32) -> dict:
     expect_launches(counts, {"edge_score": 0, "hdrf_score": chunks,
                              "augru": 0},
                     "2PS-HDRF (one hdrf_score per scoring chunk)")
+    by_entry = expect_bits_entry(chunks, "2PS-HDRF")
     return path_line(scale, E, k, report, wall, counts, checks,
-                     scoring_chunks=chunks,
+                     hdrf_launches_by_entry=by_entry, scoring_chunks=chunks,
                      prepartition_ratio=report["prepartition_ratio"])
+
+
+def expect_bits_entry(n: int, what: str) -> dict:
+    """The ``hdrf_score`` launches of the run just counted: all ``n``
+    through ``hdrf_choose_bits``, none through the flag entry."""
+    from repro_torch.kernels import hdrf_score
+    by = dict(hdrf_score.launches.by_entry)
+    if by != {"bits": n, "flags": 0}:
+        raise AssertionError(f"{what}: hdrf_score launches by entry {by}, "
+                             f"expected {n} through hdrf_choose_bits")
+    return by
 
 
 def hdrf_launches(E: int, chunk: int, sub: int = 64) -> int:
@@ -1730,11 +1979,56 @@ def hdrf_launches(E: int, chunk: int, sub: int = 64) -> int:
     return sum(-(-min(chunk, E - lo) // sub) for lo in range(0, E, chunk))
 
 
+def micro_batch_kernels(scale: int, k: int = 32, chunk: int = 4096) -> dict:
+    """Device operations per 64-edge micro-batch of ``_hdrf_chunk`` on the
+    card, as torch.profiler records them (kernels, copies and fills) over
+    one chunk of the graph's first ``chunk`` edges, for HDRF flat and with
+    4 hosts, through ``hdrf_choose_bits`` and through the previous
+    composition (``previous_choose_bits``)."""
+    import torch
+    import repro_torch.core.partitioning as P
+    from repro_torch.core import bitops
+    from repro_torch.data import rmat_graph
+    from repro_torch.kernels.hdrf_score import ops as hs_ops
+    edges = rmat_graph(scale, edge_factor=16, seed=0)[:chunk]
+    V = int(edges.max()) + 1
+    pc = P.pad_chunk(edges, chunk, "cuda")
+    out = {}
+    for hosts in (0, 4):
+        for name, fn in (("bits_entry", hs_ops.hdrf_choose_bits),
+                         ("previous", previous_choose_bits)):
+            def run():
+                bits = torch.zeros((V, bitops.num_words(k)),
+                                   dtype=torch.int32, device="cuda")
+                sizes = torch.zeros(k, dtype=torch.int32, device="cuda")
+                dpart = torch.zeros(V, dtype=torch.int32, device="cuda")
+                return P._hdrf_chunk(bits, sizes, dpart, pc.edges, pc.valid,
+                                     k=k, cap=chunk, lam=1.1, use_cap=False,
+                                     n=chunk, num_hosts=hosts,
+                                     dcn_penalty=1.0 if hosts else 0.0)
+            original = hs_ops.hdrf_choose_bits
+            hs_ops.hdrf_choose_bits = fn
+            try:
+                run()
+                torch.cuda.synchronize()
+                by_name, _ = profile_kernels(run)
+            finally:
+                hs_ops.hdrf_choose_bits = original
+            n = sum(c for _, c in by_name.values())
+            out[f"{name}_{'hosted' if hosts else 'flat'}"] = n / (chunk // 64)
+    return {"edges": chunk, "micro_batches": chunk // 64,
+            "device_ops_per_micro_batch": out}
+
+
 def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
-    """HDRF, Greedy and host-aware HDRF through the CLI.  Each 64-edge
-    micro-batch is a few dozen eager launches; at RMAT-16 that is 14,927
-    micro-batches per run (15-20 s each), which is why this phase runs
-    below the 2PS-HDRF path's scale."""
+    """HDRF, Greedy and host-aware HDRF through the CLI, each then again
+    with the previous composition of the choice (``previous_choose_bits``
+    in place of ``hdrf_choose_bits``: the gather, ``host_any`` and the
+    previous kernel), byte-equal.  Each 64-edge micro-batch is a few dozen
+    eager launches; at RMAT-16 that is 14,927 micro-batches per run (12-15
+    s each), which is why this phase runs below the 2PS-HDRF path's
+    scale."""
+    from repro_torch.kernels.hdrf_score import ops as hs_ops
     path, E = write_graph(scale, tmp)
     chunk = 1 << 16                     # the CLI's --chunk-size default
     want = hdrf_launches(E, chunk)
@@ -1743,20 +2037,34 @@ def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
                         ("hdrf_hosted", ["--hosts", "4",
                                          "--dcn-penalty", "1.0"])):
         algo = name.split("_")[0]
-        (report, res), counts, wall = counted(lambda: run_cli(
-            ["--input", path, "--k", str(k), "--algorithm", algo, *extra]))
+        argv = ["--input", path, "--k", str(k), "--algorithm", algo, *extra]
+        (report, res), counts, wall = counted(lambda: run_cli(argv))
         checks = check_run(report, res, k, E)
         expect_launches(counts, {"edge_score": 0, "hdrf_score": want,
                                  "augru": 0},
                         f"{name} (one hdrf_score per non-empty 64-edge "
                         f"micro-batch)")
+        by_entry = expect_bits_entry(want, name)
         runs[name] = path_line(scale, E, k, report, wall, counts, checks,
+                               hdrf_launches_by_entry=by_entry,
                                micro_batches=want)
         if extra:
             runs[name]["cross_host_rf"] = report["cross_host_rf"]
+        original = hs_ops.hdrf_choose_bits
+        hs_ops.hdrf_choose_bits = previous_choose_bits
+        try:
+            t0 = time.perf_counter()
+            _, prev = run_cli(argv)
+            runs[name]["previous_wall_s"] = time.perf_counter() - t0
+        finally:
+            hs_ops.hdrf_choose_bits = original
+        if not np.array_equal(prev.assignment, res.assignment):
+            raise AssertionError(f"{name}: the previous composition assigns "
+                                 f"otherwise")
+        runs[name]["wall_change"] = wall / runs[name]["previous_wall_s"] - 1
     return {"why_reduced": "64-edge micro-batches of a few dozen eager "
                            "launches each: 14,927 per run at RMAT-16",
-            **runs}
+            **runs, "micro_batch_kernels": micro_batch_kernels(scale, k)}
 
 
 def hash_paths(scale: int, tmp: str, k: int = 32) -> dict:
@@ -2070,6 +2378,18 @@ def spmm_tune(scale: int, tmp: str) -> list:
             for k, w, b in libs] + [{"previous_ms": previous}]
 
 
+def sector_bytes(table, idx, block: int = 32) -> int:
+    """The bytes of the ``block``-byte blocks (32: the L2's sectors) that
+    the rows of ``idx`` (JAX's wrap-then-clamp rule) span in ``table``, a
+    row per lookup."""
+    from repro_torch.kernels import wrap_clamp_index
+    row = table.shape[1] * table.element_size()
+    start = (wrap_clamp_index(idx, table.shape[0]) * row
+             + table.data_ptr() % block)
+    return int(((start + row - 1) // block - start // block + 1).sum()
+               ) * block
+
+
 def bag_pool() -> dict:
     """``embedding_bag`` over DIEN's 2,097,152 x 18 float32 item table
     (seeded ``torch.Generator``), batches of ``InteractionStream`` (seq
@@ -2077,8 +2397,10 @@ def bag_pool() -> dict:
     ``hist`` as the indices and ``hist_mask`` as the weights, in ``sum``
     and ``mean``: one warm-up and three calls each,
     exactly one launch per call; then the last output against the plain
-    version, and the kernel, the plain version and, for ``sum``,
-    ``F.embedding_bag`` timed on the same inputs."""
+    version, and the kernel and the previous design (CUDA-graph replays),
+    the plain version and, for ``sum``, ``F.embedding_bag`` timed on the
+    same inputs; bounds on the touched rows, on a row per lookup, and on
+    the 32-byte sectors (and 64-byte blocks) each lookup's row spans."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -2086,6 +2408,7 @@ def bag_pool() -> dict:
     from repro_torch.data import InteractionStream
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     cfg = get_arch("dien").make_config()
     V, D, L = cfg.n_items, cfg.embed_dim, cfg.seq_len
     batches = (RECSYS_SHAPES["serve_p99"]["batch"], BULK_BATCH)
@@ -2120,21 +2443,30 @@ def bag_pool() -> dict:
                                            per_sample_weights=w)
                 lib_ms = batched_ms(lib)
                 lib_err = float((lib() - out).abs().max())
-            kernel_ms, recorded = launch_ms(op, "embedding_bag_kernel")
-            op_ms = batched_ms(op)
+            prev_out = torch.empty_like(out)
             runs[f"{B}_{mode}"] = {
                 "B": B, "L": L, "D": D, "mode": mode, "calls_ms": ms,
                 "ms_per_call": float(np.median(ms[1:])), "launches": n,
                 "touched_rows": touched, **agree,
-                "ms": op_ms if kernel_ms is None else kernel_ms,
-                "ms_source": (f"profiler, mean of {recorded} recorded "
-                              f"launches" if recorded else
-                              "CUDA events over 50 back-to-back calls"),
-                "batched_ms": op_ms, "plain_ms": batched_ms(plain),
+                "ms": graph_ms(op, calls=20),
+                "previous_ms": graph_ms(lambda: eb_kernel.launch_previous(
+                    table, idx, w, mean=mode == "mean", out=prev_out),
+                    calls=20),
+                "ms_source": "CUDA events over CUDA-graph replays of 20 "
+                             "calls, the previous design beside",
+                "batched_ms": batched_ms(op),
+                "batched_source": "CUDA events over 50 back-to-back calls "
+                                  "(the host's launches included)",
+                "plain_ms": batched_ms(plain),
                 "plain_ms_source": "CUDA events over 50 back-to-back calls",
                 **bound(touched * D * 4 + rest, 2 * B * L * D),
                 "gathered_bound_ms": bound(B * L * D * 4 + rest,
                                            2 * B * L * D)["bound_ms"],
+                "sector_bound_ms": bound(sector_bytes(table, idx) + rest,
+                                         2 * B * L * D)["bound_ms"],
+                "block64_bound_ms": bound(
+                    sector_bytes(table, idx, 64) + rest,
+                    2 * B * L * D)["bound_ms"],
                 "library_ms": lib_ms, "library_max_abs_diff": lib_err,
                 "library": "F.embedding_bag(idx, table, mode='sum', "
                            "per_sample_weights=w), CUDA events over 50 "
@@ -2389,7 +2721,10 @@ def main(argv=None) -> int:
 
     check = check_edge_score((1, 1000, 65536, 65537), (0.0, 0.5, 1.0))
     timing = time_edge_score(65536)
-    h_check = check_hdrf_score((1, 64, 65536, 65537), (2, 32, 200))
+    h_check = check_hdrf_score(HDRF_ES, HDRF_KS)
+    h_bits = check_hdrf_bits(HDRF_ES, HDRF_KS)
+    h_wide = {"flags": check_hdrf_score((64,), HDRF_WIDE_KS),
+              "bits": check_hdrf_bits((64,), HDRF_WIDE_KS)}
     h_timing = time_hdrf_score(65536)
     h_micro = time_hdrf_score(64)
     a_check = check_augru(augru_check_shapes())
@@ -2406,8 +2741,9 @@ def main(argv=None) -> int:
     s_check = check_spmm(SPMM_CHECK)
     b_check = check_embedding_bag(BAG_CHECK)
     emit({"phase": "kernels", "edge_score": {**check, **timing},
-          "hdrf_score": {**h_check, "chunk": h_timing,
-                         "micro_batch": h_micro},
+          "hdrf_score": {**h_check, "bits_entry": h_bits,
+                         "wide_k": h_wide,
+                         "chunk": h_timing, "micro_batch": h_micro},
           "augru": {**a_check, "serve_p99": a_timing, "serve_bulk": a_bulk,
                     "retrieval": a_one, "route_edge": a_edge},
           "flash_attention": {**f_check, "model_layout_4096": f_model,
@@ -2473,9 +2809,16 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/hdrf_score/csrc/hdrf_score.cu",
         "replaces": "src/repro/kernels/hdrf_score/kernel.py:72",
         "launches": paths["hdrf_score"],
-        "max_abs_err": h_check["max_abs_err"],
-        "ms": h_timing["ms"], "plain_ms": h_timing["plain_ms"],
+        "launches_by_entry": hp["hdrf_launches_by_entry"],
+        "max_abs_err": max(h_check["max_abs_err"], h_bits["max_abs_err"],
+                           *(c["max_abs_err"] for c in h_wide.values())),
+        "ms": h_timing["bits_ms"],
+        "previous_ms": h_timing["bits_previous_ms"],
+        "flags_ms": h_timing["flags_ms"],
+        "flags_previous_ms": h_timing["flags_previous_ms"],
+        "plain_ms": h_timing["bits_plain_ms"],
         "bound_ms": h_timing["bound_ms"], "bound_by": h_timing["bound_by"],
+        "sector_bound_ms": h_timing["sector_bound_ms"],
         "library_ms": None}, {
         "name": "augru", "route": "cuda",
         "source": "src/repro_torch/kernels/augru/csrc/augru.cu",
@@ -2515,9 +2858,12 @@ def main(argv=None) -> int:
         "max_abs_err": max([b_check["max_abs_err"]]
                            + [r["max_abs_err"] for r in bp.values()
                               if isinstance(r, dict)]),
-        "ms": bulk["ms"], "plain_ms": bulk["plain_ms"],
+        "ms": bulk["ms"], "previous_ms": bulk["previous_ms"],
+        "plain_ms": bulk["plain_ms"],
         "bound_ms": bulk["bound_ms"], "bound_by": bulk["bound_by"],
         "gathered_bound_ms": bulk["gathered_bound_ms"],
+        "sector_bound_ms": bulk["sector_bound_ms"],
+        "block64_bound_ms": bulk["block64_bound_ms"],
         "library_ms": bulk["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

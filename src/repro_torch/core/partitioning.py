@@ -33,7 +33,6 @@ import torch
 
 from . import bitops
 from .hashing import _mul_u32, hash_mod
-from .scoring import host_any
 # the modules, not the functions: the kernel packages import this
 # package's scoring module, so either side may be imported first
 from ..kernels.edge_score import ops as edge_score_ops
@@ -228,27 +227,6 @@ def _score_chunk_hosted(bits, hbits, sizes, d, vol, v2c, c2p, host_of,
 # Baselines: HDRF k-way scoring, DBH, Grid, random hash
 # ---------------------------------------------------------------------------
 
-def _hdrf_choose_all(bits, parts, d_uv, uv, sizes, *, lam, num_hosts,
-                     dcn_penalty, degree_weighted=True):
-    """Pick the best of all k partitions (``parts`` = arange(k)) for E
-    edges whose endpoints come as one run ``uv`` = [u..., v...] with their
-    degrees ``d_uv``: one gather of the (2E, k) replica rows, then
-    ``hdrf_choose`` (the CUDA kernel on the card, its plain version on the
-    CPU).  Host presence, when hosted, is derived from the same rows
-    (``host_any``), so no host bit matrix is carried."""
-    E = uv.shape[0] // 2
-    rep = bitops.get(bits, uv[:, None], parts[None, :])
-    host_kw = {}
-    if dcn_penalty and num_hosts > 1:
-        hrep = host_any(rep, num_hosts)
-        host_kw = dict(hrep_u=hrep[:E], hrep_v=hrep[E:],
-                       dcn_penalty=dcn_penalty)
-    chosen, _ = hdrf_score_ops.hdrf_choose(
-        d_uv[:E], d_uv[E:], rep[:E], rep[E:], sizes, lam=lam,
-        degree_weighted=degree_weighted, **host_kw)
-    return chosen
-
-
 def _hdrf_chunk(bits, sizes, dpart, edges, valid, *, k, cap, lam, use_cap,
                 sub: int = 64, degree_weighted: bool = True,
                 n: int, num_hosts: int = 0, dcn_penalty: float = 0.0):
@@ -259,9 +237,11 @@ def _hdrf_chunk(bits, sizes, dpart, edges, valid, *, k, cap, lam, use_cap,
     A Python loop over ``sub``-edge micro-batches stands for the
     reference's ``lax.scan``; each micro-batch counts its endpoints into
     ``dpart`` (duplicates accumulate, and the degrees are read after the
-    adds), chooses with one ``hdrf_choose`` launch, admits (with ``use_cap``
-    under the hard cap, else straight to ``sizes``) and folds the bits.
-    ``bits``, ``sizes`` and ``dpart`` are updated in place.
+    adds), chooses with one ``hdrf_choose_bits`` launch (the kernel reads
+    the endpoints' packed replica rows and ``dpart`` itself; host
+    presence, when hosted, comes from the same rows), admits (with
+    ``use_cap`` under the hard cap, else straight to ``sizes``) and folds
+    the bits.  ``bits``, ``sizes`` and ``dpart`` are updated in place.
 
     ``n`` (the chunk's valid row count, known on the host) skips the
     micro-batches that hold only padding: they change nothing, so the
@@ -271,9 +251,7 @@ def _hdrf_chunk(bits, sizes, dpart, edges, valid, *, k, cap, lam, use_cap,
     Returns ``(bits, sizes, dpart, assignment)``."""
     C = edges.shape[0]
     assert C % sub == 0
-    hosted = bool(dcn_penalty) and num_hosts > 1
     steps = -(-n // sub)
-    parts = torch.arange(k, device=edges.device)
     # row i: micro-batch i's endpoints as one run, its u's then its v's
     uv_all = edges.reshape(C // sub, sub, 2).transpose(1, 2).reshape(
         C // sub, 2 * sub)
@@ -283,11 +261,9 @@ def _hdrf_chunk(bits, sizes, dpart, edges, valid, *, k, cap, lam, use_cap,
     for i in range(steps):
         uv, m, w = uv_all[i], m_all[i], w_all[i]
         dpart.index_add_(0, uv, w)
-        chosen = _hdrf_choose_all(
-            bits, parts, dpart[uv], uv, sizes, lam=lam,
-            num_hosts=num_hosts if hosted else 0,
-            dcn_penalty=dcn_penalty if hosted else 0.0,
-            degree_weighted=degree_weighted)
+        chosen, _ = hdrf_score_ops.hdrf_choose_bits(
+            bits, dpart, uv, sizes, k=k, lam=lam, num_hosts=num_hosts,
+            dcn_penalty=dcn_penalty, degree_weighted=degree_weighted)
         if use_cap:
             ok, sizes = _ranked_admit(chosen, m, sizes, cap, k)
             asg = torch.where(ok, chosen, -1).to(torch.int32)
@@ -307,8 +283,8 @@ def _hdrf_remaining_chunk(bits, sizes, d, v2c, c2p, edges, valid, *, k, cap,
                           lam, num_hosts: int = 0, dcn_penalty: float = 0.0):
     """2PS-HDRF step 3: HDRF scoring over ALL k partitions, with Phase 1's
     true degrees, for the edges pre-partitioning left over — one
-    ``hdrf_choose`` launch per chunk.  ``bits`` and ``sizes`` are updated
-    in place.  Returns ``(bits, sizes, assignment)``."""
+    ``hdrf_choose_bits`` launch per chunk.  ``bits`` and ``sizes`` are
+    updated in place.  Returns ``(bits, sizes, assignment)``."""
     C = edges.shape[0]
     u, v = edges[:, 0], edges[:, 1]
     cu, cv = v2c[u], v2c[v]
@@ -316,9 +292,9 @@ def _hdrf_remaining_chunk(bits, sizes, d, v2c, c2p, edges, valid, *, k, cap,
     todo = valid & ~skip
     uv = torch.cat([u, v])
     d_uv = d[uv]
-    chosen = _hdrf_choose_all(bits, torch.arange(k, device=edges.device),
-                              d_uv, uv, sizes, lam=lam,
-                              num_hosts=num_hosts, dcn_penalty=dcn_penalty)
+    chosen, _ = hdrf_score_ops.hdrf_choose_bits(
+        bits, d, uv, sizes, k=k, lam=lam, num_hosts=num_hosts,
+        dcn_penalty=dcn_penalty)
     assignment, sizes = _admit_with_fallback(sizes, chosen, todo,
                                              d_uv[:C], d_uv[C:], u, v, k,
                                              cap)

@@ -47,9 +47,9 @@ def _check(table, indices, weights):
     B, L = indices.shape
     if L and table.shape[0] == 0:
         raise ValueError("embedding_bag: lookups into an empty table")
-    if -(-B * table.shape[1] // 256) > _MAX_BLOCKS:
-        raise ValueError(f"embedding_bag: {B} x {table.shape[1]} outputs "
-                         f"beyond the kernel's grid")
+    if -(-B // 8) > _MAX_BLOCKS:
+        raise ValueError(f"embedding_bag: {B} bags beyond the kernel's "
+                         f"grid (8 a block)")
 
 
 def embedding_bag(table, indices, weights=None, *, mode: str = "sum",

@@ -1,36 +1,61 @@
-"""Public wrapper of the ``hdrf_score`` kernel: dispatch on the device.
+"""Public wrappers of the ``hdrf_score`` kernel: dispatch on the device.
 
-A CUDA tensor goes to the hand-written kernel, which launches or raises;
-a CPU tensor goes to the plain torch version in ``ref.py``.  Nothing falls
-back from the kernel to the plain version.
+Two entries: ``hdrf_choose`` takes (E, k) replica flags, as the
+reference's ``hdrf_choose`` does; ``hdrf_choose_bits`` takes the packed
+replica bit matrix, the degree table and the endpoints, and is what the
+chunk functions call.  A CUDA tensor goes to the hand-written kernel,
+which launches or raises; a CPU tensor goes to the plain torch version in
+``ref.py``.  Nothing falls back from the kernel to the plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import LaunchCounter
+from ...core.bitops import num_words
 from . import kernel
-from .ref import hdrf_choose_ref
+from .ref import hdrf_choose_bits_ref, hdrf_choose_ref
 
-launches = LaunchCounter()
+#: the kernel's entries: packed bits (the chunk functions') and flags
+ENTRIES = ("bits", "flags")
+
+
+class EntryCounter(LaunchCounter):
+    """Launches in all (``count``) and by entry (``by_entry``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_entry = dict.fromkeys(ENTRIES, 0)
+
+    def reset(self) -> None:
+        super().reset()
+        self.by_entry = dict.fromkeys(ENTRIES, 0)
+
+    def add(self, entry: str) -> None:
+        self.count += 1
+        self.by_entry[entry] += 1
+
+
+launches = EntryCounter()
 
 _FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
+_INDEX_DTYPES = (torch.int32, torch.int64)
 
 
-def _check(name, t, dtypes, shape, device):
+def _check(name, t, dtypes, shape, device, fn="hdrf_choose"):
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"hdrf_choose: {name} must be a tensor")
+        raise TypeError(f"{fn}: {name} must be a tensor")
     if t.device != device:
-        raise ValueError(f"hdrf_choose: {name} is on {t.device}, expected "
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected "
                          f"{device}")
     if t.dtype not in dtypes:
-        raise TypeError(f"hdrf_choose: {name} has dtype {t.dtype}, expected "
+        raise TypeError(f"{fn}: {name} has dtype {t.dtype}, expected "
                         f"one of {dtypes}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"hdrf_choose: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"hdrf_choose: {name} is not contiguous")
+        raise ValueError(f"{fn}: {name} is not contiguous")
 
 
 def hdrf_choose(du, dv, rep_u, rep_v, sizes, hrep_u=None, hrep_v=None, *,
@@ -72,8 +97,60 @@ def hdrf_choose(du, dv, rep_u, rep_v, sizes, hrep_u=None, hrep_v=None, *,
     best = torch.empty(E, dtype=torch.float32, device=dev)
     if E == 0:
         return chosen, best
-    kernel.launch(du, dv, rep_u, rep_v, sizes, hrep_u, hrep_v, lam=lam,
-                  dcn_penalty=float(dcn_penalty),
-                  degree_weighted=degree_weighted, chosen=chosen, best=best)
-    launches.count += 1
+    kernel.launch_flags(du, dv, rep_u, rep_v, sizes, hrep_u, hrep_v,
+                        lam=lam, dcn_penalty=float(dcn_penalty),
+                        degree_weighted=degree_weighted, chosen=chosen,
+                        best=best)
+    launches.add("flags")
+    return chosen, best
+
+
+def hdrf_choose_bits(bits, d, uv, sizes, *, k: int, lam: float,
+                     num_hosts: int = 0, dcn_penalty: float = 0.0,
+                     degree_weighted: bool = True):
+    """The same choice for E edges read from the replication state itself:
+    the int32 packed bit matrix ``bits`` (V, ceil(k/32)), the int32 degree
+    table ``d`` (V,), the endpoints ``uv`` = [u..., v...] (2E,) int32 or
+    int64 and the (k,) int32 ``sizes`` -> (chosen (E,) int32, best (E,)
+    float32), equal to ``hdrf_choose`` on the gathered flags and degrees.
+
+    With ``dcn_penalty`` != 0 and ``num_hosts`` > 1 the host presence is
+    ``host_any`` of the same rows (``k`` a multiple of ``num_hosts``, host
+    groups of ``k / num_hosts`` consecutive partitions).  The kernel reads
+    each endpoint's words and degree itself, so no (2E, k) matrix is made
+    on the card; endpoints follow JAX's gather rule there (wrapped once,
+    clamped to [0, V)).
+    """
+    hosted = bool(dcn_penalty) and num_hosts > 1
+    if hosted and k % num_hosts:
+        raise ValueError(f"hdrf_choose_bits: k={k} is not a multiple of "
+                         f"num_hosts={num_hosts}")
+    if bits.device.type != "cuda":
+        return hdrf_choose_bits_ref(
+            bits, d, uv, sizes, k=k, lam=lam,
+            num_hosts=num_hosts if hosted else 0,
+            dcn_penalty=dcn_penalty if hosted else 0.0,
+            degree_weighted=degree_weighted)
+    fn, dev = "hdrf_choose_bits", bits.device
+    if bits.dim() != 2 or uv.dim() != 1 or uv.shape[0] % 2:
+        raise ValueError(f"{fn}: bits must be (V, W) and uv (2E,), got "
+                         f"{tuple(bits.shape)} and {tuple(uv.shape)}")
+    V = bits.shape[0]
+    _check("bits", bits, (torch.int32,), (V, num_words(k)), dev, fn)
+    _check("d", d, (torch.int32,), (V,), dev, fn)
+    _check("uv", uv, _INDEX_DTYPES, tuple(uv.shape), dev, fn)
+    _check("sizes", sizes, (torch.int32,), (k,), dev, fn)
+    E = uv.shape[0] // 2
+    chosen = torch.empty(E, dtype=torch.int32, device=dev)
+    best = torch.empty(E, dtype=torch.float32, device=dev)
+    if E == 0:
+        return chosen, best
+    if V == 0:
+        raise ValueError(f"{fn}: endpoints into an empty bit matrix")
+    kernel.launch_bits(bits, d, uv, sizes, k=k, lam=lam,
+                       dcn_penalty=float(dcn_penalty) if hosted else 0.0,
+                       group=k // num_hosts if hosted else k,
+                       degree_weighted=degree_weighted, chosen=chosen,
+                       best=best)
+    launches.add("bits")
     return chosen, best

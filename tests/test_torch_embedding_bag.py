@@ -8,7 +8,8 @@ in float32 within one bf16 rounding of the output (2^-7 of its magnitude)
 plus 1e-6: both round the same float32 sum once.  Inputs are drawn with
 numpy from fixed seeds.  The CUDA kernel is held to the plain version by
 the ``gpu`` cases, which need a card and skip without one
-(``chip_smoke.py`` runs the same checks on the card).
+(``chip_smoke.py`` runs the same checks on the card).  The kernel's load
+widths (``kernel.plan``) are pure Python and pinned here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,8 @@ import torch
 from repro.kernels.embedding_bag import embedding_bag as r_embedding_bag
 from repro.kernels.embedding_bag import embedding_bag_ref as r_ref
 from repro_torch.kernels.embedding_bag import (embedding_bag,
-                                               embedding_bag_ref, launches)
+                                               embedding_bag_ref, kernel,
+                                               launches)
 
 RTOL, ATOL = 1e-5, 1e-6
 #: the reference test's four cases
@@ -141,3 +143,77 @@ def test_cuda_kernel_matches_plain_version(V, D, B, L, dtype, idx, weighted,
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= 1e-5 * scale + 1e-6 + rel * want.float().abs())
                 .all())
+
+
+@pytest.mark.parametrize("D,itemsize,address,vec,lanes,passes", [
+    (18, 4, 0, 8, 9, 1), (18, 2, 0, 4, 9, 1), (64, 4, 0, 16, 16, 1),
+    (64, 2, 0, 16, 8, 1), (32, 4, 0, 16, 8, 1), (1, 4, 0, 4, 1, 1),
+    (3, 4, 0, 4, 3, 1), (65, 4, 0, 4, 32, 3), (65, 2, 0, 2, 32, 3),
+    (64, 4, 4, 4, 32, 2), (64, 4, 8, 8, 32, 1), (18, 4, 4, 4, 18, 1),
+    (260, 4, 0, 16, 32, 3), (9, 2, 2, 2, 9, 1)])
+def test_plan_widths(D, itemsize, address, vec, lanes, passes):
+    """The widest of 16, 8, 4 (2 for bf16) bytes dividing the row and the
+    table's address; a row's vectors over at most 32 lanes, 32 // lanes
+    rows a warp step, column passes past 32 vectors (D = 18 float32: 9
+    lanes of 8 bytes, 3 rows a step)."""
+    p = kernel.plan(D, itemsize, address)
+    assert (p.vec_bytes, p.lanes, p.passes) == (vec, lanes, passes)
+    assert p.rows == 32 // lanes
+    assert p.vec_bytes * min(32, p.lanes) * p.passes >= D * itemsize
+
+
+def test_plan_refuses_bad_rows():
+    for D, itemsize in ((0, 4), (8, 8), (8, 1)):
+        with pytest.raises(ValueError):
+            kernel.plan(D, itemsize, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,dtype,offset", [
+    (1, "float32", 0), (3, "float32", 0), (18, "float32", 0),
+    (32, "float32", 0), (64, "float32", 0), (65, "float32", 0),
+    (18, "bfloat16", 0), (64, "bfloat16", 0), (65, "bfloat16", 0),
+    (64, "float32", 1), (18, "bfloat16", 1)])
+@pytest.mark.parametrize("B,L", [(1, 257), (512, 100), (3000, 1),
+                                 (70, 0)])
+def test_cuda_routes_match_plain_version(D, dtype, offset, B, L):
+    """Every load width of ``plan`` (and a table view off the 16 bytes),
+    few and many bags, within the reference test's tolerance of
+    each element's absolute sum; two launches bit-equal; the previous
+    design on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    V = 500
+    rng = np.random.default_rng(D + B + L)
+    flat = rng.standard_normal(V * D + offset).astype(np.float32)
+    t = torch.from_numpy(flat).to("cuda", getattr(torch, dtype))[offset:]
+    t = t.view(V, D)
+    i = torch.from_numpy(rng.integers(-V, 2 * V, (B, L))).cuda()
+    w = torch.from_numpy(rng.random((B, L)).astype(np.float32)).cuda()
+    rel = 2.0 ** -7 if t.dtype == torch.bfloat16 else 0.0
+    for mode in ("sum", "mean"):
+        got = embedding_bag(t, i, w, mode=mode)
+        again = embedding_bag(t, i, w, mode=mode)
+        prev = torch.empty_like(got)
+        kernel.launch_previous(t, i, w, mean=mode == "mean", out=prev)
+        want = embedding_bag_ref(t, i, w, mode=mode)
+        scale = embedding_bag_ref(t.float().abs(), i, w, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        for out in (got, prev):
+            diff = (out.float() - want.float()).abs()
+            assert bool((diff <= RTOL * scale + ATOL
+                         + rel * want.float().abs()).all())
+
+
+@pytest.mark.gpu
+def test_cuda_refuses_a_bad_plan():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    t = torch.randn(100, 18, device="cuda")
+    i = torch.zeros((4, 10), dtype=torch.int32, device="cuda")
+    out = torch.empty((4, 18), device="cuda")
+    for p in (kernel.Plan(16, 5, 6, 1), kernel.Plan(8, 8, 4, 1),
+              kernel.Plan(2, 32, 1, 2)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernel.launch(t, i, None, mean=False, out=out, use_plan=p)
