@@ -14,9 +14,25 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               template instantiation.
 3. kernels    each kernel against its plain torch version on the card, at
               the paths' shapes plus ragged, zero-padded and tied rows,
-              flat and host-aware (``augru``: att == 1 and random on each
-              route, small (U in registers), large (register-tiled outer
-              products) and general (the previous design, H above 108),
+              flat and host-aware (``edge_score``'s two entries: the flag
+              entry on gathered operands, and ``edge_score_choose_bits``,
+              which reads the packed bit matrices and the cluster tables
+              itself, at k = 1, 2, 31, 32, 33, 64 and 200 and E = 1, 64,
+              65,536 and 65,537, flat and with 2, 4 and 8 hosts at
+              dcn_penalty 0.5 and 1.0 and 40 hosts (two words a host row),
+              int32 and int64 edges, views off the paired load's
+              alignment, ragged valid, duplicates, self-loops, edges
+              inside a cluster or a partition and exact ties: chosen,
+              todo and hi equal, best bit-equal; 2PS-L's choice timed at
+              65,536 edges on tables of RMAT-19's size by CUDA-graph
+              replays beside the previous composition (gathers, bitops.get
+              and the flag kernel), the flag kernel alone and the plain
+              version, flat and with 4 hosts, and at 64 edges and on
+              RMAT-19's ragged last chunk, its outputs held to the plain
+              version's there too; ``augru``: att == 1 and random
+              on each route, small (U in registers), large
+              (register-tiled outer products) and general (the previous
+              design, H above 108),
               at the routes' edges, T = 1 and H = 37 on both register
               routes, within 1e-5, each case's route reported, two
               launches bit-equal and the previous design within 1e-5 of
@@ -87,9 +103,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               previous design, each against the plain attention.
 10. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
               stream (the user's entry point, through
-              ``MemmapEdgeStream``), k=32.
+              ``MemmapEdgeStream``), k=32: one ``edge_score`` launch per
+              scoring chunk, all through ``edge_score_choose_bits``.
 11. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
-              dcn_penalty 1.0).
+              dcn_penalty 1.0), its launches checked the same way.
 12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-20 (``--scale``): one
               ``hdrf_score`` launch per scoring chunk, all through
               ``hdrf_choose_bits``, no ``edge_score``.
@@ -129,6 +146,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 19. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
               host sync, rounds skipped when nothing is pending) against
               running its k+1 rounds unconditionally (2PS-L, RMAT-16).
+20. twopsl_scoring  2PS-L's scoring pass (``timings_s["scoring"]``) at
+              RMAT-16, flat and with 4 hosts, through
+              ``edge_score_choose_bits`` and with the previous composition
+              swapped in, new, previous, previous, new, byte-equal; and
+              the device operations of one scoring chunk of each, profiled.
 
 Every path phase resets every kernel's launch counter just before it and
 checks the counts just after.
@@ -362,17 +384,301 @@ def timed(fn, plain_fn, reps: int = 100, profile: bool = True) -> dict:
             "call_ms": call_ms, "plain_call_ms": plain_call_ms}
 
 
-def time_edge_score(E: int) -> dict:
+# ---------------------------------------------------------------------------
+# edge_score's bits entry: 2PS-L's whole choice from the tables themselves
+# ---------------------------------------------------------------------------
+
+#: k and E of the bits entry's checks (k = 33, 64, 200: two to seven words
+#: a row); (hosts, dcn_penalty) flat and host-aware (40 hosts: two words a
+#: host row)
+TWOPSL_KS = (1, 2, 31, 32, 33, 64, 200)
+TWOPSL_ES = (1, 64, 65536, 65537)
+TWOPSL_HOSTS = ((0, 0.0), (2, 0.5), (2, 1.0), (4, 0.5), (4, 1.0), (8, 0.5),
+                (8, 1.0), (40, 1.0))
+#: RMAT-19 at edge factor 16 and 65,536-edge chunks: 2^19 vertices, and a
+#: last chunk of 7,968,852 - 121 * 65,536 valid rows
+RMAT19_V = 1 << 19
+RMAT19_LAST_CHUNK = 38_996
+
+
+def _random_words(rng, V: int, n: int) -> np.ndarray:
+    """A (V, ceil(n/32)) packed bit matrix, a quarter of the n bits set."""
+    W = -(-n // 32)
+    words = (rng.integers(0, 1 << 32, (V, W), dtype=np.uint64)
+             & rng.integers(0, 1 << 32, (V, W), dtype=np.uint64))
+    if n % 32:
+        words[:, -1] &= (1 << (n % 32)) - 1
+    return words.astype(np.uint32)
+
+
+def twopsl_inputs(E: int, k: int, seed: int, hosts: int = 0,
+                  V: int | None = None, idx: str = "int64",
+                  misaligned: bool = False, n_valid: int | None = None):
+    """The bits entry's operands as the engine holds them, on the card:
+    packed ``bits`` (V, ceil(k/32)) and ``hbits`` (V, ceil(H/32)), degrees
+    ``d`` and clusters ``v2c`` (V,), V/4 clusters' ``vol`` and ``c2p``,
+    ``host_of`` (contiguous host groups), and a chunk of E edges with the
+    engine's zero-padded tail (``valid`` False from ``n_valid``, E - E/10 by
+    default).  The live edges hold self-loops, edges inside one cluster and
+    between two clusters of one partition (both skipped), duplicates, and
+    exact ties: endpoints with empty rows, equal degrees and clusters of
+    equal volume.  ``misaligned`` hands the edges as a view one id past an
+    aligned base.  Returns (tensors by name, the tie edges on two
+    partitions)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    V = V or (4096 if E <= 4096 else 65536)
+    C = V // 4
+    v2c = rng.integers(0, C, V).astype(np.int32)
+    vol = rng.integers(1, 200_000, C).astype(np.int32)
+    c2p = rng.integers(0, k, C).astype(np.int32)
+    d = rng.integers(1, 5000, V).astype(np.int32)
+    H = max(hosts, 1)
+    bits, hbits = _random_words(rng, V, k), _random_words(rng, V, H)
+    host_of = (np.arange(k) * H // k).astype(np.int32)
+    ties = rng.choice(V, V // 16, replace=False)
+    bits[ties], hbits[ties], d[ties] = 0, 0, 777
+    vol[v2c[ties]] = 1000
+    e = rng.integers(0, V, (E, 2))
+    r = rng.random(E)
+    e[r < 0.05, 1] = e[r < 0.05, 0]                        # self-loops
+    first_c = np.full(C, -1)
+    first_c[v2c[::-1]] = np.arange(V)[::-1]
+    part = c2p[v2c]
+    first_p = np.zeros(k, np.int64)
+    first_p[part[::-1]] = np.arange(V)[::-1]
+    m = (r >= 0.05) & (r < 0.10)                           # one cluster
+    e[m, 1] = first_c[v2c[e[m, 0]]]
+    m = (r >= 0.10) & (r < 0.15)                           # one partition
+    e[m, 1] = first_p[part[e[m, 0]]]
+    m = (r >= 0.15) & (r < 0.30)                           # exact ties
+    e[m] = rng.choice(ties, (int(m.sum()), 2))
+    dup = E // 50
+    e[E // 2:E // 2 + dup] = e[:dup]                       # duplicates
+    m[E // 2:E // 2 + dup] = r[:dup] >= 0.15
+    m[E // 2:E // 2 + dup] &= r[:dup] < 0.30
+    live = E - E // 10 if n_valid is None else n_valid
+    e[live:] = 0
+    valid = np.arange(E) < live
+    pu, pv = part[e[:, 0]], part[e[:, 1]]
+    tie = np.nonzero(m & valid & (pu != pv))[0]
+    t = {name: torch.from_numpy(a).cuda() for name, a in (
+        ("bits", bits.view(np.int32)), ("d", d), ("vol", vol),
+        ("v2c", v2c), ("c2p", c2p), ("valid", valid),
+        ("hbits", hbits.view(np.int32)), ("host_of", host_of))}
+    dt = getattr(torch, idx)
+    flat = torch.zeros(2 * E + 1, dtype=dt, device="cuda")
+    off = int(misaligned)
+    flat[off:off + 2 * E] = torch.from_numpy(e.reshape(-1)).to(dt)
+    t["edges"] = flat[off:off + 2 * E].view(E, 2)
+    return t, tie
+
+
+def _bits_args(t: dict, hosts: int, pen: float):
+    """(positional, keyword) arguments of ``edge_score_choose_bits``."""
+    args = [t[n] for n in ("bits", "d", "vol", "v2c", "c2p", "edges",
+                           "valid")]
+    kw = (dict(hbits=t["hbits"], host_of=t["host_of"], dcn_penalty=pen)
+          if hosts else {})
+    return args, kw
+
+
+def check_twopsl_bits(sizes, ks, hostings) -> dict:
+    """The bits entry (``edge_score_choose_bits``) against its plain
+    version on the card: ``chosen``, ``todo`` and ``hi`` equal, ``best``
+    bit-equal, every tie edge on pu; every third case with int32
+    endpoints, every fourth an edges view off the paired load's
+    alignment; each case's endpoint load (paired or not) noted."""
+    import torch
+    from repro_torch.kernels.edge_score import (edge_score_choose_bits,
+                                                edge_score_choose_bits_ref)
+    cases, routes, ties, max_err = 0, {}, 0, 0.0
+    for E in sizes:
+        for k in ks:
+            for hosts, pen in hostings:
+                i = cases
+                t, tie = twopsl_inputs(
+                    E, k, seed=E * 7 + k + hosts, hosts=hosts,
+                    idx="int32" if i % 3 == 0 else "int64",
+                    misaligned=i % 4 == 1)
+                args, kw = _bits_args(t, hosts, pen)
+                got = edge_score_choose_bits(*args, **kw)
+                want = edge_score_choose_bits_ref(*args, **kw)
+                torch.cuda.synchronize()
+                c_k, b_k, todo_k, hi_k = got
+                mism = {"chosen": int((c_k != want[0]).sum()),
+                        "best_bits": int((b_k.view(torch.int32)
+                                          != want[1].view(torch.int32))
+                                         .sum()),
+                        "todo": int((todo_k != want[2]).sum()),
+                        "hi": int((hi_k != want[3]).sum())}
+                pu = t["c2p"][t["v2c"][t["edges"][:, 0].long()]]
+                tie_t = torch.from_numpy(tie).cuda()
+                ties_to_pu = bool((c_k[tie_t] == pu[tie_t]).all())
+                max_err = max(max_err,
+                              float((b_k - want[1]).abs().max()))
+                item = t["edges"].element_size()
+                route = ("paired" if t["edges"].data_ptr() % (2 * item) == 0
+                         else "unpaired")
+                routes[route] = routes.get(route, 0) + 1
+                cases += 1
+                ties += len(tie)
+                if any(mism.values()) or not ties_to_pu:
+                    raise AssertionError(
+                        f"edge_score_choose_bits disagrees: E={E} k={k} "
+                        f"hosts={hosts} pen={pen} "
+                        f"idx={t['edges'].dtype} {route}: {mism}, ties to pu: "
+                        f"{ties_to_pu}")
+    return {"tolerance": "exact: chosen, todo and hi equal, best "
+                         "bit-equal",
+            "cases": cases, "cases_by_route": routes, "tie_edges": ties,
+            "mismatches": 0, "max_abs_err": max_err}
+
+
+def previous_twopsl_choose(bits, d, vol, v2c, c2p, edges, valid, *,
+                           hbits=None, host_of=None, dcn_penalty=0.0):
+    """2PS-L's choice as the slices before composed it (a comparison, never
+    on the port's path, so not counted): the per-edge gathers of ``v2c``,
+    ``c2p``, ``d`` and ``vol`` and four ``bitops.get`` calls (eight hosted,
+    with ``host_of``), the skip test, the flag kernel through
+    ``kernel.launch``, and ``hi`` as the admission tail made it."""
+    import torch
+    from repro_torch.core import bitops
+    from repro_torch.kernels.edge_score import kernel
+    u, v = edges[:, 0], edges[:, 1]
+    cu, cv = v2c[u], v2c[v]
+    pu, pv = c2p[cu], c2p[cv]
+    todo = valid & ~((cu == cv) | (pu == pv))
+    du, dv = d[u], d[v]
+    hflags = None
+    if dcn_penalty:
+        hu, hv = host_of[pu], host_of[pv]
+        hflags = (bitops.get(hbits, u, hu), bitops.get(hbits, v, hu),
+                  bitops.get(hbits, u, hv), bitops.get(hbits, v, hv))
+    flags = (bitops.get(bits, u, pu), bitops.get(bits, v, pu),
+             bitops.get(bits, u, pv), bitops.get(bits, v, pv))
+    E = edges.shape[0]
+    chosen = torch.empty(E, dtype=torch.int32, device=edges.device)
+    best = torch.empty(E, dtype=torch.float32, device=edges.device)
+    kernel.launch((du, dv, vol[cu], vol[cv], pu, pv), flags, hflags,
+                  float(dcn_penalty), chosen, best)
+    return chosen, best, todo, torch.where(du >= dv, u, v)
+
+
+def twopsl_bits_bound(t: dict, hosted: bool) -> dict:
+    """Bounds of the bits entry on this run's chunk: the edges, valid and
+    the four outputs once, each touched vertex's ``v2c``, ``d`` and words
+    once, each touched cluster's ``c2p`` and ``vol`` once (and, hosted, the
+    host rows and ``host_of``) (``bound_ms``); and at sector granularity,
+    every per-edge read of a table as the 32-byte sector it touches
+    (``sector_bound_ms``)."""
+    import torch
+    edges = t["edges"]
+    E, item = edges.shape[0], edges.element_size()
+    W, HW = t["bits"].shape[1], t["hbits"].shape[1] if hosted else 0
+    verts = torch.unique(edges)
+    clusters = torch.unique(t["v2c"][verts.long()])
+    flat = E * (2 * item + 1 + 4 + 4 + 1 + item)
+    touched = (verts.numel() * (4 + 4 + 4 * W + 4 * HW)
+               + clusters.numel() * 8 + (4 * t["host_of"].numel()
+                                         if hosted else 0))
+    # a sector per endpoint's v2c and d, per cluster's c2p and vol, per
+    # (endpoint, candidate) word (per endpoint with one word a row), and
+    # hosted per candidate's host_of and (endpoint, host) word
+    rows, host_rows = 2 if W == 1 else 4, 2 if HW == 1 else 4
+    sectors = 4 + 4 + rows + ((2 + host_rows) if hosted else 0)
+    ops = E * (30 if hosted else 24)
+    return {**bound(flat + touched, ops),
+            "sector_bound_ms": bound(flat + E * 32 * sectors, ops)[
+                "bound_ms"],
+            "touched_vertices": int(verts.numel()),
+            "touched_clusters": int(clusters.numel())}
+
+
+def _same_choice(got, want, what: str) -> None:
+    """Raise unless the bits entry's (chosen, best, todo, hi) equal the
+    plain version's, best bit for bit."""
+    import torch
+    torch.cuda.synchronize()
+    c, b, todo, hi = got
+    if not (torch.equal(c, want[0]) and torch.equal(todo, want[2])
+            and torch.equal(hi, want[3])
+            and torch.equal(b.view(torch.int32), want[1].view(torch.int32))):
+        raise AssertionError(f"edge_score_choose_bits disagrees with its "
+                             f"plain version on the timed inputs ({what})")
+
+
+def time_edge_score(E: int = 65536, k: int = 32, hosts: int = 4) -> dict:
+    """2PS-L's choice at (E, k) on tables of RMAT-19's size (2^19
+    vertices, 2^17 clusters, random), device time per call by CUDA-graph
+    replays (``graph_ms``): the bits entry (one launch) beside the previous
+    composition (gathers, ``bitops.get`` and the flag kernel), the flag
+    kernel alone on the gathered operands, and the plain version, flat and
+    with ``hosts`` hosts; the bits entry and the previous composition also
+    at 64 edges and on the ragged last chunk of RMAT-19; the host's time
+    per call between CUDA events (``call_ms``); and the flag kernel's
+    device time summed by torch.profiler (``profiler_ms``, the source of
+    the earlier records).  The bits entry's outputs on the timed inputs are
+    held to the plain version's (chosen, todo and hi equal, best
+    bit-equal)."""
+    from repro_torch.core import bitops
     from repro_torch.kernels.edge_score import (edge_score_choose,
-                                                edge_score_choose_ref)
-    args, _, _ = edge_score_inputs(E, seed=7, hosted=False, device="cuda")
-    # bytes each input read once, each output written once: 4 int32
-    # operands + 4 one-byte flags + 2 int32 candidates in, int32 + float32
-    # out; ~22 float32 operations per edge
-    return {"E": E, **timed(lambda: edge_score_choose(*args),
-                            lambda: edge_score_choose_ref(*args)),
-            **bound(E * (4 * 4 + 4 * 1 + 2 * 4 + 4 + 4), E * 22),
-            "library_ms": None}
+                                                edge_score_choose_bits,
+                                                edge_score_choose_bits_ref)
+    res = {"E": E, "k": k, "V": RMAT19_V, "hosts": hosts,
+           "ms_source": "CUDA events over CUDA-graph replays of 50 calls"}
+    for name, h, pen in (("", 0, 0.0), ("hosted_", hosts, 1.0)):
+        t, _ = twopsl_inputs(E, k, seed=7, hosts=h, V=RMAT19_V)
+        args, kw = _bits_args(t, h, pen)
+        u, v = t["edges"][:, 0], t["edges"][:, 1]
+        cu, cv = t["v2c"][u], t["v2c"][v]
+        pu, pv = t["c2p"][cu], t["c2p"][cv]
+        gathered = [t["d"][u], t["d"][v], t["vol"][cu], t["vol"][cv],
+                    *(bitops.get(t["bits"], x, p)
+                      for x, p in ((u, pu), (v, pu), (u, pv), (v, pv))),
+                    pu, pv]
+        if h:
+            hu, hv = t["host_of"][pu], t["host_of"][pv]
+            gathered += [bitops.get(t["hbits"], x, p)
+                         for x, p in ((u, hu), (v, hu), (u, hv), (v, hv))]
+        new = (lambda a=args, k_=kw: edge_score_choose_bits(*a, **k_))
+        prev = (lambda a=args, k_=kw: previous_twopsl_choose(*a, **k_))
+        flags = (lambda g=gathered, p_=pen: edge_score_choose(
+            *g, dcn_penalty=p_))
+        res.update({
+            f"{name}ms": graph_ms(new), f"{name}previous_ms": graph_ms(prev),
+            f"{name}flags_ms": graph_ms(flags),
+            f"{name}plain_ms": graph_ms(
+                lambda a=args, k_=kw: edge_score_choose_bits_ref(*a, **k_),
+                calls=10)})
+        res[f"{name}speedup"] = res[f"{name}previous_ms"] / res[f"{name}ms"]
+        b = twopsl_bits_bound(t, bool(h))
+        res.update({f"{name}bound_ms": b["bound_ms"],
+                    f"{name}bound_by": b["bound_by"],
+                    f"{name}sector_bound_ms": b["sector_bound_ms"],
+                    f"{name}touched_vertices": b["touched_vertices"],
+                    f"{name}touched_clusters": b["touched_clusters"]})
+        _same_choice(new(), edge_score_choose_bits_ref(*args, **kw),
+                     f"{name}E={E}")
+        if h:
+            res["call_ms"] = cuda_time_ms(new, 200, 20)
+            res["previous_call_ms"] = cuda_time_ms(prev, 200, 20)
+            res["profiler_ms"] = {"bits": device_ms_per_call(new),
+                                  "flags": device_ms_per_call(flags)}
+            res["flags_bound_ms"] = bound(E * 36, E * 22)["bound_ms"]
+    for name, n, live in (("e64_", 64, None),
+                          ("last_chunk_", E, RMAT19_LAST_CHUNK)):
+        t, _ = twopsl_inputs(n, k, seed=8, V=RMAT19_V, n_valid=live)
+        args, _ = _bits_args(t, 0, 0.0)
+        _same_choice(edge_score_choose_bits(*args),
+                     edge_score_choose_bits_ref(*args), f"{name}E={n}")
+        res[f"{name}ms"] = graph_ms(
+            lambda a=args: edge_score_choose_bits(*a))
+        res[f"{name}previous_ms"] = graph_ms(
+            lambda a=args: previous_twopsl_choose(*a))
+    res["checked"] = "exact: chosen, todo and hi equal, best bit-equal"
+    res["library_ms"] = None
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1897,6 +2203,7 @@ def main_path(scale: int, tmp: str, k: int = 32) -> dict:
     expect_launches(counts, {"edge_score": chunks, "hdrf_score": 0,
                              "augru": 0},
                     "2PS-L main path (one edge_score per scoring chunk)")
+    by_entry = expect_bits_entry(chunks, "2PS-L main path", "edge_score")
     timings = report["timings_s"]
     return {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
             "edges": E, "vertices": report["vertices"], "k": k,
@@ -1906,8 +2213,9 @@ def main_path(scale: int, tmp: str, k: int = 32) -> dict:
             "replication_factor": report["replication_factor"],
             "alpha_measured": report["alpha_measured"],
             "kernel_backend": report["kernel_backend"],
-            "edge_score_launches": n_launch, "scoring_chunks": chunks,
-            **checks}
+            "edge_score_launches": n_launch,
+            "edge_score_launches_by_entry": by_entry,
+            "scoring_chunks": chunks, **checks}
 
 
 def hosted_path(scale: int, tmp: str, k: int = 32) -> dict:
@@ -1922,6 +2230,7 @@ def hosted_path(scale: int, tmp: str, k: int = 32) -> dict:
     expect_launches(counts, {"edge_score": chunks, "hdrf_score": 0,
                              "augru": 0},
                     "hosted 2PS-L")
+    by_entry = expect_bits_entry(chunks, "hosted 2PS-L", "edge_score")
     if not 1.0 <= report["cross_host_rf"] <= report["replication_factor"]:
         raise AssertionError("cross-host RF outside [1, RF]")
     return {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
@@ -1929,7 +2238,9 @@ def hosted_path(scale: int, tmp: str, k: int = 32) -> dict:
             "wall_s": wall, "timings_s": report["timings_s"],
             "replication_factor": report["replication_factor"],
             "cross_host_rf": report["cross_host_rf"],
-            "edge_score_launches": n_launch, **checks}
+            "edge_score_launches": n_launch,
+            "edge_score_launches_by_entry": by_entry,
+            "scoring_chunks": chunks, **checks}
 
 
 def path_line(scale, E, k, report, wall, counts, checks, **extra) -> dict:
@@ -1962,14 +2273,13 @@ def two_ps_hdrf_path(scale: int, tmp: str, k: int = 32) -> dict:
                      prepartition_ratio=report["prepartition_ratio"])
 
 
-def expect_bits_entry(n: int, what: str) -> dict:
-    """The ``hdrf_score`` launches of the run just counted: all ``n``
-    through ``hdrf_choose_bits``, none through the flag entry."""
-    from repro_torch.kernels import hdrf_score
-    by = dict(hdrf_score.launches.by_entry)
+def expect_bits_entry(n: int, what: str, name: str = "hdrf_score") -> dict:
+    """The ``name`` launches of the run just counted: all ``n`` through its
+    bits entry, none through the flag entry."""
+    by = dict(counters()[name].by_entry)
     if by != {"bits": n, "flags": 0}:
-        raise AssertionError(f"{what}: hdrf_score launches by entry {by}, "
-                             f"expected {n} through hdrf_choose_bits")
+        raise AssertionError(f"{what}: {name} launches by entry {by}, "
+                             f"expected {n} through the bits entry")
     return by
 
 
@@ -2659,6 +2969,174 @@ def least_loaded_rounds(scale: int, k: int = 32) -> dict:
             "passes_s_fixed_rounds": times["fixed"]}
 
 
+def chunk_device_ops(scale: int, k: int = 32, chunk: int = 1 << 16) -> dict:
+    """Device operations of one 2PS-L scoring chunk (``_score_chunk``, and
+    ``_score_chunk_hosted`` with 4 hosts) on the card, as torch.profiler
+    records them (kernels, copies and fills), over the graph's first
+    ``chunk`` edges on random tables, through ``edge_score_choose_bits``
+    and through the previous composition (``previous_twopsl_choose``).
+    The capacity is loose, so the least-loaded rounds never run."""
+    import torch
+    import repro_torch.core.partitioning as P
+    from repro_torch.core import bitops
+    from repro_torch.data import rmat_graph
+    from repro_torch.kernels.edge_score import ops as es_ops
+    edges = rmat_graph(scale, edge_factor=16, seed=0)[:chunk]
+    V = int(edges.max()) + 1
+    pc = P.pad_chunk(edges, chunk, "cuda")
+    rng = np.random.default_rng(0)
+
+    def table(hi, n=V):
+        return torch.from_numpy(
+            rng.integers(0, hi, n).astype(np.int32)).cuda()
+    d, v2c, vol, c2p = table(5000), table(V // 4), table(200_000), table(k)
+    host_of = torch.arange(k, dtype=torch.int32, device="cuda") // (k // 4)
+    bits = torch.zeros((V, bitops.num_words(k)), dtype=torch.int32,
+                       device="cuda")
+    hbits = torch.zeros((V, 1), dtype=torch.int32, device="cuda")
+    sizes = torch.zeros(k, dtype=torch.int32, device="cuda")
+    cap = 1 << 30
+    out = {}
+    for hosted in (False, True):
+        def run():
+            if hosted:
+                return P._score_chunk_hosted(
+                    bits, hbits, sizes, d, vol, v2c, c2p, host_of, pc.edges,
+                    pc.valid, k=k, cap=cap, dcn_penalty=1.0)
+            return P._score_chunk(bits, sizes, d, vol, v2c, c2p, pc.edges,
+                                  pc.valid, k=k, cap=cap)
+        for name, fn in (("bits_entry", es_ops.edge_score_choose_bits),
+                         ("previous", previous_twopsl_choose)):
+            original = es_ops.edge_score_choose_bits
+            es_ops.edge_score_choose_bits = fn
+            try:
+                run()
+                torch.cuda.synchronize()
+                by_name, _ = profile_kernels(run)
+            finally:
+                es_ops.edge_score_choose_bits = original
+            out[f"{name}_{'hosted' if hosted else 'flat'}"] = sum(
+                c for _, c in by_name.values())
+    return {"edges": chunk, "device_ops_per_chunk": out,
+            "fewer_flat": out["previous_flat"] - out["bits_entry_flat"],
+            "fewer_hosted": out["previous_hosted"]
+            - out["bits_entry_hosted"]}
+
+
+def scoring_loop_s(scale: int, k: int = 32, pairs: int = 5,
+                   chunk: int = 1 << 16) -> dict:
+    """Host seconds of 2PS-L's scoring chunks alone: every chunk of the
+    graph (uploaded once) through ``_score_chunk`` (and
+    ``_score_chunk_hosted`` with 4 hosts) on random tables, ending in a
+    synchronize, through ``edge_score_choose_bits`` and through the
+    previous composition, ``pairs`` times in the order new, previous,
+    previous, new; without the engine's stream, pipeline and writeback,
+    whose spread hides a pass's difference."""
+    import torch
+    import repro_torch.core.partitioning as P
+    from repro_torch.core import bitops
+    from repro_torch.data import rmat_graph
+    from repro_torch.kernels.edge_score import ops as es_ops
+    edges = rmat_graph(scale, edge_factor=16, seed=0)
+    V = int(edges.max()) + 1
+    chunks = [P.pad_chunk(edges[lo:lo + chunk], chunk, "cuda")
+              for lo in range(0, len(edges), chunk)]
+    rng = np.random.default_rng(1)
+
+    def table(hi):
+        return torch.from_numpy(
+            rng.integers(0, hi, V).astype(np.int32)).cuda()
+    d, v2c, vol, c2p = table(5000), table(V // 4), table(200_000), table(k)
+    host_of = torch.arange(k, dtype=torch.int32, device="cuda") // (k // 4)
+    bits = torch.zeros((V, bitops.num_words(k)), dtype=torch.int32,
+                       device="cuda")
+    hbits = torch.zeros((V, 1), dtype=torch.int32, device="cuda")
+    sizes = torch.zeros(k, dtype=torch.int32, device="cuda")
+    cap = 1 << 30
+    new = es_ops.edge_score_choose_bits
+    out = {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
+           "chunks": len(chunks)}
+    for hosted in (False, True):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for pc in chunks:
+                if hosted:
+                    P._score_chunk_hosted(
+                        bits, hbits, sizes, d, vol, v2c, c2p, host_of,
+                        pc.edges, pc.valid, k=k, cap=cap, dcn_penalty=1.0)
+                else:
+                    P._score_chunk(bits, sizes, d, vol, v2c, c2p, pc.edges,
+                                   pc.valid, k=k, cap=cap)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        times = {"new": [], "previous": []}
+        try:
+            run()                                   # warm-up
+            for _ in range(pairs):
+                for variant in ("new", "previous", "previous", "new"):
+                    es_ops.edge_score_choose_bits = (
+                        new if variant == "new" else previous_twopsl_choose)
+                    times[variant].append(run())
+        finally:
+            es_ops.edge_score_choose_bits = new
+        med = {v: float(np.median(t)) for v, t in times.items()}
+        out["hosted" if hosted else "flat"] = {
+            "s_new": times["new"], "s_previous": times["previous"],
+            "median_change": med["new"] / med["previous"] - 1,
+            "pairs": 2 * pairs,
+            "pairs_new_faster": sum(a < b for a, b in zip(
+                times["new"], times["previous"]))}
+    return out
+
+
+def twopsl_scoring(scale: int, k: int = 32) -> dict:
+    """2PS-L's scoring pass (``timings_s["scoring"]``) through
+    ``edge_score_choose_bits`` and with the previous composition swapped in
+    (``previous_twopsl_choose``), flat and with 4 hosts (dcn_penalty 1.0),
+    in the order new, previous, previous, new in one process; the
+    assignments byte-equal; then the scoring chunks alone, 5 such rounds
+    (``scoring_loop_s``), and the device operations per scoring chunk
+    (``chunk_device_ops``)."""
+    from repro_torch.core import InMemoryEdgeStream, run_spec, spec_for
+    from repro_torch.data import rmat_graph
+    from repro_torch.kernels.edge_score import ops as es_ops
+    edges = rmat_graph(scale, edge_factor=16, seed=0)
+    new = es_ops.edge_score_choose_bits
+    out = {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
+           "edges": len(edges), "k": k}
+    for name, spec in (("flat", spec_for("2psl")),
+                       ("hosted", spec_for("2psl", host_groups=4,
+                                           dcn_penalty=1.0))):
+        times = {"new": [], "previous": []}
+        walls = {"new": [], "previous": []}
+        asg = {}
+        try:
+            for variant in ("new", "previous", "previous", "new"):
+                es_ops.edge_score_choose_bits = (
+                    new if variant == "new" else previous_twopsl_choose)
+                t0 = time.perf_counter()
+                res = run_spec(spec, InMemoryEdgeStream(edges), k,
+                               device="cuda")
+                walls[variant].append(time.perf_counter() - t0)
+                times[variant].append(res.timings["scoring"])
+                asg[variant] = res.assignment
+        finally:
+            es_ops.edge_score_choose_bits = new
+        if not np.array_equal(asg["new"], asg["previous"]):
+            raise AssertionError(f"2PS-L {name}: the previous composition "
+                                 f"assigns otherwise")
+        out[name] = {"scoring_s_new": times["new"],
+                     "scoring_s_previous": times["previous"],
+                     "scoring_change": sum(times["new"])
+                     / sum(times["previous"]) - 1,
+                     "wall_s_new": walls["new"],
+                     "wall_s_previous": walls["previous"]}
+    out["scoring_loop"] = scoring_loop_s(scale, k)
+    out["chunk_device_ops"] = chunk_device_ops(scale, k)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -2720,6 +3198,7 @@ def main(argv=None) -> int:
                       for n, i in cuda_build.build_info.items()}})
 
     check = check_edge_score((1, 1000, 65536, 65537), (0.0, 0.5, 1.0))
+    e_bits = check_twopsl_bits(TWOPSL_ES, TWOPSL_KS, TWOPSL_HOSTS)
     timing = time_edge_score(65536)
     h_check = check_hdrf_score(HDRF_ES, HDRF_KS)
     h_bits = check_hdrf_bits(HDRF_ES, HDRF_KS)
@@ -2740,7 +3219,8 @@ def main(argv=None) -> int:
                 f_main["max_abs_err"], f_timing["max_abs_err"])
     s_check = check_spmm(SPMM_CHECK)
     b_check = check_embedding_bag(BAG_CHECK)
-    emit({"phase": "kernels", "edge_score": {**check, **timing},
+    emit({"phase": "kernels",
+          "edge_score": {**check, "bits_entry": e_bits, "chunk": timing},
           "hdrf_score": {**h_check, "bits_entry": h_bits,
                          "wide_k": h_wide,
                          "chunk": h_timing, "micro_batch": h_micro},
@@ -2785,6 +3265,7 @@ def main(argv=None) -> int:
                           for name in ("2ps-hdrf", "hdrf", "greedy")]})
     emit({"phase": "least_loaded_rounds",
           **least_loaded_rounds(min(args.scale, 16))})
+    emit({"phase": "twopsl_scoring", **twopsl_scoring(min(args.scale, 16))})
 
     gin = ga["gin_spmm"]
     bulk = bp[f"{BULK_BATCH}_sum"]
@@ -2801,9 +3282,13 @@ def main(argv=None) -> int:
         "name": "edge_score", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_score/csrc/edge_score.cu",
         "replaces": "src/repro/kernels/edge_score/kernel.py:103",
-        "launches": paths["edge_score"], "max_abs_err": check["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "launches": paths["edge_score"],
+        "launches_by_entry": mp["edge_score_launches_by_entry"],
+        "max_abs_err": max(check["max_abs_err"], e_bits["max_abs_err"]),
+        "ms": timing["ms"], "previous_ms": timing["previous_ms"],
+        "flags_ms": timing["flags_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "sector_bound_ms": timing["sector_bound_ms"],
         "library_ms": None}, {
         "name": "hdrf_score", "route": "cuda",
         "source": "src/repro_torch/kernels/hdrf_score/csrc/hdrf_score.cu",

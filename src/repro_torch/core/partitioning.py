@@ -117,16 +117,16 @@ def _apply_host_bits(hbits, edges, assignment, host_of):
     return _apply_bits(hbits, edges, hasg)
 
 
-def _admit_with_fallback(sizes, chosen, todo, du, dv, u, v, k, cap):
+def _admit_with_fallback(sizes, chosen, todo, hi, k, cap):
     """The paper's shared admission tail: capacity-ranked admission of the
-    chosen partition, then the overflow chain (max-degree hash ->
-    least-loaded last resort, Alg. 2 line 22-23 + prose).  Returns
-    ``(assignment, sizes)`` with every ``todo`` edge placed."""
+    chosen partition, then the overflow chain (max-degree hash of ``hi``,
+    the endpoint of the higher degree, -> least-loaded last resort, Alg. 2
+    line 22-23 + prose).  Returns ``(assignment, sizes)`` with every
+    ``todo`` edge placed."""
     ok, sizes = _ranked_admit(chosen, todo, sizes, cap, k)
     assignment = torch.where(ok, chosen, -1).to(torch.int32)
 
     over = todo & ~ok
-    hi = torch.where(du >= dv, u, v)
     t2 = hash_mod(hi, k)
     ok2, sizes = _ranked_admit(t2, over, sizes, cap, k)
     assignment = torch.where(ok2, t2, assignment)
@@ -152,9 +152,10 @@ def _prepartition_core(sizes, d, v2c, c2p, edges, valid, *, k, cap):
     cu, cv = v2c[u], v2c[v]
     pu, pv = c2p[cu], c2p[cv]
     eligible = valid & ((cu == cv) | (pu == pv))
+    hi = torch.where(d[u] >= d[v], u, v)
 
-    assignment, sizes = _admit_with_fallback(sizes, pu, eligible,
-                                             d[u], d[v], u, v, k, cap)
+    assignment, sizes = _admit_with_fallback(sizes, pu, eligible, hi, k,
+                                             cap)
     remaining = valid & ~eligible
     return sizes, assignment, remaining
 
@@ -166,32 +167,16 @@ def _prepartition_core(sizes, d, v2c, c2p, edges, valid, *, k, cap):
 def _twopsl_choose(bits, d, vol, v2c, c2p, edges, valid, *,
                    hbits=None, host_of=None, dcn_penalty: float = 0.0):
     """The paper's two-candidate chooser, shared by the flat and the
-    host-aware scoring chunks: gather per-edge operands, score the two
-    cluster partitions with ``edge_score_choose`` (the CUDA kernel on the
-    card, its plain version on the CPU), pick the better.
+    host-aware scoring chunks: one ``edge_score_choose_bits`` call (on the
+    card one kernel launch that reads the bit matrices and the cluster
+    tables itself; on the CPU its plain version) scores the two cluster
+    partitions of every edge and picks the better.
 
-    Returns ``(todo, chosen, du, dv, u, v)`` for the admission tail."""
-    u, v = edges[:, 0], edges[:, 1]
-    cu, cv = v2c[u], v2c[v]
-    pu, pv = c2p[cu], c2p[cv]
-    skip = (cu == cv) | (pu == pv)        # pre-partitioned in step 2
-    todo = valid & ~skip
-
-    du, dv = d[u], d[v]
-    host_kw = {}
-    if dcn_penalty:
-        hu, hv = host_of[pu], host_of[pv]
-        host_kw = dict(hrep_u1=bitops.get(hbits, u, hu),
-                       hrep_v1=bitops.get(hbits, v, hu),
-                       hrep_u2=bitops.get(hbits, u, hv),
-                       hrep_v2=bitops.get(hbits, v, hv),
-                       dcn_penalty=dcn_penalty)
-    chosen, _ = edge_score_ops.edge_score_choose(
-        du, dv, vol[cu], vol[cv],
-        bitops.get(bits, u, pu), bitops.get(bits, v, pu),
-        bitops.get(bits, u, pv), bitops.get(bits, v, pv),
-        pu, pv, **host_kw)
-    return todo, chosen, du, dv, u, v
+    Returns ``(todo, chosen, hi)`` for the admission tail."""
+    chosen, _, todo, hi = edge_score_ops.edge_score_choose_bits(
+        bits, d, vol, v2c, c2p, edges, valid, hbits=hbits, host_of=host_of,
+        dcn_penalty=dcn_penalty)
+    return todo, chosen, hi
 
 
 def _score_chunk(bits, sizes, d, vol, v2c, c2p, edges, valid, *, k, cap):
@@ -199,10 +184,9 @@ def _score_chunk(bits, sizes, d, vol, v2c, c2p, edges, valid, *, k, cap):
     (the partitions of its endpoints' clusters) — the paper's O(|E|) claim.
     ``bits`` and ``sizes`` are updated in place.  Returns ``(bits, sizes,
     assignment)``."""
-    todo, chosen, du, dv, u, v = _twopsl_choose(
-        bits, d, vol, v2c, c2p, edges, valid)
-    assignment, sizes = _admit_with_fallback(sizes, chosen, todo,
-                                             du, dv, u, v, k, cap)
+    todo, chosen, hi = _twopsl_choose(bits, d, vol, v2c, c2p, edges, valid)
+    assignment, sizes = _admit_with_fallback(sizes, chosen, todo, hi, k,
+                                             cap)
     _apply_bits(bits, edges, assignment)
     return bits, sizes, assignment
 
@@ -213,11 +197,11 @@ def _score_chunk_hosted(bits, hbits, sizes, d, vol, v2c, c2p, host_of,
     term read from the O(|V|*H)-bit per-HOST replica matrix ``hbits``.
     ``bits``, ``hbits`` and ``sizes`` are updated in place.  Returns
     ``(bits, hbits, sizes, assignment)``."""
-    todo, chosen, du, dv, u, v = _twopsl_choose(
+    todo, chosen, hi = _twopsl_choose(
         bits, d, vol, v2c, c2p, edges, valid,
         hbits=hbits, host_of=host_of, dcn_penalty=dcn_penalty)
-    assignment, sizes = _admit_with_fallback(sizes, chosen, todo,
-                                             du, dv, u, v, k, cap)
+    assignment, sizes = _admit_with_fallback(sizes, chosen, todo, hi, k,
+                                             cap)
     _apply_bits(bits, edges, assignment)
     _apply_host_bits(hbits, edges, assignment, host_of)
     return bits, hbits, sizes, assignment
@@ -292,11 +276,11 @@ def _hdrf_remaining_chunk(bits, sizes, d, v2c, c2p, edges, valid, *, k, cap,
     todo = valid & ~skip
     uv = torch.cat([u, v])
     d_uv = d[uv]
+    hi = torch.where(d_uv[:C] >= d_uv[C:], u, v)
     chosen, _ = hdrf_score_ops.hdrf_choose_bits(
         bits, d, uv, sizes, k=k, lam=lam, num_hosts=num_hosts,
         dcn_penalty=dcn_penalty)
-    assignment, sizes = _admit_with_fallback(sizes, chosen, todo,
-                                             d_uv[:C], d_uv[C:], u, v, k,
+    assignment, sizes = _admit_with_fallback(sizes, chosen, todo, hi, k,
                                              cap)
     _apply_bits_uv(bits, uv, assignment)
     return bits, sizes, assignment

@@ -9,7 +9,8 @@ Each subpackage follows the contract:
   ref.py    — plain torch version, the yardstick on the card
 
 Kernels:
-  edge_score — 2PS-L two-candidate scoring (the paper's O(|E|) hot loop)
+  edge_score — 2PS-L two-candidate scoring (the paper's O(|E|) hot loop;
+               2PS-L step 3's whole choice per chunk)
   hdrf_score — HDRF / Greedy k-way scoring and first-index argmax (2PS-HDRF
                step 3, and the HDRF and Greedy baselines' micro-batches)
   augru      — DIEN's attention-gated GRU scan, all T states out (the GRU
@@ -34,6 +35,27 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.count = 0
+
+
+class EntryCounter(LaunchCounter):
+    """Launches in all (``count``) and by entry (``by_entry``) of a kernel
+    with two entries: ``bits`` reads the packed replica bit matrix itself
+    (the chunk functions' entry), ``flags`` takes gathered flags (the
+    reference's op)."""
+
+    ENTRIES = ("bits", "flags")
+
+    def __init__(self):
+        super().__init__()
+        self.by_entry = dict.fromkeys(self.ENTRIES, 0)
+
+    def reset(self) -> None:
+        super().reset()
+        self.by_entry = dict.fromkeys(self.ENTRIES, 0)
+
+    def add(self, entry: str) -> None:
+        self.count += 1
+        self.by_entry[entry] += 1
 
 
 def wrap_clamp_index(idx: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,2 +1,2 @@
-from .ops import edge_score_choose, launches
-from .ref import edge_score_choose_ref
+from .ops import edge_score_choose, edge_score_choose_bits, launches
+from .ref import edge_score_choose_bits_ref, edge_score_choose_ref

@@ -11,30 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from .. import LaunchCounter
+from .. import EntryCounter
 from ...core.bitops import num_words
 from . import kernel
 from .ref import hdrf_choose_bits_ref, hdrf_choose_ref
-
-#: the kernel's entries: packed bits (the chunk functions') and flags
-ENTRIES = ("bits", "flags")
-
-
-class EntryCounter(LaunchCounter):
-    """Launches in all (``count``) and by entry (``by_entry``)."""
-
-    def __init__(self):
-        super().__init__()
-        self.by_entry = dict.fromkeys(ENTRIES, 0)
-
-    def reset(self) -> None:
-        super().reset()
-        self.by_entry = dict.fromkeys(ENTRIES, 0)
-
-    def add(self, entry: str) -> None:
-        self.count += 1
-        self.by_entry[entry] += 1
-
 
 launches = EntryCounter()
 

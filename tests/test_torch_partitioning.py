@@ -145,6 +145,76 @@ def test_score_chunk_hosted(setup, pen, hosts):
     np.testing.assert_array_equal(got["hbits"], np.asarray(rh))
 
 
+def _wide_state(setup, seed, k, hosts):
+    """``_state`` at k partitions: the same clusters mapped by LPT onto k,
+    so that k > 32 reads a second word of every row."""
+    edges, V, deg, clus, _ = setup
+    rng = np.random.default_rng(seed)
+    cap = capacity(len(edges), k, 1.05)
+    c2p, _ = map_clusters_lpt(clus.vol, k)
+    bits = rbitops.alloc_np(V, k)
+    n = len(edges) // 3
+    rbitops.set_np(bits, rng.integers(0, V, n), rng.integers(0, k, n))
+    H = max(hosts, 1)
+    hbits = rbitops.alloc_np(V, H)
+    rbitops.set_np(hbits, rng.integers(0, V, n), rng.integers(0, H, n))
+    sizes = (cap * 0.5 * rng.random(k)).astype(np.int32)
+    return {"sizes": sizes, "d": deg, "vol": clus.vol, "v2c": clus.v2c,
+            "c2p": c2p, "bits": bits, "hbits": hbits,
+            "host_of": host_assignment(k, H)}, cap
+
+
+@pytest.mark.parametrize("k,lo,tight", [(33, 0, False), (64, C, False),
+                                        (64, 0, True), (100, 2 * C, False)])
+def test_score_chunk_wide_k(setup, k, lo, tight):
+    """``_score_chunk`` at k > 32 (two to four words a row) against the
+    reference, byte-equal; tight: the hash and least-loaded tail runs."""
+    state, cap = _wide_state(setup, k + lo, k, 0)
+    chunk, valid = _chunk(setup, lo, C - 11)
+    if tight:
+        cap = int(state["sizes"].max()) + 2
+    rb, rs, ra = RP._score_chunk(
+        jnp.asarray(state["bits"]), jnp.asarray(state["sizes"]), state["d"],
+        state["vol"], state["v2c"], state["c2p"], jnp.asarray(chunk),
+        jnp.asarray(valid), k=k, cap=cap)
+    ts, tchunk, tvalid = _torch(state, chunk, valid)
+    bits, sizes, asg = TP._score_chunk(
+        ts["bits"], ts["sizes"], ts["d"], ts["vol"], ts["v2c"], ts["c2p"],
+        tchunk, tvalid, k=k, cap=cap)
+    np.testing.assert_array_equal(asg.numpy(), np.asarray(ra))
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(rs))
+    np.testing.assert_array_equal(convert.words_to_numpy(bits),
+                                  np.asarray(rb))
+    # candidates past the first word of a row were scored
+    assert (state["c2p"][state["v2c"][chunk[valid]]] > 31).any()
+    if tight:
+        assert _overflowed(state, chunk, valid, asg.numpy(), k) > 0
+
+
+@pytest.mark.parametrize("k,hosts,pen", [(64, 4, 1.0), (40, 8, 0.5),
+                                         (33, 3, 2.5)])
+def test_score_chunk_hosted_wide_k(setup, k, hosts, pen):
+    """``_score_chunk_hosted`` at k > 32 against the reference."""
+    state, cap = _wide_state(setup, k * hosts, k, hosts)
+    chunk, valid = _chunk(setup, C, C)
+    rb, rh, rs, ra = RP._score_chunk_hosted(
+        jnp.asarray(state["bits"]), jnp.asarray(state["hbits"]),
+        jnp.asarray(state["sizes"]), state["d"], state["vol"], state["v2c"],
+        state["c2p"], state["host_of"], jnp.asarray(chunk),
+        jnp.asarray(valid), k=k, cap=cap, dcn_penalty=pen)
+    ts, tchunk, tvalid = _torch(state, chunk, valid)
+    bits, hbits, sizes, asg = TP._score_chunk_hosted(
+        ts["bits"], ts["hbits"], ts["sizes"], ts["d"], ts["vol"], ts["v2c"],
+        ts["c2p"], ts["host_of"], tchunk, tvalid, k=k, cap=cap,
+        dcn_penalty=pen)
+    np.testing.assert_array_equal(asg.numpy(), np.asarray(ra))
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(rs))
+    got = convert.state_to_numpy({"bits": bits, "hbits": hbits})
+    np.testing.assert_array_equal(got["bits"], np.asarray(rb))
+    np.testing.assert_array_equal(got["hbits"], np.asarray(rh))
+    assert (state["c2p"][state["v2c"][chunk[valid]]] > 31).any()
+
+
 @pytest.mark.parametrize("n_pending,cap", [(0, 40), (30, 40), (300, 40),
                                            (300, 10)])
 def test_least_loaded_rounds(n_pending, cap):
