@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's partitioning, DIEN serving, LM serving, GNN
-aggregation and embedding pooling paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's partitioning (every registered algorithm), DIEN
+serving, LM serving, GNN aggregation and embedding pooling paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -29,7 +30,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               and the flag kernel), the flag kernel alone and the plain
               version, flat and with 4 hosts, and at 64 edges and on
               RMAT-19's ragged last chunk, its outputs held to the plain
-              version's there too; ``augru``: att == 1 and random
+              version's there too; and at buffered re-streaming's
+              sub-batch (1,024 edges, k = 32, RMAT-18-sized tables,
+              131,072-row window tables, stale ``v2c`` outside the
+              window), full and with 300 valid rows, held the same way
+              and timed beside its plain version; ``augru``: att == 1 and random
               on each route, small (U in registers), large
               (register-tiled outer products) and general (the previous
               design, H above 108),
@@ -117,7 +122,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               byte-equal, its wall beside; the device operations per
               micro-batch of both, profiled over one 4,096-edge chunk.
 14. hash      DBH, Grid and Random through the CLI at RMAT-20.
-15. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
+15. hep       HEP through the CLI at RMAT-19, at the default budget (every
+              vertex pinned) and at 131,072 bytes (32,768 rows: the
+              in-memory and the hash path both run): no kernel launch.
+16. buffered  buffered re-streaming through the CLI at RMAT-18 with the
+              spec's own 16,384-edge chunks and 65,536-edge windows: one
+              ``edge_score`` launch per non-empty 1,024-edge scoring
+              sub-batch, all through ``edge_score_choose_bits``; the device
+              operations of one window, profiled.
+17. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
               4 relabelled copies of the RMAT-20 graph (~2.58M nodes,
               ~64.3M edges), ``prepare_tiles`` on the host, src and the
               edge mask bound once (``with_edges``, ``bind_s``),
@@ -129,24 +142,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               events beside the previous route (``previous_ms``), cuSPARSE's
               SpMM and without the hub split; the messages' sum also timed
               and checked on the bound route.
-16. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
+18. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
               ``InteractionStream`` histories (seq 100, ``hist_mask`` as
               the weights) at 512 and 65,536 bags, ``sum`` and ``mean``: a
               warm-up and 3 calls each, exactly one launch per call; timed
               by CUDA-graph replays beside the previous design and by
               events beside ``F.embedding_bag``; bounds on the touched
               rows, a row per lookup and the sectors each row spans.
-17. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
+19. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
               ``embedding_bag`` at 512 bags, on the card and on the CPU
               through the same op, within the kernels' tolerance.
-18. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
-              (2PS-L at RMAT-16; 2PS-HDRF, HDRF and Greedy at RMAT-14);
+20. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
+              (2PS-L at RMAT-16; 2PS-HDRF, HDRF, Greedy, HEP at the
+              default budget, 131,072 and 8,192 bytes, and buffered at
+              RMAT-14);
               the card's busy share profiled over the first 2^18 (2PS-L)
               or 2^15 edges.
-19. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
+21. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
               host sync, rounds skipped when nothing is pending) against
               running its k+1 rounds unconditionally (2PS-L, RMAT-16).
-20. twopsl_scoring  2PS-L's scoring pass (``timings_s["scoring"]``) at
+22. twopsl_scoring  2PS-L's scoring pass (``timings_s["scoring"]``) at
               RMAT-16, flat and with 4 hosts, through
               ``edge_score_choose_bits`` and with the previous composition
               swapped in, new, previous, previous, new, byte-equal; and
@@ -679,6 +694,90 @@ def time_edge_score(E: int = 65536, k: int = 32, hosts: int = 4) -> dict:
     res["checked"] = "exact: chosen, todo and hi equal, best bit-equal"
     res["library_ms"] = None
     return res
+
+
+# ---------------------------------------------------------------------------
+# edge_score's bits entry at buffered re-streaming's sub-batch shape
+# ---------------------------------------------------------------------------
+
+#: max id + 1 of rmat_graph(18, edge_factor=16, seed=0), the buffered
+#: path's graph
+RMAT18_V = 173_847
+#: the buffered spec's window (4 chunks of 16,384 edges) and sub-batch
+BUFFERED_WINDOW = 1 << 16
+BUFFERED_SUB = 1024
+#: vertices and clusters of one 65,536-edge window of that graph
+#: (``window_clusters`` on its first window: 37,581 and 15,742)
+BUFFERED_LOCAL, BUFFERED_CLUSTERS = 37_581, 15_742
+
+
+def buffered_inputs(n_valid: int, seed: int, k: int = 32) -> dict:
+    """The bits entry's operands as buffered re-streaming hands them over
+    for one sub-batch, on the card: ``bits``, ``d`` and ``v2c`` of
+    RMAT-18's |V|; the window tables ``c2p`` and ``vol`` of 2 x 65,536 rows,
+    live for the window's clusters and zero past them, as the engine pads
+    them; ``v2c`` holding the window's labels on its own vertices and stale
+    labels of earlier windows everywhere else; 1,024 int64 edges over the
+    window's vertices (self-loops, edges inside one cluster, duplicates)
+    with the engine's zero-padded tail from ``n_valid``."""
+    import torch
+    rng = np.random.default_rng(seed)
+    V, cpad, E = RMAT18_V, 2 * BUFFERED_WINDOW, BUFFERED_SUB
+    C = BUFFERED_CLUSTERS
+    window = rng.choice(V, BUFFERED_LOCAL, replace=False)
+    labels = rng.integers(0, C, BUFFERED_LOCAL)
+    v2c = rng.integers(0, cpad, V).astype(np.int32)        # stale labels
+    v2c[window] = labels
+    c2p = np.zeros(cpad, np.int32)
+    c2p[:C] = rng.integers(0, k, C)
+    vol = np.zeros(cpad, np.int32)
+    vol[:C] = rng.integers(1, 2 * BUFFERED_WINDOW // k, C)
+    d = rng.integers(1, 5000, V).astype(np.int32)
+    bits = _random_words(rng, V, k)
+    e = window[rng.integers(0, BUFFERED_LOCAL, (E, 2))]
+    r = rng.random(E)
+    e[r < 0.05, 1] = e[r < 0.05, 0]                        # self-loops
+    first = np.full(C, -1, np.int64)
+    first[labels[::-1]] = window[::-1]
+    m = (r >= 0.05) & (r < 0.15)                           # one cluster
+    e[m, 1] = first[v2c[e[m, 0]]]
+    e[E // 2:E // 2 + E // 50] = e[:E // 50]               # duplicates
+    e[n_valid:] = 0
+    t = {name: torch.from_numpy(a).cuda() for name, a in (
+        ("bits", bits.view(np.int32)), ("d", d), ("vol", vol),
+        ("v2c", v2c), ("c2p", c2p), ("valid", np.arange(E) < n_valid),
+        ("edges", e.astype(np.int64)))}
+    return t
+
+
+def time_edge_score_buffered(k: int = 32) -> dict:
+    """``edge_score_choose_bits`` at buffered's sub-batch (1,024 edges,
+    k = 32, RMAT-18-sized bits/d/v2c, 131,072-row window tables, stale
+    ``v2c`` outside the window), full and with 300 valid rows (a ragged
+    last sub-batch): chosen, todo and hi equal to the plain version's and
+    best bit-equal; device time by CUDA-graph replays (``graph_ms``), the
+    plain version's beside, and the bound on this run's inputs."""
+    from repro_torch.kernels.edge_score import (edge_score_choose_bits,
+                                                edge_score_choose_bits_ref)
+    out = {"E": BUFFERED_SUB, "k": k, "V": RMAT18_V,
+           "window_rows": 2 * BUFFERED_WINDOW,
+           "checked": "exact: chosen, todo and hi equal, best bit-equal",
+           "ms_source": "CUDA events over CUDA-graph replays of 50 calls"}
+    for name, live in (("", BUFFERED_SUB), ("ragged_", 300)):
+        t = buffered_inputs(live, seed=21 + live, k=k)
+        args, _ = _bits_args(t, 0, 0.0)
+        _same_choice(edge_score_choose_bits(*args),
+                     edge_score_choose_bits_ref(*args),
+                     f"buffered sub-batch, {live} valid rows")
+        b = twopsl_bits_bound(t, False)
+        out.update({
+            f"{name}valid_rows": live,
+            f"{name}ms": graph_ms(lambda a=args: edge_score_choose_bits(*a)),
+            f"{name}plain_ms": graph_ms(
+                lambda a=args: edge_score_choose_bits_ref(*a), calls=10),
+            f"{name}bound_ms": b["bound_ms"], f"{name}bound_by": b["bound_by"],
+            f"{name}sector_bound_ms": b["sector_bound_ms"]})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2392,6 +2491,123 @@ def hash_paths(scale: int, tmp: str, k: int = 32) -> dict:
     return runs
 
 
+#: HEP's small budget: 32,768 pinned rows at k = 32 (4 bytes a row), under
+#: RMAT-19's 335,397 vertices, so the in-memory and the hash path both run
+HEP_SMALL_BUDGET = 131_072
+
+
+def hep_path(scale: int, tmp: str, k: int = 32) -> dict:
+    """HEP through the CLI, at the spec's default budget (every vertex
+    pinned) and at ``HEP_SMALL_BUDGET``: plain torch on the card, no kernel
+    of the port launches."""
+    path, E = write_graph(scale, tmp)
+    runs = {}
+    for name, extra in (("default_budget", []),
+                        ("small_budget", ["--memory-budget-bytes",
+                                          str(HEP_SMALL_BUDGET)])):
+        (report, res), counts, wall = counted(lambda: run_cli(
+            ["--input", path, "--k", str(k), "--algorithm", "hep", *extra]))
+        checks = check_run(report, res, k, E)
+        expect_launches(counts, {}, f"HEP ({name})")
+        if report["hot_state_bytes"] > report["memory_budget_bytes"]:
+            raise AssertionError(f"HEP ({name}): pinned rows over budget")
+        runs[name] = path_line(
+            scale, E, k, report, wall, counts, checks,
+            memory_budget_bytes=report["memory_budget_bytes"],
+            hot_vertices=report["hot_vertices"],
+            hot_state_bytes=report["hot_state_bytes"],
+            vertices=report["vertices"])
+    small = runs["small_budget"]
+    if small["hot_vertices"] >= small["vertices"]:
+        raise AssertionError("HEP's small budget pins every vertex")
+    return runs
+
+
+def buffered_launches(E: int, window: int, sub: int) -> int:
+    """One ``edge_score`` launch per scoring sub-batch that holds a valid
+    row: ``ceil(n / sub)`` for each window of ``n`` edges."""
+    return sum(-(-min(window, E - lo) // sub) for lo in range(0, E, window))
+
+
+def buffered_path(scale: int, tmp: str, k: int = 32) -> dict:
+    """Buffered re-streaming through the CLI at the spec's own geometry
+    (16,384-edge chunks, 65,536-edge windows, 1,024-edge sub-batches): one
+    ``edge_score_choose_bits`` launch per non-empty scoring sub-batch;
+    then the device operations of one window (``buffered_window_ops``)."""
+    from repro_torch.core import spec_for
+    from repro_torch.core.buffered import SUB_BATCH_TARGET
+    path, E = write_graph(scale, tmp)
+    spec = spec_for("buffered")
+    window = spec.chunk_size * spec.window_chunks
+    subs = -(-window // SUB_BATCH_TARGET)
+    sub = -(-window // subs)
+    want = buffered_launches(E, window, sub)
+    (report, res), counts, wall = counted(lambda: run_cli(
+        ["--input", path, "--k", str(k), "--algorithm", "buffered",
+         "--chunk-size", str(spec.chunk_size),
+         "--buffer-edges", str(spec.buffer_edges)]))
+    checks = check_run(report, res, k, E)
+    expect_launches(counts, {"edge_score": want},
+                    "buffered (one edge_score per non-empty sub-batch)")
+    by_entry = expect_bits_entry(want, "buffered", "edge_score")
+    if report["windows"] != -(-E // window):
+        raise AssertionError(f"buffered: {report['windows']} windows")
+    return path_line(scale, E, k, report, wall, counts, checks,
+                     chunk_size=spec.chunk_size, buffer_edges=window,
+                     windows=report["windows"], sub_batch=sub,
+                     edge_score_launches=counts["edge_score"],
+                     edge_score_launches_by_entry=by_entry,
+                     window_ops=buffered_window_ops(path, k))
+
+
+def buffered_window_ops(path: str, k: int = 32) -> dict:
+    """Device operations of one 65,536-edge buffered window on the card
+    (the window function: the bits rows and sizes read back, the tables
+    uploaded, 64 pre-partitioning and 64 scoring sub-batches), as
+    torch.profiler records them, on the graph's second window after the
+    first, with the run's real state; the window's wall time unprofiled
+    (``window_s``), and of it the host's ``window_clusters`` and
+    ``map_window_clusters`` on the same edges."""
+    import torch
+    from repro_torch.core import (MemmapEdgeStream, build_partitioner,
+                                  spec_for)
+    from repro_torch.core import partitioning as P
+    from repro_torch.core.buffered import (map_window_clusters,
+                                           window_clusters)
+    from repro_torch.core.engine import _Timer
+    stream = MemmapEdgeStream(path)
+    spec = spec_for("buffered")
+    part = build_partitioner(spec, "cuda")
+    st = part.init_state(stream, k, _Timer(), None)
+    window = spec.chunk_size * spec.window_chunks
+    it = stream.iter_chunks(window)
+    pcs = [P.pad_chunk(next(it), window, "cuda") for _ in range(2)]
+    st, _ = part._window_fn(st, pcs[0])
+    torch.cuda.synchronize()
+    by_name, wall_us = profile_kernels(lambda: part._window_fn(st, pcs[1]))
+    ops = sum(c for _, c in by_name.values())
+    scoring = sum(c for name, (_, c) in by_name.items()
+                  if "edge_score" in name)
+    t0 = time.perf_counter()
+    part._window_fn(st, pcs[1])
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wc = window_clusters(pcs[1].host, k=k)
+    cluster_s = time.perf_counter() - t0
+    map_window_clusters(np.zeros((len(wc.vols), k), np.int64), wc.vols, k,
+                        init_loads=np.zeros(k, np.int64), cap_slots=1 << 40)
+    map_s = time.perf_counter() - t0 - cluster_s
+    return {"window_edges": window, "sub_batches": part._subs,
+            "device_ops_per_window": ops,
+            "device_ops_per_sub_batch": ops / part._subs,
+            "edge_score_kernels": scoring,
+            "device_ms": sum(us for us, _ in by_name.values()) / 1e3,
+            "profiled_wall_ms": wall_us / 1e3, "window_s": window_s,
+            "window_clusters_s": cluster_s, "map_window_clusters_s": map_s,
+            "window_vertices": len(wc.uniq), "window_clusters": len(wc.vols)}
+
+
 # ---------------------------------------------------------------------------
 # the GNN aggregation and embedding pooling ops at ogb_products' and DIEN's
 # scale
@@ -2900,15 +3116,15 @@ def kernel_breakdown(fn, call_ms: float, top: int = 6) -> dict:
 
 
 def card_vs_cpu(scale: int, name: str = "2psl", k: int = 32,
-                busy_edges: int | None = None) -> dict:
-    """The same run on the card and on the CPU, byte-equal; then the
-    card's busy share in a profiled run over the first ``busy_edges``
-    edges (all when None: profiling every launch of a long micro-batch
-    loop costs more than the run)."""
+                busy_edges: int | None = None, **overrides) -> dict:
+    """The same run (``spec_for(name, **overrides)``) on the card and on
+    the CPU, byte-equal; then the card's busy share in a profiled run over
+    the first ``busy_edges`` edges (all when None: profiling every launch
+    of a long micro-batch loop costs more than the run)."""
     from repro_torch.core import InMemoryEdgeStream, run_spec, spec_for
     from repro_torch.data import rmat_graph
     edges = rmat_graph(scale, edge_factor=16, seed=0)
-    spec = spec_for(name)
+    spec = spec_for(name, **overrides)
     out = {}
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -2926,7 +3142,8 @@ def card_vs_cpu(scale: int, name: str = "2psl", k: int = 32,
     window = edges[:busy_edges]
     busy, n_kernels = device_busy(
         lambda: run_spec(spec, InMemoryEdgeStream(window), k, device="cuda"))
-    return {"algorithm": name, "chunk_size": spec.chunk_size,
+    return {"algorithm": name, "overrides": overrides,
+            "chunk_size": spec.chunk_size,
             "busy_share_edges": len(window),
             "device_kernels_profiled": n_kernels,
             "graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
@@ -3141,8 +3358,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
                     help="RMAT scale of the 2PS-HDRF and hash graphs "
-                         "(default 20); 2PS-L runs at min(scale, 19), the "
-                         "hosted 2PS-L at min(scale, 18), the HDRF "
+                         "(default 20); 2PS-L and HEP run at min(scale, "
+                         "19), the hosted 2PS-L and buffered at min(scale, "
+                         "18), the HDRF "
                          "baselines and the overflow-tail comparison at "
                          "min(scale, 16)")
     ap.add_argument("--spmm-tune", action="store_true",
@@ -3200,6 +3418,7 @@ def main(argv=None) -> int:
     check = check_edge_score((1, 1000, 65536, 65537), (0.0, 0.5, 1.0))
     e_bits = check_twopsl_bits(TWOPSL_ES, TWOPSL_KS, TWOPSL_HOSTS)
     timing = time_edge_score(65536)
+    b_timing = time_edge_score_buffered()
     h_check = check_hdrf_score(HDRF_ES, HDRF_KS)
     h_bits = check_hdrf_bits(HDRF_ES, HDRF_KS)
     h_wide = {"flags": check_hdrf_score((64,), HDRF_WIDE_KS),
@@ -3220,7 +3439,8 @@ def main(argv=None) -> int:
     s_check = check_spmm(SPMM_CHECK)
     b_check = check_embedding_bag(BAG_CHECK)
     emit({"phase": "kernels",
-          "edge_score": {**check, "bits_entry": e_bits, "chunk": timing},
+          "edge_score": {**check, "bits_entry": e_bits, "chunk": timing,
+                         "buffered_sub_batch": b_timing},
           "hdrf_score": {**h_check, "bits_entry": h_bits,
                          "wide_k": h_wide,
                          "chunk": h_timing, "micro_batch": h_micro},
@@ -3253,6 +3473,9 @@ def main(argv=None) -> int:
         emit({"phase": "hdrf_baselines",
               **hdrf_baselines(min(args.scale, 16), tmp)})
         emit({"phase": "hash", **hash_paths(args.scale, tmp)})
+        emit({"phase": "hep", **hep_path(min(args.scale, 19), tmp)})
+        bp_run = buffered_path(min(args.scale, 18), tmp)
+        emit({"phase": "buffered", **bp_run})
         ga = gnn_aggregate(min(args.scale, 20), tmp)
         emit({"phase": "gnn_aggregate", **ga})
     bp = bag_pool()
@@ -3262,7 +3485,15 @@ def main(argv=None) -> int:
           **card_vs_cpu(min(args.scale, 16), busy_edges=1 << 18),
           "hdrf_family": [card_vs_cpu(min(args.scale, 14), name,
                                       busy_edges=1 << 15)
-                          for name in ("2ps-hdrf", "hdrf", "greedy")]})
+                          for name in ("2ps-hdrf", "hdrf", "greedy")],
+          "hep_buffered": [card_vs_cpu(min(args.scale, 14), name,
+                                       busy_edges=1 << 15, **kw)
+                           for name, kw in (
+                               ("hep", {}),
+                               ("hep", {"memory_budget_bytes":
+                                        HEP_SMALL_BUDGET}),
+                               ("hep", {"memory_budget_bytes": 8192}),
+                               ("buffered", {}))]})
     emit({"phase": "least_loaded_rounds",
           **least_loaded_rounds(min(args.scale, 16))})
     emit({"phase": "twopsl_scoring", **twopsl_scoring(min(args.scale, 16))})
@@ -3278,17 +3509,23 @@ def main(argv=None) -> int:
     for name, n in paths.items():
         if n == 0:
             raise AssertionError(f"the path launched no {name} kernel")
+    if bp_run["edge_score_launches"] == 0:
+        raise AssertionError("the buffered path launched no edge_score")
     emit({"kernels": [{
         "name": "edge_score", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_score/csrc/edge_score.cu",
         "replaces": "src/repro/kernels/edge_score/kernel.py:103",
         "launches": paths["edge_score"],
         "launches_by_entry": mp["edge_score_launches_by_entry"],
+        "launches_buffered": bp_run["edge_score_launches"],
         "max_abs_err": max(check["max_abs_err"], e_bits["max_abs_err"]),
         "ms": timing["ms"], "previous_ms": timing["previous_ms"],
         "flags_ms": timing["flags_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "sector_bound_ms": timing["sector_bound_ms"],
+        "buffered_sub_batch_ms": b_timing["ms"],
+        "buffered_sub_batch_plain_ms": b_timing["plain_ms"],
+        "buffered_sub_batch_bound_ms": b_timing["bound_ms"],
         "library_ms": None}, {
         "name": "hdrf_score", "route": "cuda",
         "source": "src/repro_torch/kernels/hdrf_score/csrc/hdrf_score.cu",

@@ -2,19 +2,24 @@
 
 The same declarative ``PartitionerSpec``s, executed by one streaming engine
 (``run_spec``) whose device state lives in torch tensors — on the card by
-default, on the CPU when asked.  Ported: 2PS-L and 2PS-HDRF (flat and
-host-aware), HDRF and Greedy, DBH, Grid and Random; ``build_partitioner``
-names the ROADMAP item for ``hep`` and ``buffered``.
+default, on the CPU when asked.  Every registered spec runs (``PORTED`` is
+the whole registry): 2PS-L and 2PS-HDRF (flat and host-aware), HDRF and
+Greedy, DBH, Grid and Random, HEP and buffered re-streaming.  The ``run_*``
+/ ``PARTITIONERS`` entry points are shims over ``run_spec``.
 """
-from .clustering import (ClusteringResult, cluster_sequential,
-                         default_max_vol, streaming_clustering)
+from .clustering import (ClusteringResult, cluster_in_memory_scan,
+                         cluster_sequential, default_max_vol,
+                         streaming_clustering)
 from .engine import (PORTED, PartitionRunResult, StreamingPartitioner,
                      StreamPass, build_partitioner, compute_degrees_streaming,
                      resolve_device, run_spec)
-from .mapping import map_clusters_lpt
+from .mapping import map_clusters_lpt, map_clusters_lpt_torch
 from .metrics import (PartitionQuality, capacity, cross_host_replicas,
                       cross_host_replication_factor, host_assignment,
                       quality_from_assignment, quality_from_bitmatrix)
+from .pipeline import (PARTITIONERS, run_2ps_hdrf, run_2psl, run_buffered,
+                       run_dbh, run_greedy, run_grid, run_hdrf, run_hep,
+                       run_partitioner, run_random)
 from .specs import (BufferedSpec, DBHSpec, HDRFSpec, HEPSpec,
                     PartitionerSpec, SpecError, SPEC_REGISTRY,
                     StatelessSpec, TwoPSLSpec, spec_for, spec_from_dict)
@@ -22,11 +27,16 @@ from .stream import (BYTES_PER_EDGE, EdgeStream, InMemoryEdgeStream,
                      MemmapEdgeStream, ThrottledEdgeStream, compute_degrees)
 
 __all__ = [
-    "ClusteringResult", "cluster_sequential", "default_max_vol",
-    "streaming_clustering", "map_clusters_lpt", "PartitionQuality",
+    "ClusteringResult", "cluster_in_memory_scan", "cluster_sequential",
+    "default_max_vol", "streaming_clustering", "map_clusters_lpt",
+    "map_clusters_lpt_torch", "PartitionQuality",
     "capacity", "quality_from_assignment", "quality_from_bitmatrix",
     "cross_host_replicas", "cross_host_replication_factor",
-    "host_assignment", "PartitionRunResult", "BYTES_PER_EDGE",
+    "host_assignment", "PARTITIONERS",
+    "PartitionRunResult", "run_2ps_hdrf", "run_2psl", "run_buffered",
+    "run_dbh", "run_greedy", "run_grid",
+    "run_hdrf", "run_hep", "run_partitioner", "run_random",
+    "BYTES_PER_EDGE",
     "EdgeStream", "InMemoryEdgeStream", "MemmapEdgeStream",
     "ThrottledEdgeStream", "compute_degrees",
     "PartitionerSpec", "TwoPSLSpec", "HDRFSpec", "DBHSpec", "StatelessSpec",

@@ -13,6 +13,8 @@ novelties: (1) true upfront degrees + an explicit cluster *volume cap*, and
   micro-batches as a ``lax.scan``; here they are a Python loop of eager
   torch ops that update ``v2c``/``vol`` in place.  ``sub`` stays 128: the
   micro-batch width changes the result.
+* ``cluster_in_memory_scan`` — the same update over an in-memory edge
+  tensor, a loop over its chunk views.
 
 Cluster ids are initialized to vertex ids (identity singletons with volume
 ``d[v]``), which is the paper's lazy ``next_id`` creation up to relabeling.
@@ -190,3 +192,29 @@ def streaming_clustering(stream: EdgeStream, degrees: np.ndarray | None = None,
     return ClusteringResult(v2c=v2c.cpu().numpy(), vol=vol.cpu().numpy(),
                             degrees=np.asarray(degrees, np.int32),
                             max_vol=int(max_vol))
+
+
+def cluster_in_memory_scan(edges: torch.Tensor, degrees: torch.Tensor,
+                           max_vol: int, passes: int = 1,
+                           chunk_size: int = 4096):
+    """Fully in-memory variant on the tensors' device: a loop over
+    ``chunk_size`` views of the (E, 2) ``edges`` through
+    ``_cluster_chunk_step`` (the reference runs a ``lax.scan`` over them).
+    Semantics identical to ``streaming_clustering``.  Returns ``(v2c,
+    vol)`` as int32 tensors."""
+    dev = edges.device
+    E = edges.shape[0]
+    nchunks = -(-E // chunk_size)
+    padded = nchunks * chunk_size
+    edges_p = torch.zeros((padded, 2), dtype=torch.int64, device=dev)
+    edges_p[:E] = edges
+    valid = (torch.arange(padded, device=dev) < E).view(nchunks, chunk_size)
+    edges_c = edges_p.view(nchunks, chunk_size, 2)
+    d = degrees.to(torch.int32)
+    v2c = torch.arange(degrees.shape[0], dtype=torch.int32, device=dev)
+    vol = d.clone()
+    for _ in range(passes):
+        for i in range(nchunks):
+            _cluster_chunk_step(v2c, vol, d, edges_c[i], valid[i],
+                                max_vol=max_vol)
+    return v2c, vol

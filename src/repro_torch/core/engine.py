@@ -2,9 +2,10 @@
 
 ``run_spec`` streams an edge list through a partitioner's passes, exactly
 as the reference engine does, with the device state held in torch tensors
-on the run's ``device`` (the card by default).  Ported partitioners: 2PS-L
-and 2PS-HDRF, the HDRF and Greedy baselines, and the DBH, Grid and Random
-hashes; ``hep`` and ``buffered`` raise ``NotImplementedError``.
+on the run's ``device`` (the card by default).  Every registered spec runs:
+2PS-L and 2PS-HDRF, the HDRF and Greedy baselines, the DBH, Grid and Random
+hashes, HEP (``core/hybrid.py``) and buffered re-streaming
+(``core/buffered.py``).
 
 Pipeline model
 --------------
@@ -55,8 +56,9 @@ from .mapping import map_clusters_lpt
 from .metrics import (PartitionQuality, capacity,
                       cross_host_replication_factor, host_assignment,
                       quality_from_bitmatrix)
-from .specs import (DBHSpec, HDRFSpec, PartitionerSpec, SPEC_REGISTRY,
-                    SpecError, StatelessSpec, TwoPSLSpec)
+from .specs import (BufferedSpec, DBHSpec, HDRFSpec, HEPSpec,
+                    PartitionerSpec, SPEC_REGISTRY, SpecError, StatelessSpec,
+                    TwoPSLSpec)
 from .stream import EdgeStream, prefetch
 
 
@@ -182,6 +184,11 @@ class StreamPass:
     #: writeback-stage hook: (chunk (n,2) np, asg (n,) np) -> None.  Runs
     #: off the critical path, overlapped with later chunks' dispatch.
     host_fold: Callable[[np.ndarray, np.ndarray], None] | None = None
+    #: chunk regrouping factor: the engine feeds this pass windows of
+    #: ``window * spec.chunk_size`` edges per ``chunk_fn`` call (buffered
+    #: re-streaming's edge buffer); the pipeline and writeback count these
+    #: windows.
+    window: int = 1
 
 
 class StreamingPartitioner:
@@ -219,6 +226,14 @@ class StreamingPartitioner:
     def finalize(self, state: dict, pass_counts: dict) -> tuple:
         """-> (bits (uint32 numpy), sizes (numpy), extras)."""
         raise NotImplementedError
+
+    def replication_state_bytes(self) -> int | None:
+        """Bytes of replication state kept resident for scoring.  ``None``
+        (the default) means the full packed bit matrix: the engine then
+        reports the finalized matrix's size on the
+        ``engine.replication_state_bytes`` gauge.  HEP overrides it with
+        its pinned rows, which ``memory_budget_bytes`` bounds."""
+        return None
 
 
 def _kernel_backend(device: torch.device) -> str:
@@ -457,20 +472,13 @@ class _RandomPartitioner(_HashPartitioner):
         return P._random_hash_chunk(pc.edges, pc.valid, k=self.k)
 
 
-#: registry name -> the ROADMAP.md Queue 1 item that ports it
-_NOT_PORTED = {
-    "hep": "item 9 (the remaining partitioner families)",
-    "buffered": "item 9 (the remaining partitioner families)",
-}
-
-#: the registered names ``build_partitioner`` runs
-PORTED = tuple(n for n in SPEC_REGISTRY if n not in _NOT_PORTED)
+#: the registered names ``build_partitioner`` runs: all of them
+PORTED = tuple(SPEC_REGISTRY)
 
 
 def build_partitioner(spec: PartitionerSpec,
                       device="cuda") -> StreamingPartitioner:
-    """Spec -> plug-in state machine for ``run_spec``.  ``hep`` and
-    ``buffered`` are not ported yet and raise ``NotImplementedError``."""
+    """Spec -> plug-in state machine for ``run_spec``."""
     device = torch.device(device)
     if isinstance(spec, TwoPSLSpec):
         return _TwoPSLPartitioner(spec, device)
@@ -481,10 +489,13 @@ def build_partitioner(spec: PartitionerSpec,
     if isinstance(spec, StatelessSpec):
         return (_GridPartitioner if spec.variant == "grid"
                 else _RandomPartitioner)(spec, device)
-    item = _NOT_PORTED.get(spec.algorithm, "its queue item")
-    raise NotImplementedError(
-        f"{spec.algorithm!r} is not ported to repro_torch yet: see "
-        f"ROADMAP.md Queue 1, {item}")
+    if isinstance(spec, HEPSpec):
+        from .hybrid import _HEPPartitioner          # lazy: avoids a cycle
+        return _HEPPartitioner(spec, device)
+    if isinstance(spec, BufferedSpec):
+        from .buffered import _BufferedPartitioner   # lazy: avoids a cycle
+        return _BufferedPartitioner(spec, device)
+    raise TypeError(f"no streaming partitioner for {type(spec).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -668,8 +679,11 @@ def _run_spec_traced(spec, part, stream, k, out_path, degrees, tracer,
             with tracer.span("setup", cat="engine", phase=sp.phase):
                 state = sp.setup(state)
         stall = StallClock()
+        # buffered re-streaming regroups the stream into windows of
+        # ``window`` engine chunks: the pass streams and pads in those units
+        eff_chunk = spec.chunk_size * max(1, int(sp.window))
         pr = _run_pass_pipeline(
-            sp, state, stream, chunk_size=spec.chunk_size, depth=depth,
+            sp, state, stream, chunk_size=eff_chunk, depth=depth,
             device=device, tracer=tracer, metrics=metrics, stall=stall,
             write_rows=write_rows)
         state = pr.state
@@ -685,7 +699,9 @@ def _run_spec_traced(spec, part, stream, k, out_path, degrees, tracer,
         quality = quality_from_bitmatrix(bits_np, sizes_np,
                                          stream.num_edges)
     timer.lap("finalize")
-    metrics.gauge("engine.replication_state_bytes").set(bits_np.nbytes)
+    resident = part.replication_state_bytes()
+    metrics.gauge("engine.replication_state_bytes").set(
+        bits_np.nbytes if resident is None else int(resident))
     if passes_wall > 0:
         metrics.gauge("engine.edges_per_sec").set(
             edges_ctr.value / passes_wall if metrics.enabled else 0.0)

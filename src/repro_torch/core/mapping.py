@@ -2,15 +2,17 @@
 scheduling (LPT, a 4/3-approximation of makespan on identical machines).
 
 A copy of the reference's host heap path (O(C log k)); it runs on the host
-in both packages.
+in both packages.  ``map_clusters_lpt_torch`` is the counterpart of the
+reference's device path ``map_clusters_lpt_jax``.
 """
 from __future__ import annotations
 
 import heapq
 
 import numpy as np
+import torch
 
-from .hashing import hash_mod_np
+from .hashing import hash_mod, hash_mod_np
 
 
 def map_clusters_lpt(vol: np.ndarray, k: int, *,
@@ -70,3 +72,29 @@ def map_clusters_lpt(vol: np.ndarray, k: int, *,
     part_vol = np.zeros(k, dtype=np.int64)
     np.add.at(part_vol, c2p[active], vol[active])
     return c2p.astype(np.int32), part_vol
+
+
+def map_clusters_lpt_torch(vol: torch.Tensor, k: int):
+    """Device LPT, the counterpart of the reference's
+    ``map_clusters_lpt_jax``: a loop over the volume-sorted clusters, each
+    taking the argmin of the running loads (lowest index on ties, like the
+    heap), on ``vol``'s device.  O(C*k) work; clusters with volume <= 0 are
+    hashed.  Returns ``(c2p, loads)`` as int32 tensors."""
+    C = vol.shape[0]
+    dev = vol.device
+    order = torch.argsort(-vol, stable=True)
+    vs = vol[order]
+    take = vs > 0
+    w = torch.where(take, vs, 0).to(torch.int32)
+    loads = torch.zeros((k,), dtype=torch.int32, device=dev)
+    picks = []
+    for i in range(C):
+        p = torch.argmin(loads)            # lowest index wins ties
+        loads.index_add_(0, p.view(1), w[i].view(1))   # adds 0 if not taken
+        picks.append(p)
+    pick = (torch.stack(picks).to(torch.int32) if C
+            else torch.zeros((0,), dtype=torch.int32, device=dev))
+    c2p = torch.zeros((C,), dtype=torch.int32, device=dev)
+    c2p[order] = torch.where(take, pick, -1)
+    fallback = hash_mod(torch.arange(C, device=dev), k)
+    return torch.where(c2p < 0, fallback, c2p), loads

@@ -10,7 +10,8 @@ Bulk-synchronous chunked implementation of the three steps:
 
 The baselines: HDRF / Greedy (_hdrf_chunk, 64-edge micro-batches) and the
 stateless hashes DBH, Grid and Random (_dbh_chunk, _grid_chunk,
-_random_hash_chunk).
+_random_hash_chunk).  ``_prepartition_chunk`` (pre-partitioning with the
+bits folded on the device) serves the incremental re-partitioner.
 
 The hard balance cap ``|p| <= ceil(alpha*|E|/k)`` is enforced *exactly* even
 under vectorization via per-chunk prefix ranks: within a chunk, edges
@@ -160,6 +161,18 @@ def _prepartition_core(sizes, d, v2c, c2p, edges, valid, *, k, cap):
     return sizes, assignment, remaining
 
 
+def _prepartition_chunk(bits, sizes, d, v2c, c2p, edges, valid, *, k, cap):
+    """Pre-partitioning with the bits folded on the device: for consumers
+    that read the replication state right after (the incremental
+    re-partitioner scores the same chunk next).  ``bits`` and ``sizes``
+    are updated in place.  Returns ``(bits, sizes, assignment,
+    remaining)``."""
+    sizes, assignment, remaining = _prepartition_core(
+        sizes, d, v2c, c2p, edges, valid, k=k, cap=cap)
+    _apply_bits(bits, edges, assignment)
+    return bits, sizes, assignment, remaining
+
+
 # ---------------------------------------------------------------------------
 # Step 3: linear-time 2-candidate scoring
 # ---------------------------------------------------------------------------
@@ -286,11 +299,17 @@ def _hdrf_remaining_chunk(bits, sizes, d, v2c, c2p, edges, valid, *, k, cap,
     return bits, sizes, assignment
 
 
+def _lower_degree_hash(u, v, du, dv, k):
+    """DBH's target: the hash of the LOWER-degree endpoint (``u`` on a
+    tie).  HEP's cold edges fall back to it too."""
+    return hash_mod(torch.where(du <= dv, u, v), k)
+
+
 def _dbh_chunk(d, edges, valid, *, k):
     """Degree-based hashing: hash the LOWER-degree endpoint (Xie et al.)."""
     u, v = edges[:, 0], edges[:, 1]
-    lo = torch.where(d[u] <= d[v], u, v)
-    return torch.where(valid, hash_mod(lo, k), -1).to(torch.int32)
+    return torch.where(valid, _lower_degree_hash(u, v, d[u], d[v], k),
+                       -1).to(torch.int32)
 
 
 def _grid_chunk(edges, valid, *, k, rows, cols):
@@ -319,6 +338,10 @@ class PaddedChunk:
     edges: torch.Tensor     # (chunk_size, 2) int64 on the run's device
     valid: torch.Tensor     # (chunk_size,) bool
     n: int
+    #: the unpadded host chunk, kept by reference for chunk functions with
+    #: a host half (buffered re-streaming clusters the window on the host),
+    #: so they never copy it back from the device
+    host: np.ndarray | None = None
 
 
 _valid_masks: dict = {}
@@ -351,4 +374,4 @@ def pad_chunk(chunk: np.ndarray, chunk_size: int, device) -> PaddedChunk:
     host[:n] = torch.from_numpy(np.asarray(chunk))
     edges = host.to(device, non_blocking=True)
     return PaddedChunk(edges=edges, valid=_valid_mask(chunk_size, n, device),
-                       n=n)
+                       n=n, host=chunk)

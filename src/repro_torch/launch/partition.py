@@ -16,11 +16,14 @@ card raises instead of falling back), printing the paper's metrics.
                           reports the cross-host replication factor.
 * ``--dcn-penalty P``     (with ``--hosts``) makes the scoring pass
                           hierarchy-aware (0 = flat scoring).
+* ``--memory-budget-bytes B``  (hep) the byte budget of the pinned
+                          hot-vertex rows.
+* ``--buffer-edges N``    (buffered) edges per re-streaming window.
 
-``--algorithm`` takes the ported partitioners: 2PS-L and 2PS-HDRF (which
-also take ``--cluster-passes``), HDRF, Greedy, DBH, Grid and Random.  The
-reference's ``hep`` and ``buffered``, and its artifact, plan, checkpoint,
-retry and trace flags, come with the slices that port them.
+``--algorithm`` takes every registered partitioner: 2PS-L and 2PS-HDRF
+(which also take ``--cluster-passes``), HDRF, Greedy, DBH, Grid, Random,
+HEP and buffered re-streaming.  The reference's artifact, plan,
+checkpoint, retry and trace flags come with the slices that port them.
 """
 from __future__ import annotations
 
@@ -41,6 +44,15 @@ def main(argv=None):
     ap.add_argument("--alpha", type=float, default=1.05)
     ap.add_argument("--cluster-passes", type=int, default=1)
     ap.add_argument("--chunk-size", type=int, default=1 << 16)
+    ap.add_argument("--memory-budget-bytes", type=int, default=None,
+                    help="(hep) byte budget for the pinned hot-vertex "
+                         "replication rows: the partitioner's resident "
+                         "scoring state never exceeds it (reported as "
+                         "hot_state_bytes)")
+    ap.add_argument("--buffer-edges", type=int, default=None,
+                    help="(buffered) edges per re-streaming window; the "
+                         "engine regroups the stream into ceil(buffer/"
+                         "chunk) chunks per window")
     ap.add_argument("--out", default=None,
                     help="write int32 assignment memmap here")
     ap.add_argument("--hosts", type=int, default=None,
@@ -72,6 +84,10 @@ def main(argv=None):
         overrides["dcn_penalty"] = args.dcn_penalty
     if args.pipeline_depth is not None:
         overrides["pipeline_depth"] = args.pipeline_depth
+    if args.memory_budget_bytes is not None:
+        overrides["memory_budget_bytes"] = args.memory_budget_bytes
+    if args.buffer_edges is not None:
+        overrides["buffer_edges"] = args.buffer_edges
     try:
         spec = spec_for(args.algorithm, **overrides)
     except (SpecError, TypeError) as e:

@@ -201,20 +201,23 @@ def test_cli_runs_every_ported_algorithm(algorithm, small_rmat, tmp_path,
     assert report["replication_factor"] == ref_report["replication_factor"]
 
 
-def test_cli_offers_exactly_the_ported_specs(small_rmat, tmp_path):
-    """The CLI's ``--algorithm`` choices come from the registry less what
-    ``build_partitioner`` still refuses."""
+def test_cli_offers_exactly_the_ported_specs(small_rmat, tmp_path, capsys):
+    """Every registered spec is ported: ``PORTED`` is the registry, each
+    builds, and the CLI's ``--algorithm`` offers each."""
     from repro_torch.core import (PORTED, SPEC_REGISTRY, build_partitioner,
                                   spec_for)
     from repro_torch.launch.partition import main as port_main
-    assert set(PORTED) == set(SPEC_REGISTRY) - {"hep", "buffered"}
+    assert PORTED == tuple(SPEC_REGISTRY)
+    assert set(PORTED) == set(R.SPEC_REGISTRY)
     for name in PORTED:
         build_partitioner(spec_for(name), device="cpu")
-    graph = tmp_path / "g.bin"
-    np.ascontiguousarray(small_rmat, dtype=np.uint32).tofile(graph)
     with pytest.raises(SystemExit):
-        port_main(["--input", str(graph), "--k", "8", "--algorithm", "hep",
-                   "--device", "cpu"])
+        port_main(["--help"])
+    usage = capsys.readouterr().out
+    for name in PORTED:
+        assert name in usage
+    for flag in ("--memory-budget-bytes", "--buffer-edges"):
+        assert flag in usage
 
 
 def test_run_spec_defaults_to_cuda_and_raises_without_it(small_rmat,
@@ -226,15 +229,6 @@ def test_run_spec_defaults_to_cuda_and_raises_without_it(small_rmat,
     from repro_torch.launch.partition import main
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--input", "unused.bin", "--k", "8"])
-
-
-@pytest.mark.parametrize("name", sorted(set(R.SPEC_REGISTRY)
-                                         - {"2psl", "2ps-hdrf", "hdrf",
-                                            "greedy", "dbh", "grid",
-                                            "random"}))
-def test_unported_specs_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.build_partitioner(T.spec_for(name), "cpu")
 
 
 def test_robustness_arguments_are_refused(small_rmat, tmp_path):
@@ -250,7 +244,11 @@ def _port_sources():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    for path in _port_sources():
+    sources = _port_sources()
+    for module in ("core/hybrid.py", "core/buffered.py",
+                   "core/incremental.py", "sample/local_graph.py"):
+        assert ROOT / "src" / "repro_torch" / module in sources, module
+    for path in sources:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -277,6 +275,11 @@ def test_port_runs_without_jax_or_repro_loaded(tmp_path):
         "np.ascontiguousarray(e, dtype=np.uint32).tofile(p)\n"
         "cli.main(['--input', p, '--k', '4', '--chunk-size', '256',\n"
         "          '--device', 'cpu', '--json'])\n"
+        "import contextlib, io\n"
+        "for algo in ('hep', 'buffered'):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        cli.main(['--input', p, '--k', '4', '--chunk-size',\n"
+        "                  '256', '--algorithm', algo, '--device', 'cpu'])\n"
         "import repro_torch.launch.serve as serve\n"
         "rep = serve.main(['--arch', 'dien', '--requests', '8',\n"
         "                  '--device', 'cpu'])\n"
