@@ -130,7 +130,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               ``edge_score`` launch per non-empty 1,024-edge scoring
               sub-batch, all through ``edge_score_choose_bits``; the device
               operations of one window, profiled.
-17. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
+17. artifact  host-aware 2PS-L through the CLI at RMAT-18 (4 host groups,
+              dcn_penalty 1.0) with ``--artifact-dir --local-graphs
+              --plan-json --trace``: one ``edge_score`` launch per scoring
+              chunk, all through ``edge_score_choose_bits``; the partition,
+              halo planning, host planning and local graphs timed apart
+              (the trace's spans); the artifact loaded with verification,
+              its halo and host plans equal array for array to a fresh
+              ``plan_halo_exchange_stream`` and ``host_plan_from_halo``,
+              every local graph's ids the plan's ``vmap_global[p]``, and
+              one flipped byte of ``halo_plan.npz`` refused.
+18. resume    the crash drill through the CLI, in processes of their own
+              (``--partition-counted``): 2PS-L at RMAT-16 (three chunks a
+              pass), HDRF and buffered at RMAT-14; a clean run,
+              ``--checkpoint-every 2`` with
+              ``REPRO_CRASH_AFTER_CHECKPOINTS=2`` (exit 137), ``--resume``:
+              the clean run's sha256, and the resumed process's
+              ``edge_score`` / ``hdrf_score`` launches those of the units
+              at and after the checkpoint's cursor; ``--io-retries 2`` on a
+              healthy stream changes nothing.
+19. profile   2PS-L at RMAT-14 with ``--torch-profile DIR --trace PATH`` in
+              a fresh process (beside the drill's): the span trace
+              validates, and the profiler's trace holds one
+              ``edge_score_bits_kernel`` record per counted launch.
+20. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
               4 relabelled copies of the RMAT-20 graph (~2.58M nodes,
               ~64.3M edges), ``prepare_tiles`` on the host, src and the
               edge mask bound once (``with_edges``, ``bind_s``),
@@ -142,26 +165,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               events beside the previous route (``previous_ms``), cuSPARSE's
               SpMM and without the hub split; the messages' sum also timed
               and checked on the bound route.
-18. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
+21. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
               ``InteractionStream`` histories (seq 100, ``hist_mask`` as
               the weights) at 512 and 65,536 bags, ``sum`` and ``mean``: a
               warm-up and 3 calls each, exactly one launch per call; timed
               by CUDA-graph replays beside the previous design and by
               events beside ``F.embedding_bag``; bounds on the touched
               rows, a row per lookup and the sectors each row spans.
-19. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
+22. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
               ``embedding_bag`` at 512 bags, on the card and on the CPU
               through the same op, within the kernels' tolerance.
-20. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
+23. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
               (2PS-L at RMAT-16; 2PS-HDRF, HDRF, Greedy, HEP at the
               default budget, 131,072 and 8,192 bytes, and buffered at
               RMAT-14);
               the card's busy share profiled over the first 2^18 (2PS-L)
-              or 2^15 edges.
-21. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
+              or 2^15 edges; and at RMAT-14 host-aware 2PS-L's artifact
+              (``--artifact-dir --local-graphs``: every sidecar byte-equal,
+              the manifests equal but for timings, stall report and
+              route) and a checkpoint written on the card, equal to the
+              CPU's and resumed on the CPU to the same bytes (and the
+              CPU's on the card).
+24. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
               host sync, rounds skipped when nothing is pending) against
               running its k+1 rounds unconditionally (2PS-L, RMAT-16).
-22. twopsl_scoring  2PS-L's scoring pass (``timings_s["scoring"]``) at
+25. twopsl_scoring  2PS-L's scoring pass (``timings_s["scoring"]``) at
               RMAT-16, flat and with 4 hosts, through
               ``edge_score_choose_bits`` and with the previous composition
               swapped in, new, previous, previous, new, byte-equal; and
@@ -178,6 +206,17 @@ of the repository, it exits non-zero and prints no result.
 
 rebuilds ``spmm.cu`` at each launch shape of ``SPMM_TUNE`` and times it on
 ``gnn_aggregate``'s graph (one JSON line each), and does nothing else.
+
+    python3 chip_smoke.py --resume-alone
+
+runs the ``resume`` phase's drill with one process at a time, nothing
+beside it (its save, restore and start-up times), and does nothing else.
+
+    python3 chip_smoke.py --partition-counted ARGS...
+
+runs the port's partition CLI on ``ARGS`` with the launch counters reset
+and prints its report and launches as one JSON line (the crash drill's
+processes).
 """
 from __future__ import annotations
 
@@ -2609,6 +2648,383 @@ def buffered_window_ops(path: str, k: int = 32) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the persistence and robustness layer: the artifact, the crash drill and the
+# torch.profiler hook
+# ---------------------------------------------------------------------------
+
+def trace_span_s(trace_path: str, names) -> dict:
+    """Seconds of the complete spans named ``names`` in a Chrome trace the
+    port's tracer wrote (``--trace``), summed by name, after checking the
+    document with ``obs.validate_chrome_trace``."""
+    from repro_torch import obs
+    with open(trace_path) as f:
+        doc = json.load(f)
+    obs.validate_chrome_trace(doc)
+    out = dict.fromkeys(names, 0.0)
+    for ev in doc["traceEvents"]:
+        if ev.get("ph") == "X" and ev["name"] in out:
+            out[ev["name"]] += ev["dur"] / 1e6
+    return out
+
+
+def _plans_equal(a, b, what: str) -> int:
+    """Every array field of two plans equal (dtype too), every scalar
+    equal; returns the number of arrays compared."""
+    import dataclasses
+    n = 0
+    for f in dataclasses.fields(a):
+        if f.name == "base":
+            continue
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray):
+            if va.dtype != vb.dtype or not np.array_equal(va, vb):
+                raise AssertionError(f"{what}: {f.name} differs")
+            n += 1
+        elif va != vb:
+            raise AssertionError(f"{what}: {f.name} {va} != {vb}")
+    return n
+
+
+def artifact_path(scale: int, tmp: str, k: int = 32, hosts: int = 4) -> dict:
+    """Host-aware 2PS-L through the CLI with ``--artifact-dir --local-graphs
+    --plan-json`` (and ``--trace``, which times the planning spans): one
+    ``edge_score`` launch per scoring chunk; then the artifact loaded with
+    verification, its halo and host plans held array for array to a fresh
+    ``plan_halo_exchange_stream`` and ``host_plan_from_halo``, every local
+    graph's ids to ``vmap_global[p]``, and one flipped byte of
+    ``halo_plan.npz`` refused with ``ArtifactIntegrityError``."""
+    from repro_torch.core import (MemmapEdgeStream, PartitionArtifact,
+                                  spec_for)
+    from repro_torch.dist import (host_plan_from_halo,
+                                  plan_halo_exchange_stream)
+    from repro_torch.robust import ArtifactIntegrityError
+    path, E = write_graph(scale, tmp)
+    art_dir = os.path.join(tmp, "artifact")
+    plan_json = os.path.join(tmp, "plan.json")
+    trace = os.path.join(tmp, "artifact_trace.json")
+    chunks = -(-E // spec_for("2psl").chunk_size)
+    (report, res), counts, wall = counted(lambda: run_cli(
+        ["--input", path, "--k", str(k), "--hosts", str(hosts),
+         "--dcn-penalty", "1.0", "--artifact-dir", art_dir,
+         "--local-graphs", "--plan-json", plan_json, "--trace", trace]))
+    checks = check_run(report, res, k, E)
+    expect_launches(counts, {"edge_score": chunks},
+                    "artifact (one edge_score per scoring chunk)")
+    by_entry = expect_bits_entry(chunks, "artifact", "edge_score")
+    spans = trace_span_s(trace, ("halo_plan", "host_plan", "local_graphs"))
+
+    t0 = time.perf_counter()
+    art = PartitionArtifact.load(art_dir)
+    load_s = time.perf_counter() - t0
+    plan, host = art.halo_plan(), art.host_halo_plan()
+    t0 = time.perf_counter()
+    fresh = plan_halo_exchange_stream(
+        MemmapEdgeStream(path), art.assignment, art.num_vertices, k)
+    fresh_plan_s = time.perf_counter() - t0
+    arrays = _plans_equal(plan, fresh, "halo plan")
+    arrays += _plans_equal(host, host_plan_from_halo(fresh, hosts),
+                           "host plan")
+    local_edges = 0
+    for p in range(k):
+        g = art.local_graph(p)
+        want = plan.vmap_global[p]
+        if not np.array_equal(g.vmap_global, want[want >= 0]):
+            raise AssertionError(f"local graph {p}: ids are not "
+                                 f"vmap_global[{p}]")
+        local_edges += g.num_edges
+    if local_edges != E:
+        raise AssertionError(f"local graphs hold {local_edges} edges")
+    with open(plan_json) as f:
+        book = json.load(f)
+    if (book["halo_plan"]["v_cap"] != plan.v_cap
+            or sum(p["num_edges"] for p in book["parts"]) != E):
+        raise AssertionError("--plan-json disagrees with the halo plan")
+    npz = os.path.join(art_dir, "halo_plan.npz")
+    with open(npz, "r+b") as f:
+        f.seek(os.path.getsize(npz) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        PartitionArtifact.load(art_dir)
+    except ArtifactIntegrityError:
+        refused = True
+    else:
+        raise AssertionError("a flipped byte of halo_plan.npz loads")
+    partition_s = sum(report["timings_s"].values())
+    return {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
+            "edges": E, "vertices": report["vertices"], "k": k,
+            "hosts": hosts, "dcn_penalty": 1.0, "cli_wall_s": wall,
+            "partition_s": partition_s, "halo_plan_s": spans["halo_plan"],
+            "host_plan_s": spans["host_plan"],
+            "local_graphs_s": spans["local_graphs"],
+            "save_and_rest_s": wall - partition_s - sum(spans.values()),
+            "load_verified_s": load_s, "fresh_plan_s": fresh_plan_s,
+            "timings_s": report["timings_s"],
+            "replication_factor": report["replication_factor"],
+            "cross_host_rf": report["cross_host_rf"],
+            "b_cap": report["b_cap"], "v_cap": report["v_cap"],
+            "host_plan": report["host_plan"],
+            "local_graphs": report["local_graphs"],
+            "plan_arrays_equal": arrays, "flipped_byte_refused": refused,
+            "edge_score_launches": counts["edge_score"],
+            "edge_score_launches_by_entry": by_entry,
+            "scoring_chunks": chunks, **checks}
+
+
+def partition_counted(argv) -> int:
+    """``--partition-counted ARGS``: the port's CLI on ``ARGS`` in this
+    process, every launch counter set to 0 just before; prints one JSON
+    line with its report, the launches by kernel and by entry, and its
+    wall.  The crash drill's processes (``cli_processes``)."""
+    (report, res), counts, wall = counted(lambda: run_cli(argv))
+    cs = counters()
+    emit({"report": report, "launches": counts, "wall_s": wall,
+          "by_entry": {n: dict(cs[n].by_entry)
+                       for n in ("edge_score", "hdrf_score")}})
+    return 0
+
+
+def start_cli_processes(jobs, tmp: str) -> list:
+    """Start every job — ``(argv, extra environment)`` — as ``chip_smoke.py
+    --partition-counted ARGV``, all at once, each logging to a file in
+    ``tmp``; ``wait_cli_processes`` collects them."""
+    procs = []
+    for argv, env_extra in jobs:
+        fd, name = tempfile.mkstemp(suffix=".log", dir=tmp)
+        log = os.fdopen(fd, "w+")
+        env = dict(os.environ, **env_extra)
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--partition-counted", *argv], stdout=log,
+            stderr=subprocess.STDOUT, text=True, env=env), log,
+            time.perf_counter()))
+    return procs
+
+
+def wait_cli_processes(procs, timeout: int = 600) -> list:
+    """Wait for processes ``start_cli_processes`` started (killing any left
+    on error): each one's exit code, its last JSON line (None when it
+    printed none) and its wall seconds."""
+    out = []
+    try:
+        for proc, log, t0 in procs:
+            rc = proc.wait(timeout=timeout)
+            wall = time.perf_counter() - t0
+            log.seek(0)
+            lines = [ln for ln in log.read().splitlines()
+                     if ln.startswith("{")]
+            out.append({"rc": rc, "wall_s": wall,
+                        "line": json.loads(lines[-1]) if lines else None,
+                        "tail": lines[-1:] if rc not in (0, 137)
+                        else None})
+    finally:
+        stop_cli_processes(procs)
+    return out
+
+
+def stop_cli_processes(procs) -> None:
+    """Kill whichever of the processes still runs and close their logs."""
+    for proc, log, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def cli_processes(jobs, tmp: str, alone: bool = False) -> list:
+    """Run the jobs at once (``start_cli_processes``) and wait for all;
+    with ``alone``, one after another, each process alone on the card."""
+    if alone:
+        return [r for job in jobs
+                for r in wait_cli_processes(start_cli_processes([job], tmp))]
+    return wait_cli_processes(start_cli_processes(jobs, tmp))
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 22), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def launches_per_chunk(name: str, E: int, chunk: int, window: int) -> list:
+    """Each pass's launches per engine unit (chunk, or buffered's window) at
+    this geometry: 2PS-L one ``edge_score`` per scoring chunk, HDRF one
+    ``hdrf_score`` per non-empty 64-edge micro-batch, buffered one
+    ``edge_score`` per non-empty 1,024-edge sub-batch.  The clean run's
+    count checks it."""
+    unit = chunk * window
+    sizes = [min(unit, E - lo) for lo in range(0, E, unit)]
+    if name == "2psl":
+        return [[0] * len(sizes), [1] * len(sizes)]
+    sub = 64 if name == "hdrf" else 1024
+    return [[-(-n // sub) for n in sizes]]
+
+
+#: the crash drill's runs: (algorithm, RMAT scale, kernel, extra flags).
+#: Each is cut so that the drill's second checkpoint (every 2 chunks or
+#: windows) lands inside the pass that launches: 2PS-L in three chunks a
+#: pass, HDRF in 32,768-edge chunks, buffered in 32,768-edge windows.
+DRILL = (("2psl", 16, "edge_score", None),
+         ("hdrf", 14, "hdrf_score", ["--chunk-size", "32768"]),
+         ("buffered", 14, "edge_score",
+          ["--chunk-size", "16384", "--buffer-edges", "32768"]))
+
+
+def resume_path(tmp: str, k: int = 32, alone: bool = False) -> dict:
+    """The crash drill through the CLI, each algorithm of ``DRILL`` in
+    processes of its own (the three at once at each step, or with
+    ``alone`` one process at a time): a clean run;
+    ``--checkpoint-every 2`` with ``REPRO_CRASH_AFTER_CHECKPOINTS=2``, which
+    must exit 137; ``--resume``, whose ``assignment.bin`` must have the
+    clean run's sha256 and whose launches must be the clean run's for the
+    units at and after the checkpoint's cursor in the pass in flight, and
+    all of the later passes'.  Beside them, ``--io-retries 2`` on a healthy
+    stream: no retry, the same bytes."""
+    from repro_torch.robust import load_engine_checkpoint
+    runs = []
+    for name, scale, kernel, extra in DRILL:
+        path, E = write_graph(scale, tmp)
+        if extra is None:       # three chunks a pass, 1,024-edge aligned
+            extra = ["--chunk-size", str(1024 * -(-E // 3072))]
+        base = ["--input", path, "--k", str(k), "--algorithm", name,
+                *extra, "--no-plan"]
+        runs.append({"name": name, "scale": scale, "kernel": kernel,
+                     "E": E, "base": base, "dir": os.path.join(tmp, name)})
+
+    def step(tag, flags, env):
+        return cli_processes(
+            [(r["base"] + ["--artifact-dir", f"{r['dir']}_{tag}", *flags],
+              env) for r in runs], tmp, alone)
+
+    retries_out = os.path.join(tmp, "retries.bin")
+    first = cli_processes(
+        [(r["base"] + ["--artifact-dir", f"{r['dir']}_clean"], {})
+         for r in runs]
+        + [(runs[0]["base"][:-1] + ["--out", retries_out,
+                                    "--io-retries", "2"], {})], tmp, alone)
+    crash = step("drill", ["--checkpoint-every", "2"],
+                 {"REPRO_CRASH_AFTER_CHECKPOINTS": "2"})
+    metas = [load_engine_checkpoint(
+        os.path.join(f"{r['dir']}_drill", "checkpoints")).meta
+        for r in runs]
+    resumed = step("drill", ["--checkpoint-every", "2", "--resume"], {})
+    out = {}
+    for r, clean, cut, meta, res in zip(runs, first, crash, metas, resumed):
+        name, kernel = r["name"], r["kernel"]
+        if clean["rc"] or res["rc"]:
+            raise AssertionError(f"{name}: clean {clean}, resumed {res}")
+        if cut["rc"] != 137 or cut["line"] is not None:
+            raise AssertionError(f"{name}: the crash run exited "
+                                 f"{cut['rc']}, expected 137")
+        chunk = int(r["base"][r["base"].index("--chunk-size") + 1])
+        window = 1
+        if "--buffer-edges" in r["base"]:
+            buf = int(r["base"][r["base"].index("--buffer-edges") + 1])
+            window = -(-buf // chunk)
+        per = launches_per_chunk(name, r["E"], chunk, window)
+        n_clean = clean["line"]["launches"][kernel]
+        if n_clean != sum(map(sum, per)):
+            raise AssertionError(f"{name}: clean run launched {n_clean} "
+                                 f"{kernel}, expected {sum(map(sum, per))}")
+        pi, nxt = int(meta["pass_index"]), int(meta["next_chunk"])
+        want = sum(per[pi][nxt:]) + sum(map(sum, per[pi + 1:]))
+        got = res["line"]["launches"]
+        expect_launches(got, {kernel: want},
+                        f"{name} resumed at pass {pi}, unit {nxt}")
+        by = res["line"]["by_entry"][kernel]
+        if by != {"bits": want, "flags": 0}:
+            raise AssertionError(f"{name}: resumed launches by entry {by}")
+        sha_clean = _sha256(os.path.join(f"{r['dir']}_clean",
+                                         "assignment.bin"))
+        sha_res = _sha256(os.path.join(f"{r['dir']}_drill",
+                                       "assignment.bin"))
+        if sha_clean != sha_res:
+            raise AssertionError(f"{name}: resumed assignment differs")
+        rep = res["line"]["report"]
+        with open(os.path.join(f"{r['dir']}_drill", "manifest.json")) as f:
+            manifest = json.load(f)
+        if rep["resumes"] != 1 or manifest["extras"]["resumes"] != 1:
+            raise AssertionError(f"{name}: resumes not recorded")
+        saves = rep.get("checkpoints_written", 0)
+        out[name] = {
+            "graph": f"rmat_graph({r['scale']}, edge_factor=16, seed=0)",
+            "edges": r["E"], "k": k, "flags": r["base"][6:-1],
+            "cut_at": {"pass_index": pi, "next_chunk": nxt,
+                       "edge_lo": int(meta["edge_lo"])},
+            "clean_launches": n_clean, "resumed_launches": got[kernel],
+            "resumed_launches_expected": want, "sha256": sha_clean,
+            "clean_wall_s": clean["wall_s"], "crash_wall_s": cut["wall_s"],
+            "resume_wall_s": res["wall_s"],
+            "clean_timings_s": clean["line"]["report"]["timings_s"],
+            "resumed_timings_s": rep["timings_s"],
+            "resumed_checkpoints": saves,
+            "checkpoint_s_per_save":
+                rep["timings_s"].get("checkpoint", 0.0) / saves
+                if saves else "not measured"}
+    retry = first[-1]
+    if retry["rc"] or retry["line"]["report"]["io_retries"] != 0:
+        raise AssertionError(f"--io-retries on a healthy stream: {retry}")
+    if _sha256(retries_out) != out["2psl"]["sha256"]:
+        raise AssertionError("--io-retries changed the assignment")
+    out["io_retries"] = {"algorithm": "2psl", "io_retries": 0,
+                         "byte_equal": True, "wall_s": retry["wall_s"]}
+    return out
+
+
+def start_profile(tmp: str, scale: int = 14, k: int = 32) -> dict:
+    """Start the ``profile`` phase's process: 2PS-L through the CLI with
+    ``--torch-profile DIR --trace PATH`` in a fresh process (torch.profiler
+    drops kernel records late in a long one), beside the crash drill's."""
+    path, E = write_graph(scale, tmp)
+    run = {"scale": scale, "k": k, "E": E,
+           "prof": os.path.join(tmp, "torch_profile"),
+           "trace": os.path.join(tmp, "profile_trace.json")}
+    run["procs"] = start_cli_processes(
+        [(["--input", path, "--k", str(k), "--torch-profile", run["prof"],
+           "--trace", run["trace"]], {})], tmp)
+    return run
+
+
+def profile_path(run: dict) -> dict:
+    """The ``profile`` phase's checks, once ``start_profile``'s process
+    ends: the span trace validates, and the profiler's trace holds as many
+    ``edge_score_bits_kernel`` records as the launch counter counted."""
+    from repro_torch import obs
+    from repro_torch.core import spec_for
+    (res,) = wait_cli_processes(run["procs"])
+    if res["rc"] or res["line"] is None:
+        raise AssertionError(f"profiled run failed: {res}")
+    chunks = -(-run["E"] // spec_for("2psl").chunk_size)
+    counts = res["line"]["launches"]
+    expect_launches(counts, {"edge_score": chunks}, "profiled 2PS-L")
+    with open(run["trace"]) as f:
+        spans = obs.validate_chrome_trace(json.load(f))
+    with open(os.path.join(run["prof"], obs.TORCH_TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    recorded = sum("edge_score_bits_kernel" in e["name"] for e in kernels)
+    if recorded != counts["edge_score"]:
+        raise AssertionError(f"the profiler recorded {recorded} "
+                             f"edge_score_bits_kernel, the counter "
+                             f"{counts['edge_score']}")
+    busy_us = sum(e.get("dur", 0) for e in kernels)
+    wall = sum(res["line"]["report"]["timings_s"].values())
+    return {"graph": f"rmat_graph({run['scale']}, edge_factor=16, seed=0)",
+            "edges": run["E"], "k": run["k"],
+            "process_wall_s": res["wall_s"], "run_s": wall,
+            "edge_score_launches": counts["edge_score"],
+            "edge_score_kernel_records": recorded,
+            "kernel_records": len(kernels),
+            "profiled_device_busy_share": busy_us / 1e6 / wall,
+            "span_names": len(spans),
+            "critical_stage": res["line"]["report"]["critical_stage"]}
+
+
+# ---------------------------------------------------------------------------
 # the GNN aggregation and embedding pooling ops at ogb_products' and DIEN's
 # scale
 # ---------------------------------------------------------------------------
@@ -3154,6 +3570,94 @@ def card_vs_cpu(scale: int, name: str = "2psl", k: int = 32,
             else "not measured"}
 
 
+def artifact_card_vs_cpu(scale: int, k: int = 32, hosts: int = 4) -> dict:
+    """Host-aware 2PS-L through the CLI with ``--artifact-dir
+    --local-graphs`` on the card and on the CPU: every sidecar byte-equal,
+    the manifests equal but for the timings, the stall report and the
+    route; then a run checkpointing every 3 chunks on each device, their
+    latest checkpoints (inside the scoring pass) equal array for array,
+    and the card's resumed on the CPU and the CPU's on the card, both to
+    the uninterrupted bytes."""
+    from repro_torch.core import MemmapEdgeStream, run_spec, spec_for
+    from repro_torch.robust import load_engine_checkpoint
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path, E = write_graph(scale, tmp)
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            run_cli(["--input", path, "--k", str(k), "--hosts", str(hosts),
+                     "--dcn-penalty", "1.0", "--local-graphs",
+                     "--artifact-dir", os.path.join(tmp, dev),
+                     "--device", dev])
+            out[f"artifact_{dev}_wall_s"] = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(tmp, "cuda")))
+        if files != sorted(os.listdir(os.path.join(tmp, "cpu"))):
+            raise AssertionError("card and CPU artifacts hold other files")
+        for name in files:
+            if name == "manifest.json":
+                continue
+            if (_sha256(os.path.join(tmp, "cuda", name))
+                    != _sha256(os.path.join(tmp, "cpu", name))):
+                raise AssertionError(f"card vs cpu: {name} differs")
+        manifests = []
+        for dev in ("cuda", "cpu"):
+            with open(os.path.join(tmp, dev, "manifest.json")) as f:
+                m = json.load(f)
+            m.pop("timings_s")
+            m.pop("stall_report")
+            m["extras"].pop("kernel_backend")
+            manifests.append(m)
+        if manifests[0] != manifests[1]:
+            raise AssertionError("card vs cpu: the manifests differ")
+        out["artifact_files_byte_equal"] = len(files) - 1
+
+        # 16,384-edge chunks: at RMAT-14 fourteen a pass, so the latest
+        # checkpoint (every 3) sits inside the scoring pass
+        spec = spec_for("2psl", chunk_size=1 << 14, host_groups=hosts,
+                        dcn_penalty=1.0)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            runs[dev] = run_spec(
+                spec, MemmapEdgeStream(path), k, device=dev,
+                checkpoint_every_chunks=3,
+                checkpoint_dir=os.path.join(tmp, f"ck_{dev}"))
+        cks = {dev: load_engine_checkpoint(os.path.join(tmp, f"ck_{dev}"))
+               for dev in runs}
+        a, b = cks["cuda"], cks["cpu"]
+        if a.meta != b.meta or a.meta["pass_index"] != 1:
+            raise AssertionError(f"checkpoint meta {a.meta} vs {b.meta}")
+        for group in ("device_state", "host_state"):
+            ga, gb = getattr(a, group), getattr(b, group)
+            if sorted(ga) != sorted(gb) or any(
+                    ga[key].dtype != gb[key].dtype
+                    or ga[key].tobytes() != gb[key].tobytes()
+                    for key in ga):
+                raise AssertionError(f"card vs cpu checkpoint: {group}")
+        clean = runs["cpu"].assignment.tobytes()
+        if runs["cuda"].assignment.tobytes() != clean:
+            raise AssertionError("checkpointed card run differs")
+        for src, dev in (("cuda", "cpu"), ("cpu", "cuda")):
+            res = run_spec(spec, MemmapEdgeStream(path), k, device=dev,
+                           resume_from=os.path.join(tmp, f"ck_{src}"))
+            if res.assignment.tobytes() != clean:
+                raise AssertionError(f"{src} checkpoint resumed on {dev} "
+                                     f"differs")
+        card = runs["cuda"]
+        out.update({
+            "graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
+            "edges": E, "k": k, "hosts": hosts,
+            "checkpoint_cut": {key: a.meta[key] for key in
+                               ("pass_index", "next_chunk", "edge_lo")},
+            "checkpoint_arrays_equal": len(a.device_state)
+            + len(a.host_state),
+            "card_checkpoints": card.extras["checkpoints_written"],
+            "card_checkpoint_s_per_save":
+                card.timings["checkpoint"]
+                / card.extras["checkpoints_written"],
+            "resumed_both_ways_byte_equal": True})
+    return out
+
+
 def least_loaded_rounds(scale: int, k: int = 32) -> dict:
     """The port's overflow tail (one ``.any()`` host sync that skips the
     rounds when nothing is pending) against running the k+1 rounds
@@ -3367,22 +3871,37 @@ def main(argv=None) -> int:
                     help="only time the spmm bound route's launch shapes "
                          "(SPMM_TUNE) on gnn_aggregate's graph and print "
                          "one line each")
+    ap.add_argument("--resume-alone", action="store_true",
+                    help="only run the resume phase's crash drill with one "
+                         "process on the card at a time, for its times, "
+                         "and print its line")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
                          "equal calls and print {\"ms\": ...} (the "
                          "process gru_split_library starts)")
-    args = ap.parse_args(argv)
+    argv = sys.argv[1:] if argv is None else argv
+    counted_cli = argv[:1] == ["--partition-counted"]
+    args = ap.parse_args([] if counted_cli else argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if counted_cli:
+        sys.path.insert(0, os.path.join(REPO, "src"))
+        return partition_counted(argv[1:])
     if args.gru_library:
         batch, split, reps = args.gru_library
         emit({"ms": gru_library_ms(batch, reps=reps, split=split)})
         return 0
     sys.path.insert(0, os.path.join(REPO, "src"))
+    if args.resume_alone:
+        print(nvidia_smi(), flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            emit({"phase": "resume", "alone": True,
+                  **resume_path(tmp, alone=True)})
+        return 0
     if args.spmm_tune:
         print(nvidia_smi(), flush=True)
         with tempfile.TemporaryDirectory() as tmp:
@@ -3476,6 +3995,18 @@ def main(argv=None) -> int:
         emit({"phase": "hep", **hep_path(min(args.scale, 19), tmp)})
         bp_run = buffered_path(min(args.scale, 18), tmp)
         emit({"phase": "buffered", **bp_run})
+        ap_run = artifact_path(min(args.scale, 18), tmp)
+        emit({"phase": "artifact", **ap_run})
+        # the profiled process runs beside the crash drill's
+        profiling = start_profile(tmp, min(args.scale, 14))
+        try:
+            rp_run = resume_path(tmp)
+        except BaseException:
+            stop_cli_processes(profiling["procs"])
+            raise
+        emit({"phase": "resume", **rp_run})
+        pp_run = profile_path(profiling)
+        emit({"phase": "profile", **pp_run})
         ga = gnn_aggregate(min(args.scale, 20), tmp)
         emit({"phase": "gnn_aggregate", **ga})
     bp = bag_pool()
@@ -3493,7 +4024,9 @@ def main(argv=None) -> int:
                                ("hep", {"memory_budget_bytes":
                                         HEP_SMALL_BUDGET}),
                                ("hep", {"memory_budget_bytes": 8192}),
-                               ("buffered", {}))]})
+                               ("buffered", {}))],
+          "artifact_and_checkpoint": artifact_card_vs_cpu(
+              min(args.scale, 14))})
     emit({"phase": "least_loaded_rounds",
           **least_loaded_rounds(min(args.scale, 16))})
     emit({"phase": "twopsl_scoring", **twopsl_scoring(min(args.scale, 16))})
@@ -3518,6 +4051,10 @@ def main(argv=None) -> int:
         "launches": paths["edge_score"],
         "launches_by_entry": mp["edge_score_launches_by_entry"],
         "launches_buffered": bp_run["edge_score_launches"],
+        "launches_artifact": ap_run["edge_score_launches"],
+        "launches_resumed": {n: rp_run[n]["resumed_launches"]
+                             for n in ("2psl", "buffered")},
+        "launches_profile": pp_run["edge_score_launches"],
         "max_abs_err": max(check["max_abs_err"], e_bits["max_abs_err"]),
         "ms": timing["ms"], "previous_ms": timing["previous_ms"],
         "flags_ms": timing["flags_ms"], "plain_ms": timing["plain_ms"],
@@ -3532,6 +4069,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/hdrf_score/kernel.py:72",
         "launches": paths["hdrf_score"],
         "launches_by_entry": hp["hdrf_launches_by_entry"],
+        "launches_resumed": {"hdrf": rp_run["hdrf"]["resumed_launches"]},
         "max_abs_err": max(h_check["max_abs_err"], h_bits["max_abs_err"],
                            *(c["max_abs_err"] for c in h_wide.values())),
         "ms": h_timing["bits_ms"],

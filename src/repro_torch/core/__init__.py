@@ -4,9 +4,12 @@ The same declarative ``PartitionerSpec``s, executed by one streaming engine
 (``run_spec``) whose device state lives in torch tensors — on the card by
 default, on the CPU when asked.  Every registered spec runs (``PORTED`` is
 the whole registry): 2PS-L and 2PS-HDRF (flat and host-aware), HDRF and
-Greedy, DBH, Grid and Random, HEP and buffered re-streaming.  The ``run_*``
-/ ``PARTITIONERS`` entry points are shims over ``run_spec``.
+Greedy, DBH, Grid and Random, HEP and buffered re-streaming.  A run
+persists as a ``PartitionArtifact`` in the reference's format (manifest v4,
+halo and host plans, local graphs).  The ``run_*`` / ``PARTITIONERS`` entry
+points are shims over ``run_spec``.
 """
+from .artifact import ASSIGNMENT_FILE, PartitionArtifact
 from .clustering import (ClusteringResult, cluster_in_memory_scan,
                          cluster_sequential, default_max_vol,
                          streaming_clustering)
@@ -45,4 +48,5 @@ __all__ = [
     "StreamingPartitioner", "StreamPass", "build_partitioner", "PORTED",
     "run_spec",
     "compute_degrees_streaming", "resolve_device",
+    "ASSIGNMENT_FILE", "PartitionArtifact",
 ]

@@ -279,3 +279,10 @@ class _BufferedPartitioner(StreamingPartitioner):
         }
         return (words_to_numpy(state["bits"]), state["sizes"].cpu().numpy(),
                 extras)
+
+    # -- checkpoint / resume --------------------------------------------
+    # everything lives in the device state (the window tables included:
+    # the next window rewrites the rows it reads); the window geometry
+    # re-derives from the spec, so resume needs no stream sweep at all
+    def init_for_resume(self, stream, k, timer):
+        self._setup_run(stream, k)

@@ -33,12 +33,22 @@ assignments**: the chunk functions run in stream order on identical
 inputs; pipelining only defers when results are copied off the device.
 
 On the CPU (``device="cpu"``) the same code runs synchronously, with the
-kernels' plain versions.  Checkpoint/resume, retrying streams and shard
-merging are not ported yet; ``run_spec`` raises if they are asked for.
+kernels' plain versions.
+
+Checkpoint/resume follows the reference engine's protocol and layout
+(``repro_torch.robust.checkpoint``): every ``checkpoint_every_chunks``
+dispatched chunks the pipeline drains — every in-flight writeback waits on
+its copy's event and the device is synchronized — and the state dict goes
+to disk through ``convert.state_to_numpy`` (word matrices as the
+reference's uint32), beside the partitioner's ``host_state`` and the
+cursor.  A resumed run restores it with ``convert.state_to_torch`` and
+replays the remaining chunks into identical assignments, whichever of the
+two packages wrote the checkpoint.  Shard merging is not ported yet.
 """
 from __future__ import annotations
 
 import math
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -51,7 +61,8 @@ from ..obs import (PipelineStallReport, StallClock, get_registry,
                    get_tracer, use_registry, use_tracer)
 from . import bitops, partitioning as P
 from .clustering import streaming_clustering
-from .convert import words_to_numpy, words_to_torch
+from .convert import (state_to_numpy, state_to_torch, words_to_numpy,
+                      words_to_torch)
 from .mapping import map_clusters_lpt
 from .metrics import (PartitionQuality, capacity,
                       cross_host_replication_factor, host_assignment,
@@ -124,9 +135,15 @@ class _Timer:
         self.t[name] = self.t.get(name, 0.0) + seconds
 
 
-def _alloc_assignment(num_edges: int, out_path: str | None):
+def _alloc_assignment(num_edges: int, out_path: str | None,
+                      resume: bool = False):
     if out_path is None:
         return np.full(num_edges, -1, np.int32)
+    if resume and os.path.exists(out_path):
+        # a resumed run re-opens the partial assignment in place; every
+        # row at or beyond the checkpointed cursor is rewritten by replay
+        return np.memmap(out_path, dtype=np.int32, mode="r+",
+                         shape=(num_edges,))
     mm = np.memmap(out_path, dtype=np.int32, mode="w+", shape=(num_edges,))
     mm[:] = -1
     return mm
@@ -143,6 +160,24 @@ def _assignment_writer(dest):
         dest[lo:lo + n] = asg_np
         return int((asg_np >= 0).sum())
     return write_rows
+
+
+def _nbytes(arr) -> int:
+    if isinstance(arr, torch.Tensor):
+        return arr.numel() * arr.element_size()
+    return int(np.asarray(arr).nbytes)
+
+
+def _set_replication_gauge(part, metrics, bits) -> None:
+    """Refresh ``engine.replication_state_bytes``: budgeted partitioners
+    (HEP) report their pinned footprint; everyone else the size of
+    ``bits``, the replication bit matrix currently resident (the finalized
+    matrix at finalize; on resume restore the device's, or the host-folded
+    copy when the pass folds it on the host)."""
+    resident = part.replication_state_bytes()
+    if resident is None:
+        resident = _nbytes(bits) if bits is not None else 0
+    metrics.gauge("engine.replication_state_bytes").set(int(resident))
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +221,9 @@ class StreamPass:
     host_fold: Callable[[np.ndarray, np.ndarray], None] | None = None
     #: chunk regrouping factor: the engine feeds this pass windows of
     #: ``window * spec.chunk_size`` edges per ``chunk_fn`` call (buffered
-    #: re-streaming's edge buffer); the pipeline and writeback count these
-    #: windows.
+    #: re-streaming's edge buffer).  The pipeline, writeback, and
+    #: checkpoint cursor all count these regrouped windows, so checkpoints
+    #: land exactly at window boundaries.
     window: int = 1
 
 
@@ -226,6 +262,32 @@ class StreamingPartitioner:
     def finalize(self, state: dict, pass_counts: dict) -> tuple:
         """-> (bits (uint32 numpy), sizes (numpy), extras)."""
         raise NotImplementedError
+
+    # -- checkpoint / resume protocol (repro_torch.robust) ---------------
+    # The engine checkpoints the device-state dict generically; these three
+    # hooks cover what lives OUTSIDE it: host-folded arrays (bit matrices,
+    # hash-family sizes) and the metadata init_state derived from its
+    # prologue sweeps (clustering tables, degrees).  A resumed run calls
+    # ``init_for_resume`` (cheap scalar setup — no stream sweeps) followed
+    # by ``restore_host_state``; the device state is then restored from
+    # the checkpoint wholesale, so identity never depends on re-running
+    # the prologue.
+
+    def host_state(self) -> dict:
+        """Host-side numpy arrays the engine must checkpoint beyond the
+        device state dict (default: none)."""
+        return {}
+
+    def restore_host_state(self, arrays: dict) -> None:
+        pass
+
+    def init_for_resume(self, stream: EdgeStream, k: int,
+                        timer: _Timer) -> None:
+        """Set up scalar attributes without the streaming prologue.  The
+        fallback re-runs ``init_state`` (deterministic, so still identical
+        — just not free); partitioners with stream-sweeping prologues
+        override to skip them."""
+        self.init_state(stream, k, timer, None)
 
     def replication_state_bytes(self) -> int | None:
         """Bytes of replication state kept resident for scoring.  ``None``
@@ -303,6 +365,38 @@ class _TwoPSLPartitioner(StreamingPartitioner):
                            host_fold=self._fold_bits_host),
                 StreamPass("scoring", self._score, merge=True,
                            setup=self._upload_bits)]
+
+    def host_state(self):
+        # the clustering/mapping tables init_state derives from its two
+        # prologue sweeps ride along so resume never re-streams the graph
+        d = {"bits": self._bits_np,
+             "clus_v2c": self._clus.v2c, "clus_vol": self._clus.vol,
+             "clus_degrees": self._clus.degrees,
+             "clus_max_vol": np.asarray(self._clus.max_vol),
+             "part_vol": np.asarray(self._part_vol)}
+        if self._track_hbits:
+            d["hbits"] = self._hbits_np
+        return d
+
+    def restore_host_state(self, arrays):
+        from .clustering import ClusteringResult
+        self._bits_np = np.ascontiguousarray(arrays["bits"])
+        if self._track_hbits:
+            self._hbits_np = np.ascontiguousarray(arrays["hbits"])
+        self._clus = ClusteringResult(
+            v2c=arrays["clus_v2c"], vol=arrays["clus_vol"],
+            degrees=arrays["clus_degrees"],
+            max_vol=int(arrays["clus_max_vol"]))
+        self._part_vol = arrays["part_vol"]
+
+    def init_for_resume(self, stream, k, timer):
+        sp = self.spec
+        self.k, self.cap = k, capacity(stream.num_edges, k, sp.alpha)
+        self._num_edges = stream.num_edges
+        self._init_hierarchy(k)
+        self._track_hbits = self.hosted and sp.scoring == "2psl"
+        if self.num_hosts:
+            self._host_of_np = host_assignment(k, self.num_hosts)
 
     def _prepartition(self, st, pc):
         _, asg, _ = P._prepartition_core(
@@ -383,6 +477,13 @@ class _HDRFPartitioner(StreamingPartitioner):
     def passes(self):
         return [StreamPass("scoring", self._chunk)]
 
+    def init_for_resume(self, stream, k, timer):
+        # everything HDRF carries lives in the device state — skip the
+        # O(|V|*k) bit-matrix allocation init_state would throw away
+        self.k = k
+        self.cap = capacity(stream.num_edges, k, self.spec.alpha)
+        self._init_hierarchy(k)
+
     def _chunk(self, st, pc):
         sp = self.spec
         *_, asg = P._hdrf_chunk(
@@ -437,6 +538,19 @@ class _HashPartitioner(StreamingPartitioner):
     def finalize(self, state, pass_counts):
         return self._bits_np, self._sizes_np, {}
 
+    def host_state(self):
+        return {"bits": self._bits_np, "sizes": self._sizes_np}
+
+    def restore_host_state(self, arrays):
+        self._bits_np = np.ascontiguousarray(arrays["bits"])
+        self._sizes_np = np.ascontiguousarray(arrays["sizes"])
+
+    def init_for_resume(self, stream, k, timer):
+        # DBH's degrees live in the device state ("d"), so even it skips
+        # its prologue sweep here
+        self.k = k
+        self._init_hierarchy(k)
+
 
 class _DBHPartitioner(_HashPartitioner):
     def init_state(self, stream, k, timer, degrees):
@@ -455,12 +569,19 @@ class _DBHPartitioner(_HashPartitioner):
 
 
 class _GridPartitioner(_HashPartitioner):
-    def init_state(self, stream, k, timer, degrees):
+    def _grid_shape(self, k):
         rows = math.isqrt(k)
         while k % rows:
             rows -= 1
         self.rows, self.cols = rows, k // rows
+
+    def init_state(self, stream, k, timer, degrees):
+        self._grid_shape(k)
         return super().init_state(stream, k, timer, degrees)
+
+    def init_for_resume(self, stream, k, timer):
+        self._grid_shape(k)
+        super().init_for_resume(stream, k, timer)
 
     def _hash_chunk(self, st, pc):
         return P._grid_chunk(pc.edges, pc.valid, k=self.k, rows=self.rows,
@@ -502,10 +623,10 @@ def build_partitioner(spec: PartitionerSpec,
 # the one driver
 # ---------------------------------------------------------------------------
 
-def _traced_chunks(it, tracer, stall):
+def _traced_chunks(it, tracer, stall, start=0):
     """Wrap the raw chunk iterator so each read/decode is credited to the
     prefetch stage *on whatever thread runs it*."""
-    i = 0
+    i = start
     while True:
         t0 = time.perf_counter()
         try:
@@ -524,9 +645,14 @@ _STREAM_END = object()
 
 @dataclass
 class _PassResult:
+    """One pipelined sweep's outcome: the end state plus the cursors and
+    host-time split the caller folds into timings and checkpoint meta."""
     state: dict
     assigned: int      # rows this sweep assigned (pass-count delta)
+    lo: int            # next assignment row
+    next_chunk: int    # next chunk index
     wb_host: float     # host-side writeback seconds
+    ckpt_host: float   # checkpoint-save seconds (drain included)
 
 
 def _to_host_async(asg: torch.Tensor):
@@ -542,13 +668,21 @@ def _to_host_async(asg: torch.Tensor):
 
 
 def _run_pass_pipeline(sp, state, stream, *, chunk_size, depth, device,
-                       tracer, metrics, stall, write_rows):
+                       tracer, metrics, stall, write_rows, first_chunk=0,
+                       first_lo=0, assigned0=0, ckpt_every=None,
+                       save_state=None, pass_index=0):
     """Drive one ``StreamPass``'s read -> dispatch -> writeback pipeline
-    over the whole stream."""
+    over ``stream``'s chunks from ``first_chunk`` to the stream end.
+
+    ``write_rows(lo, n, asg_np, merge) -> assigned`` is the assignment
+    sink; ``save_state(next_chunk, state, lo, assigned)`` persists a
+    checkpoint after the pipeline drains (every ``ckpt_every`` chunks).
+    """
     inflight: deque = deque()   # (lo, chunk_np, n, host asg, event, index)
-    assigned = 0
-    lo = 0
-    wb_host = 0.0
+    assigned = assigned0
+    lo = first_lo
+    wb_host = 0.0               # host-side writeback seconds this sweep
+    ckpt_host = 0.0             # checkpoint-save seconds this sweep
 
     inflight_gauge = metrics.gauge("engine.chunks_in_flight")
     edges_ctr = metrics.counter("engine.edges_streamed")
@@ -576,9 +710,26 @@ def _run_pass_pipeline(sp, state, stream, *, chunk_size, depth, device,
         writeback_hist.observe(t2 - t0)
         wb_host += t2 - t1
 
-    it = prefetch(_traced_chunks(stream.iter_chunks(chunk_size), tracer,
-                                 stall), readahead=depth - 1)
-    ci = 0
+    def _save_checkpoint(next_chunk):
+        nonlocal ckpt_host
+        t0 = time.perf_counter()
+        # consistency barrier: every in-flight copy lands (and is written
+        # and folded) and the device finishes the state updates, so the
+        # state, the assignment rows below ``lo`` and the cursor agree
+        while inflight:
+            _writeback()
+        _synchronize(device)
+        save_state(int(next_chunk), state, lo, assigned)
+        dt = time.perf_counter() - t0
+        ckpt_host += dt
+        tracer.complete("checkpoint", "robust", dt, pass_index=pass_index,
+                        next_chunk=int(next_chunk))
+        metrics.counter("engine.checkpoints").inc()
+
+    raw = stream.iter_chunks_from(chunk_size, first_chunk)
+    it = prefetch(_traced_chunks(raw, tracer, stall, start=first_chunk),
+                  readahead=depth - 1)
+    ci = first_chunk
     try:
         with tracer.span(f"pass:{sp.phase}", cat="engine",
                          depth=depth, merge=sp.merge):
@@ -606,6 +757,9 @@ def _run_pass_pipeline(sp, state, stream, *, chunk_size, depth, device,
                 ci += 1
                 while len(inflight) >= depth:
                     _writeback()
+                if ckpt_every and save_state is not None \
+                        and ci % ckpt_every == 0:
+                    _save_checkpoint(ci)
             while inflight:
                 _writeback()
             tdr = time.perf_counter()
@@ -616,7 +770,8 @@ def _run_pass_pipeline(sp, state, stream, *, chunk_size, depth, device,
     finally:
         if hasattr(it, "close"):
             it.close()              # joins the prefetch thread on error
-    return _PassResult(state=state, assigned=assigned, wb_host=wb_host)
+    return _PassResult(state=state, assigned=assigned, lo=lo,
+                       next_chunk=ci, wb_host=wb_host, ckpt_host=ckpt_host)
 
 
 def run_spec(spec: PartitionerSpec, stream: EdgeStream, k: int, *,
@@ -644,51 +799,146 @@ def run_spec(spec: PartitionerSpec, stream: EdgeStream, k: int, *,
         res.quality.replication_factor   # the paper's RF
         res.extras["kernel_backend"]     # 'cuda'
 
-    ``retry_policy`` and the checkpoint arguments belong to the robustness
-    layer, which is not ported yet: passing any of them raises.
+    Robustness (``repro_torch.robust``, guide: docs/robustness.md):
+
+    * ``retry_policy`` (``RetryPolicy``) wraps the stream in a validating
+      ``ResilientStream`` — every chunk read (degree pass, clustering and
+      all partitioning passes) is checked against the stream geometry and
+      retried with bounded backoff; recoveries land in
+      ``engine.io_retries`` and ``extras['io_retries']``.
+    * ``checkpoint_every_chunks=N`` (requires ``checkpoint_dir``) drains
+      the pipeline every N dispatched chunks and atomically snapshots the
+      engine's O(|V|) pass state plus the chunk cursor.
+    * ``resume_from=dir`` restarts from the latest checkpoint in ``dir``
+      (a fresh run when the directory holds none) and replays the
+      remaining chunks into identical final assignments;
+      ``extras['resumes']`` counts the lineage's resumes.  Memmap runs
+      must pass the same ``out_path`` — the partial assignment is
+      re-opened in place, never copied into the checkpoint.
     """
-    if (retry_policy is not None or checkpoint_every_chunks is not None
-            or checkpoint_dir is not None or resume_from is not None):
-        raise NotImplementedError(
-            "retry_policy and checkpoint/resume are not ported to "
-            "repro_torch yet: see ROADMAP.md Queue 1, item 8")
+    if checkpoint_every_chunks is not None:
+        if checkpoint_every_chunks < 1:
+            raise ValueError("checkpoint_every_chunks must be >= 1")
+        if checkpoint_dir is None:
+            raise ValueError("checkpoint_every_chunks requires "
+                             "checkpoint_dir")
     device = resolve_device(device)
+    if retry_policy is not None:
+        from ..robust.faults import ResilientStream
+        stream = ResilientStream(stream, retry_policy)
     part = build_partitioner(spec, device)
     tracer = get_tracer() if tracer is None else tracer
     metrics = get_registry() if metrics is None else metrics
     with use_tracer(tracer), use_registry(metrics):
         return _run_spec_traced(spec, part, stream, k, out_path, degrees,
-                                tracer, metrics, device)
+                                tracer, metrics, device,
+                                checkpoint_every_chunks, checkpoint_dir,
+                                resume_from)
 
 
 def _run_spec_traced(spec, part, stream, k, out_path, degrees, tracer,
-                     metrics, device):
+                     metrics, device, ckpt_every=None, ckpt_dir=None,
+                     resume_from=None):
     timer = _Timer()
-    with tracer.span("init", cat="engine", algorithm=spec.algorithm, k=k):
-        state = part.init_state(stream, k, timer, degrees)
-    assignment = _alloc_assignment(stream.num_edges, out_path)
+    ckpt = None
+    if resume_from is not None:
+        from ..robust import checkpoint as _ck
+        ckpt = _ck.load_engine_checkpoint(resume_from)
+        if ckpt is not None:
+            _ck.check_compatible(ckpt.meta, spec, stream, k, out_path)
+    if ckpt is not None:
+        with tracer.span("resume", cat="engine", algorithm=spec.algorithm,
+                         pass_index=int(ckpt.meta["pass_index"]),
+                         next_chunk=int(ckpt.meta["next_chunk"])):
+            part.init_for_resume(stream, k, timer)
+            part.restore_host_state(ckpt.host_state)
+            state = state_to_torch(ckpt.device_state, device)
+        assignment = _alloc_assignment(stream.num_edges, out_path,
+                                       resume=True)
+        if ckpt.assignment is not None:
+            assignment[:] = ckpt.assignment
+        timer.lap("resume")
+        metrics.counter("engine.resumes").inc()
+        # restoring mid-run state re-establishes the O(|V|) footprint the
+        # gauge advertises — a resumed process must not report 0
+        bits = state.get("bits") if isinstance(state, dict) else None
+        if bits is None:
+            bits = part.host_state().get("bits")
+        _set_replication_gauge(part, metrics, bits)
+    else:
+        with tracer.span("init", cat="engine", algorithm=spec.algorithm,
+                         k=k):
+            state = part.init_state(stream, k, timer, degrees)
+        assignment = _alloc_assignment(stream.num_edges, out_path)
     depth = spec.pipeline_depth
     edges_ctr = metrics.counter("engine.edges_streamed")
 
-    pass_counts: dict[str, int] = {}
+    resumes = int(ckpt.meta["resumes"]) + 1 if ckpt is not None else 0
+    checkpoints_written = 0
+    start_pass = int(ckpt.meta["pass_index"]) if ckpt is not None else 0
+    pass_counts: dict[str, int] = (
+        {kk: int(v) for kk, v in ckpt.meta["pass_counts"].items()}
+        if ckpt is not None else {})
     pass_stalls = []
     passes_wall = 0.0
     write_rows = _assignment_writer(assignment)
-    for sp in part.passes():
-        if sp.setup is not None:
+    for pi, sp in enumerate(part.passes()):
+        if pi < start_pass:
+            continue                # completed before the checkpoint
+        resuming_here = ckpt is not None and pi == start_pass
+        # the checkpointed device state is post-setup for the pass in
+        # flight (2PS-L's scoring pass: the bits it uploaded and has been
+        # folding since), so setup must not run again on resume
+        if sp.setup is not None and not resuming_here:
             with tracer.span("setup", cat="engine", phase=sp.phase):
                 state = sp.setup(state)
         stall = StallClock()
+
+        def _save_state(next_chunk, st, lo, assigned, *, _pi=pi):
+            nonlocal checkpoints_written
+            from ..robust import checkpoint as _ck
+            if isinstance(assignment, np.memmap):
+                assignment.flush()
+                asg_copy = None
+            else:
+                asg_copy = np.array(assignment, copy=True)
+            meta = {"spec_hash": _ck.spec_hash(spec),
+                    "algorithm": spec.algorithm, "k": int(k),
+                    "num_edges": int(stream.num_edges),
+                    "num_vertices": int(stream.num_vertices),
+                    "chunk_size": int(spec.chunk_size),
+                    "pass_index": _pi, "next_chunk": int(next_chunk),
+                    "edge_lo": int(lo), "assigned": int(assigned),
+                    "pass_counts": dict(pass_counts),
+                    "resumes": resumes,
+                    "assignment_in_checkpoint": asg_copy is not None}
+            _ck.save_engine_checkpoint(ckpt_dir, _ck.EngineCheckpoint(
+                meta=meta, device_state=state_to_numpy(st),
+                host_state=part.host_state(), assignment=asg_copy))
+            checkpoints_written += 1
+            _ck.crash_after_checkpoints(checkpoints_written)
+
         # buffered re-streaming regroups the stream into windows of
-        # ``window`` engine chunks: the pass streams and pads in those units
+        # ``window`` engine chunks: the pass streams and pads in those
+        # units, and every cursor (checkpointing included) counts them, so
+        # a resumed run replays from the identical window boundary
         eff_chunk = spec.chunk_size * max(1, int(sp.window))
         pr = _run_pass_pipeline(
             sp, state, stream, chunk_size=eff_chunk, depth=depth,
             device=device, tracer=tracer, metrics=metrics, stall=stall,
-            write_rows=write_rows)
+            write_rows=write_rows,
+            first_chunk=int(ckpt.meta["next_chunk"]) if resuming_here
+            else 0,
+            first_lo=int(ckpt.meta["edge_lo"]) if resuming_here else 0,
+            assigned0=int(ckpt.meta["assigned"]) if resuming_here else 0,
+            ckpt_every=ckpt_every,
+            save_state=_save_state if ckpt_dir is not None else None,
+            pass_index=pi)
         state = pr.state
-        timer.lap(sp.phase, exclude=pr.wb_host)
+        timer.lap(sp.phase, exclude=pr.wb_host + pr.ckpt_host)
         timer.add("writeback", pr.wb_host)
+        if pr.ckpt_host:
+            timer.add("checkpoint", pr.ckpt_host)
         pass_counts[sp.phase] = pass_counts.get(sp.phase, 0) + pr.assigned
         ps = stall.report(sp.phase)
         pass_stalls.append(ps)
@@ -699,15 +949,20 @@ def _run_spec_traced(spec, part, stream, k, out_path, degrees, tracer,
         quality = quality_from_bitmatrix(bits_np, sizes_np,
                                          stream.num_edges)
     timer.lap("finalize")
-    resident = part.replication_state_bytes()
-    metrics.gauge("engine.replication_state_bytes").set(
-        bits_np.nbytes if resident is None else int(resident))
+    _set_replication_gauge(part, metrics, bits_np)
     if passes_wall > 0:
         metrics.gauge("engine.edges_per_sec").set(
             edges_ctr.value / passes_wall if metrics.enabled else 0.0)
     if tracer.enabled:
         extras["stall_report"] = PipelineStallReport(
             passes=pass_stalls).to_dict()
+    if resumes:
+        extras["resumes"] = resumes
+    if ckpt_every:
+        extras["checkpoints_written"] = checkpoints_written
+    io_retries = getattr(stream, "retries", None)
+    if io_retries is not None:
+        extras["io_retries"] = int(io_retries)
     if getattr(part, "num_hosts", 0):
         # hierarchy-aware quality: how many host groups each vertex spans
         extras["num_hosts"] = part.num_hosts

@@ -135,3 +135,15 @@ class _HEPPartitioner(StreamingPartitioner):
         # the pinned rows are the only state scoring reads: what
         # memory_budget_bytes bounds (the host matrix is a metrics oracle)
         return self._n_hot * self._row_bytes
+
+    # -- checkpoint / resume --------------------------------------------
+    def host_state(self):
+        return {"bits": self._bits_np}
+
+    def restore_host_state(self, arrays):
+        self._bits_np = np.ascontiguousarray(arrays["bits"])
+
+    def init_for_resume(self, stream, k, timer):
+        # degrees and the hot-slot map live in the device state; n_hot is a
+        # pure function of (budget, k, |V|) — no stream sweep needed
+        self._setup_run(stream, k)

@@ -1,6 +1,7 @@
-"""Exporters: Chrome ``trace_event`` JSON and the human stall table (a copy
-of the reference package's ``obs/export.py``; its device-profiler session
-hook has no counterpart here yet).
+"""Exporters: Chrome ``trace_event`` JSON, the human stall table (copies of
+the reference package's ``obs/export.py``) and the ``torch.profiler``
+session hook, the port's counterpart of the reference's device-profiler
+hook.
 
 The Chrome format is the minimal subset Perfetto / ``chrome://tracing``
 load: a ``{"traceEvents": [...]}`` document whose events carry
@@ -11,10 +12,16 @@ enforce) and returns the distinct complete-span names it saw.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 
 __all__ = ["chrome_trace", "write_chrome_trace", "validate_chrome_trace",
-           "trace_summary_table", "TraceValidationError"]
+           "trace_summary_table", "torch_profiler_session",
+           "TraceValidationError", "TORCH_TRACE_FILE"]
+
+#: File ``torch_profiler_session`` writes its Chrome trace to, in its dir.
+TORCH_TRACE_FILE = "torch_trace.json"
 
 #: Event phases the tracer emits (complete, counter, instant, metadata).
 _KNOWN_PHASES = frozenset("XCiM")
@@ -109,3 +116,25 @@ def trace_summary_table(report, metrics_snapshot: dict | None = None) -> str:
             hi = f" (max {m['max']:g})" if "max" in m else ""
             lines.append(f"  {name:<34s} {val:g}{hi}")
     return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def torch_profiler_session(log_dir: str | None, *, cuda: bool = True):
+    """Capture a ``torch.profiler`` trace around the block — CPU activity,
+    and with ``cuda`` the card's kernels and copies — and write it as a
+    Chrome trace (``TORCH_TRACE_FILE``) into ``log_dir`` when the block
+    ends; it complements the host-side span trace.  ``log_dir=None`` is a
+    plain pass-through.  Asked for, the profiler is not optional: one that
+    cannot start or export raises (the reference's hook falls back to a
+    pass-through instead)."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, TORCH_TRACE_FILE))

@@ -232,10 +232,20 @@ def test_run_spec_defaults_to_cuda_and_raises_without_it(small_rmat,
 
 
 def test_robustness_arguments_are_refused(small_rmat, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.run_spec(T.spec_for("2psl", chunk_size=512),
-                   T.InMemoryEdgeStream(small_rmat), 8, device="cpu",
-                   checkpoint_every_chunks=2, checkpoint_dir=str(tmp_path))
+    """The robustness layer is ported: ``run_spec`` refuses what the
+    reference refuses (a checkpoint interval without a directory, or below
+    1) and runs the rest (``tests/test_torch_robust.py``)."""
+    for kw, match in (({"checkpoint_every_chunks": 2}, "checkpoint_dir"),
+                      ({"checkpoint_every_chunks": 0,
+                        "checkpoint_dir": str(tmp_path)}, ">= 1")):
+        with pytest.raises(ValueError, match=match):
+            T.run_spec(T.spec_for("2psl", chunk_size=512),
+                       T.InMemoryEdgeStream(small_rmat), 8, device="cpu",
+                       **kw)
+    res = T.run_spec(T.spec_for("2psl", chunk_size=512),
+                     T.InMemoryEdgeStream(small_rmat), 8, device="cpu",
+                     checkpoint_every_chunks=2, checkpoint_dir=str(tmp_path))
+    assert res.extras["checkpoints_written"] > 0
 
 
 def _port_sources():
