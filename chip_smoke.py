@@ -153,7 +153,25 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               a fresh process (beside the drill's): the span trace
               validates, and the profiler's trace holds one
               ``edge_score_bits_kernel`` record per counted launch.
-20. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
+20. shard     sharded 2PS-L (``repro_torch.shard``) in 16,384-edge chunks:
+              (1) at RMAT-16 through the distributed CLI's emulated backend
+              (worker threads, one card) at W = 1 (byte-equal to the
+              sequential partition CLI run), 4 and 2: one ``edge_score``
+              launch per scoring chunk summed over the workers, all through
+              the bits entry; (2) ``run_spec_sharded`` at W = 3 at RMAT-14,
+              card against CPU byte-equal (RF and every rank's slice
+              sha256 too) for 2PS-L, hosted 2PS-L (4 hosts), HDRF with
+              ``use_cap``, buffered and HEP at 131,072 bytes, the
+              launches those of the sequential geometry; (3-5) at RMAT-16,
+              two ranks in processes of their own (``--dist-counted``),
+              all at once: the fs backend, the torch backend (gloo on
+              localhost), the fs parent mode (``python -m
+              repro_torch.launch.dist_partition``, ``--checkpoint-every
+              1``) and the crash drill (rank 1 exits 137 after its first
+              round checkpoint while rank 0 waits, then resumes): every
+              stitched ``assignment.bin`` the emulated W = 2 run's sha256,
+              each rank's launches its dealt scoring chunks.
+21. gnn_aggregate  one GIN layer's neighbour sum at ogb_products' scale:
               4 relabelled copies of the RMAT-20 graph (~2.58M nodes,
               ~64.3M edges), ``prepare_tiles`` on the host, src and the
               edge mask bound once (``with_edges``, ``bind_s``),
@@ -165,17 +183,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               events beside the previous route (``previous_ms``), cuSPARSE's
               SpMM and without the hub split; the messages' sum also timed
               and checked on the bound route.
-21. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
+22. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
               ``InteractionStream`` histories (seq 100, ``hist_mask`` as
               the weights) at 512 and 65,536 bags, ``sum`` and ``mean``: a
               warm-up and 3 calls each, exactly one launch per call; timed
               by CUDA-graph replays beside the previous design and by
               events beside ``F.embedding_bag``; bounds on the touched
               rows, a row per lookup and the sectors each row spans.
-22. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
+23. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
               ``embedding_bag`` at 512 bags, on the card and on the CPU
               through the same op, within the kernels' tolerance.
-23. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
+24. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
               (2PS-L at RMAT-16; 2PS-HDRF, HDRF, Greedy, HEP at the
               default budget, 131,072 and 8,192 bytes, and buffered at
               RMAT-14);
@@ -186,14 +204,6 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               route) and a checkpoint written on the card, equal to the
               CPU's and resumed on the CPU to the same bytes (and the
               CPU's on the card).
-24. least_loaded_rounds  the overflow tail as shipped (one ``.any()``
-              host sync, rounds skipped when nothing is pending) against
-              running its k+1 rounds unconditionally (2PS-L, RMAT-16).
-25. twopsl_scoring  2PS-L's scoring pass (``timings_s["scoring"]``) at
-              RMAT-16, flat and with 4 hosts, through
-              ``edge_score_choose_bits`` and with the previous composition
-              swapped in, new, previous, previous, new, byte-equal; and
-              the device operations of one scoring chunk of each, profiled.
 
 Every path phase resets every kernel's launch counter just before it and
 checks the counts just after.
@@ -201,6 +211,17 @@ checks the counts just after.
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --scoring-compare
+
+runs only the 2PS-L scoring redesign's before/after comparisons and does
+nothing else:
+``least_loaded_rounds`` (the overflow tail as shipped, one ``.any()`` host
+sync, against its k+1 rounds run unconditionally) and ``twopsl_scoring``
+(2PS-L's scoring pass through ``edge_score_choose_bits`` and with the
+previous composition swapped in, new, previous, previous, new, byte-equal,
+flat and with 4 hosts, and the device operations of one scoring chunk of
+each), both at RMAT-16.
 
     python3 chip_smoke.py --spmm-tune   # the spmm bound route's shapes
 
@@ -213,9 +234,11 @@ runs the ``resume`` phase's drill with one process at a time, nothing
 beside it (its save, restore and start-up times), and does nothing else.
 
     python3 chip_smoke.py --partition-counted ARGS...
+    python3 chip_smoke.py --dist-counted ARGS...
 
-runs the port's partition CLI on ``ARGS`` with the launch counters reset
-and prints its report and launches as one JSON line (the crash drill's
+runs the port's partition CLI (or its distributed CLI, one rank) on
+``ARGS`` with the launch counters reset and prints its report and
+launches as one JSON line (the crash drills' and the ``shard`` phase's
 processes).
 """
 from __future__ import annotations
@@ -228,6 +251,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2785,21 +2809,55 @@ def partition_counted(argv) -> int:
     return 0
 
 
-def start_cli_processes(jobs, tmp: str) -> list:
+def run_dist_cli(argv):
+    """The port's distributed CLI (``repro_torch.launch.dist_partition``):
+    its exit code and its JSON report (None on a rank other than 0, which
+    prints none)."""
+    from repro_torch.launch.dist_partition import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv + ["--json"])
+    out = buf.getvalue()
+    return rc, json.loads(out) if out.strip() else None
+
+
+def dist_counted(argv) -> int:
+    """``--dist-counted ARGS``: ``partition_counted`` for the distributed
+    CLI — one rank of a sharded run in this process (the ``shard``
+    phase's processes); the report is None on a rank other than 0."""
+    (rc, report), counts, wall = counted(lambda: run_dist_cli(argv))
+    cs = counters()
+    emit({"report": report, "launches": counts, "wall_s": wall,
+          "by_entry": {n: dict(cs[n].by_entry)
+                       for n in ("edge_score", "hdrf_score")}})
+    return rc
+
+
+def start_cli_processes(jobs, tmp: str,
+                        mode: str = "--partition-counted") -> list:
     """Start every job — ``(argv, extra environment)`` — as ``chip_smoke.py
-    --partition-counted ARGV``, all at once, each logging to a file in
-    ``tmp``; ``wait_cli_processes`` collects them."""
+    MODE ARGV`` (``--partition-counted`` or ``--dist-counted``), all at
+    once, each logging to a file in ``tmp``; ``wait_cli_processes``
+    collects them."""
     procs = []
     for argv, env_extra in jobs:
         fd, name = tempfile.mkstemp(suffix=".log", dir=tmp)
         log = os.fdopen(fd, "w+")
         env = dict(os.environ, **env_extra)
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__),
-             "--partition-counted", *argv], stdout=log,
-            stderr=subprocess.STDOUT, text=True, env=env), log,
-            time.perf_counter()))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), mode, *argv],
+            stdout=log, stderr=subprocess.STDOUT, text=True, env=env)
+        threading.Thread(target=_note_exit, args=(proc,), daemon=True).start()
+        procs.append((proc, log, t0))
     return procs
+
+
+def _note_exit(proc) -> None:
+    """Record when ``proc`` exits (``proc.t_end``), so that its wall is
+    right however late ``wait_cli_processes`` gets to it."""
+    proc.wait()
+    proc.t_end = time.perf_counter()
 
 
 def wait_cli_processes(procs, timeout: int = 600) -> list:
@@ -2810,7 +2868,7 @@ def wait_cli_processes(procs, timeout: int = 600) -> list:
     try:
         for proc, log, t0 in procs:
             rc = proc.wait(timeout=timeout)
-            wall = time.perf_counter() - t0
+            wall = getattr(proc, "t_end", time.perf_counter()) - t0
             log.seek(0)
             lines = [ln for ln in log.read().splitlines()
                      if ln.startswith("{")]
@@ -3022,6 +3080,319 @@ def profile_path(run: dict) -> dict:
             "profiled_device_busy_share": busy_us / 1e6 / wall,
             "span_names": len(spans),
             "critical_stage": res["line"]["report"]["critical_stage"]}
+
+
+# ---------------------------------------------------------------------------
+# sharded partitioning (repro_torch.shard)
+# ---------------------------------------------------------------------------
+
+#: the ``shard`` phase's chunk: 64 chunks at RMAT-16, so that a round of 4
+#: workers streams ~6% of the edges against its frozen base
+SHARD_CHUNK = 16_384
+#: part 2's configurations, card against CPU at W = 3: (label, algorithm,
+#: spec overrides); buffered keeps its own 16,384-edge chunks and
+#: 65,536-edge windows
+SHARD_CARD_VS_CPU = (
+    ("2psl", "2psl", {"chunk_size": SHARD_CHUNK}),
+    ("2psl_hosted", "2psl", {"chunk_size": SHARD_CHUNK, "host_groups": 4,
+                             "dcn_penalty": 1.0}),
+    ("hdrf_capped", "hdrf", {"chunk_size": SHARD_CHUNK, "use_cap": True}),
+    ("buffered", "buffered", {}),
+    ("hep_small", "hep", {"chunk_size": SHARD_CHUNK,
+                          "memory_budget_bytes": HEP_SMALL_BUDGET}))
+
+
+def check_assignment_file(path: str, k: int, E: int, alpha: float) -> dict:
+    """A stitched assignment: E rows, every one in [0, k), and the largest
+    part within alpha plus the quota's rounding (W-1 edges a partition a
+    round, held here to 1% as the reference's sharded test holds it)."""
+    from repro_torch.core import capacity
+    asg = np.fromfile(path, np.int32)
+    if asg.shape != (E,) or asg.min() < 0 or asg.max() >= k:
+        raise AssertionError(f"{path}: rows outside [0, {k})")
+    sizes = np.bincount(asg, minlength=k)
+    balance = float(sizes.max() * k / E)
+    if balance > alpha + 0.01:
+        raise AssertionError(f"{path}: balance {balance} over {alpha}")
+    return {"max_size": int(sizes.max()),
+            "capacity": capacity(E, k, alpha), "balance": balance}
+
+
+def shard_emulated(scale: int, tmp: str, k: int = 32) -> dict:
+    """Part 1: 2PS-L at ``scale`` in 16,384-edge chunks, sequentially
+    through the partition CLI and sharded through the distributed CLI's
+    emulated backend (worker threads in this process, one card) at W = 1,
+    4 and 2: W = 1 byte-equal to the sequential run, and every run one
+    ``edge_score`` launch per scoring chunk, all through the bits entry,
+    summed over its workers."""
+    path, E = write_graph(scale, tmp)
+    chunks = -(-E // SHARD_CHUNK)
+    common = ["--input", path, "--k", str(k), "--chunk-size",
+              str(SHARD_CHUNK)]
+    seq_out = os.path.join(tmp, "shard_seq.bin")
+    (report, _), counts, seq_wall = counted(
+        lambda: run_cli(common + ["--out", seq_out]))
+    expect_launches(counts, {"edge_score": chunks},
+                    "sharding's sequential 2PS-L")
+    seq_sha = _sha256(seq_out)
+    out = {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
+           "edges": E, "k": k, "chunk_size": SHARD_CHUNK,
+           "scoring_chunks": chunks,
+           "sequential": {"wall_s": seq_wall,
+                          "timings_s": report["timings_s"],
+                          "replication_factor":
+                              report["replication_factor"],
+                          "sha256": seq_sha}}
+    for W in (1, 4, 2):
+        dest = os.path.join(tmp, f"shard_w{W}.bin")
+        (rc, rep), counts, wall = counted(lambda: run_dist_cli(
+            common + ["--backend", "emulated", "--workers", str(W),
+                      "--out", dest]))
+        what = f"emulated 2PS-L at W = {W}"
+        if rc:
+            raise AssertionError(f"{what} exited {rc}")
+        expect_launches(counts, {"edge_score": chunks}, what)
+        by_entry = expect_bits_entry(chunks, what, "edge_score")
+        sha = _sha256(dest)
+        if W == 1 and sha != seq_sha:
+            raise AssertionError("W = 1 differs from the sequential run")
+        out[f"w{W}"] = {
+            "wall_s": wall, "wall_over_sequential": wall / seq_wall,
+            "rounds": rep["rounds"], "merge_seconds": rep["merge_seconds"],
+            "merge_s_per_round_per_worker":
+                rep["merge_seconds"] / (rep["rounds"] * 2) / W,
+            "timings_s_rank0": rep["timings_s"],
+            "replication_factor": rep["replication_factor"],
+            "alpha_measured": rep["alpha_measured"],
+            "edge_score_launches": counts["edge_score"],
+            "edge_score_launches_by_entry": by_entry, "sha256": sha,
+            **check_assignment_file(dest, k, E, 1.05)}
+    return out
+
+
+def shard_card_vs_cpu(scale: int, k: int = 32, shards: int = 3) -> dict:
+    """Part 2: ``run_spec_sharded`` at W = ``shards`` on the card and on
+    the CPU for each of ``SHARD_CARD_VS_CPU``: the assignments byte-equal,
+    RF equal, every rank's slice sha256 equal; the card's launches those of
+    the sequential geometry (2PS-L one ``edge_score`` per scoring chunk,
+    HDRF one ``hdrf_score`` per non-empty micro-batch, buffered one
+    ``edge_score`` per non-empty sub-batch, HEP none), all through the
+    bits entries."""
+    from repro_torch.core import InMemoryEdgeStream, spec_for
+    from repro_torch.core.buffered import SUB_BATCH_TARGET
+    from repro_torch.data import rmat_graph
+    from repro_torch.shard import run_spec_sharded
+    edges = rmat_graph(scale, edge_factor=16, seed=0)
+    E = len(edges)
+    out = {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
+           "edges": E, "k": k, "shards": shards}
+    for label, algo, overrides in SHARD_CARD_VS_CPU:
+        spec = spec_for(algo, **overrides)
+        if algo == "buffered":
+            window = spec.chunk_size * spec.window_chunks
+            sub = -(-window // -(-window // SUB_BATCH_TARGET))
+            want = {"edge_score": buffered_launches(E, window, sub)}
+        elif algo == "hdrf":
+            want = {"hdrf_score": hdrf_launches(E, spec.chunk_size)}
+        elif algo == "2psl":
+            want = {"edge_score": -(-E // spec.chunk_size)}
+        else:
+            want = {}
+        card, counts, card_wall = counted(lambda: run_spec_sharded(
+            spec, InMemoryEdgeStream(edges), k, num_shards=shards,
+            device="cuda"))
+        expect_launches(counts, want, f"sharded {label} on the card")
+        for name, n in want.items():
+            expect_bits_entry(n, f"sharded {label}", name)
+        t0 = time.perf_counter()
+        cpu = run_spec_sharded(spec, InMemoryEdgeStream(edges), k,
+                               num_shards=shards, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        mism = int((card.assignment != cpu.assignment).sum())
+        if (mism or card.quality.replication_factor
+                != cpu.quality.replication_factor
+                or card.extras["shard_slices"] != cpu.extras["shard_slices"]):
+            raise AssertionError(f"sharded {label}: card vs cpu, {mism} "
+                                 f"assignment mismatches")
+        out[label] = {"algorithm": algo, "overrides": overrides,
+                      "rounds": card.extras["rounds"],
+                      "card_wall_s": card_wall, "cpu_wall_s": cpu_wall,
+                      "replication_factor": card.quality.replication_factor,
+                      "balance": card.quality.balance,
+                      "merge_seconds": card.extras["merge_seconds"],
+                      "launches": counts, "assignment_mismatches": mism,
+                      "slice_sha256": [sl["sha256"] for sl in
+                                       card.extras["shard_slices"]]}
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_shard_processes(scale: int, tmp: str, k: int = 32) -> dict:
+    """Parts 3-5, started: 2PS-L at ``scale``, two ranks on the card each,
+    all at once: the fs backend with each rank a ``--dist-counted``
+    process; the same with ``--backend torch`` over a gloo group on
+    localhost; the fs backend's parent mode (``python -m
+    repro_torch.launch.dist_partition`` spawning its ranks,
+    ``--checkpoint-every 1``: the drill's clean run); and the crash drill's
+    rank 0, and its rank 1 with ``REPRO_CRASH_AFTER_CHECKPOINTS=1``.
+    ``finish_shard_processes`` resumes the crashed rank and checks them."""
+    from repro_torch.shard import ShardLayout
+    path, E = write_graph(scale, tmp)
+    layout = ShardLayout(num_edges=E, eff_chunk=SHARD_CHUNK, world=2)
+    run = {"scale": scale, "k": k, "E": E, "layout": layout,
+           "dealt": [[layout.round_span(rnd, r)[1]
+                      for rnd in range(layout.num_rounds)]
+                     for r in range(2)],
+           "dirs": {n: os.path.join(tmp, f"shard_{n}")
+                    for n in ("fs", "torch", "clean", "drill")}}
+    dirs = run["dirs"]
+    base = ["--input", path, "--k", str(k), "--chunk-size",
+            str(SHARD_CHUNK), "--workers", "2", "--no-plan",
+            "--timeout", "300"]
+    fs = [base + ["--backend", "fs", "--artifact-dir", dirs["fs"],
+                  "--rank", str(r)] for r in range(2)]
+    coordinator = f"tcp://127.0.0.1:{_free_port()}"
+    tor = [base + ["--backend", "torch", "--coordinator", coordinator,
+                   "--artifact-dir", dirs["torch"], "--rank", str(r)]
+           for r in range(2)]
+    run["drill"] = base + ["--backend", "fs", "--artifact-dir",
+                           dirs["drill"], "--checkpoint-every", "1"]
+    run["log"] = open(os.path.join(tmp, "shard_parent.log"), "w+")
+    run["t0"] = time.perf_counter()
+    run["parent"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dist_partition", *base,
+         "--backend", "fs", "--artifact-dir", dirs["clean"],
+         "--checkpoint-every", "1", "--json"],
+        stdout=run["log"], stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+    threading.Thread(target=_note_exit, args=(run["parent"],),
+                     daemon=True).start()
+    run["procs"] = start_cli_processes(
+        [(a, {}) for a in fs + tor] + [(run["drill"] + ["--rank", "0"], {})],
+        tmp, "--dist-counted")
+    run["cut"] = start_cli_processes(
+        [(run["drill"] + ["--rank", "1"],
+          {"REPRO_CRASH_AFTER_CHECKPOINTS": "1"})], tmp, "--dist-counted")
+    return run
+
+
+def stop_shard_processes(run: dict) -> None:
+    """Kill whatever ``start_shard_processes`` started that still runs."""
+    if run["parent"].poll() is None:
+        run["parent"].kill()
+        run["parent"].wait()
+    stop_cli_processes(run["procs"] + run["cut"])
+    run["log"].close()
+
+
+def finish_shard_processes(run: dict, emulated_sha: str) -> dict:
+    """Parts 3-5, checked: the drill's rank 1 exited 137 while its rank 0
+    waits; rank 1 relaunched with ``--resume`` re-joins.  Every stitched
+    ``assignment.bin`` has the emulated W = 2 run's sha256, and each
+    counted rank launches one ``edge_score`` per scoring chunk
+    ``ShardLayout`` deals it (the resumed rank those at and after its
+    cursor)."""
+    from repro_torch.robust import load_engine_checkpoint
+    dirs, dealt, tmp = run["dirs"], run["dealt"], os.path.dirname(
+        run["dirs"]["fs"])
+    try:
+        (cut,) = wait_cli_processes(run["cut"])
+        if cut["rc"] != 137 or cut["line"] is not None:
+            raise AssertionError(f"the crashed rank exited {cut['rc']}, "
+                                 f"expected 137")
+        if run["procs"][-1][0].poll() is not None:
+            raise AssertionError("rank 0 of the drill did not wait")
+        meta = load_engine_checkpoint(os.path.join(
+            dirs["drill"], "checkpoints", "rank001")).meta
+        resumed = start_cli_processes(
+            [(run["drill"] + ["--rank", "1", "--resume"], {})], tmp,
+            "--dist-counted")
+        results = wait_cli_processes(run["procs"] + resumed)
+        parent_rc = run["parent"].wait(timeout=600)
+        parent_wall = getattr(run["parent"], "t_end",
+                              time.perf_counter()) - run["t0"]
+        run["log"].seek(0)
+        parent_out = run["log"].read()
+    finally:
+        stop_shard_processes(run)
+    if parent_rc:
+        raise AssertionError(f"the fs parent mode exited {parent_rc}: "
+                             f"{parent_out[-2000:]}")
+    for res in results:
+        if res["rc"] or res["line"] is None:
+            raise AssertionError(f"a shard rank failed: {res}")
+    fs_r, tor_r, drill0, drill1 = (results[0:2], results[2:4], results[4],
+                                   results[5])
+    pi, nxt = int(meta["pass_index"]), int(meta["next_chunk"])
+    # 2PS-L launches in its scoring pass (pass 1) only
+    resumed_want = sum(dealt[1][nxt:]) if pi == 1 else (
+        sum(dealt[1]) if pi == 0 else 0)
+    for name, ranks in (("fs", fs_r), ("torch", tor_r)):
+        for r, res in enumerate(ranks):
+            expect_launches(res["line"]["launches"],
+                            {"edge_score": sum(dealt[r])},
+                            f"{name} rank {r}")
+    expect_launches(drill0["line"]["launches"],
+                    {"edge_score": sum(dealt[0])}, "drill rank 0")
+    expect_launches(drill1["line"]["launches"],
+                    {"edge_score": resumed_want},
+                    f"drill rank 1 resumed at pass {pi}, round {nxt}")
+    shas = {n: _sha256(os.path.join(d, "assignment.bin"))
+            for n, d in dirs.items()}
+    if set(shas.values()) != {emulated_sha}:
+        raise AssertionError(f"sharded runs disagree: {shas}, emulated "
+                             f"{emulated_sha}")
+    with open(os.path.join(dirs["drill"], "manifest.json")) as f:
+        manifest = json.load(f)
+    if manifest["extras"].get("resumes", 0) < 1:
+        raise AssertionError("the drill's resume is not recorded")
+    fs_report = fs_r[0]["line"]["report"]
+    if fs_report["backend"] != "fs" or \
+            tor_r[0]["line"]["report"]["backend"] != "torch":
+        raise AssertionError("backend not reported")
+
+    def rank_line(res):
+        return {"wall_s": res["wall_s"], "run_s": res["line"]["wall_s"],
+                "start_up_s": res["wall_s"] - res["line"]["wall_s"],
+                "edge_score_launches": res["line"]["launches"]["edge_score"]}
+    return {"graph": f"rmat_graph({run['scale']}, edge_factor=16, seed=0)",
+            "edges": run["E"], "k": run["k"], "workers": 2,
+            "rounds": run["layout"].num_rounds,
+            "dealt_scoring_chunks": [sum(d) for d in dealt],
+            "sha256": emulated_sha,
+            "fs": [rank_line(r) for r in fs_r],
+            "fs_timings_s_rank0": fs_report["timings_s"],
+            "fs_merge_seconds": fs_report["merge_seconds"],
+            "torch": [rank_line(r) for r in tor_r],
+            "parent_mode_wall_s": parent_wall,
+            "drill": {"cut_at": {"pass_index": pi, "next_round": nxt},
+                      "crash_wall_s": cut["wall_s"],
+                      "rank0": rank_line(drill0),
+                      "rank1_resumed": rank_line(drill1),
+                      "resumes": manifest["extras"]["resumes"]}}
+
+
+def shard_path(tmp: str, k: int = 32) -> dict:
+    """The ``shard`` phase: ``shard_emulated`` at RMAT-16 alone on the
+    card (its walls), then the processes of parts 3-5 at RMAT-16 started,
+    ``shard_card_vs_cpu`` at RMAT-14 beside them, and the processes
+    finished and checked."""
+    emulated = shard_emulated(16, tmp, k)
+    run = start_shard_processes(16, tmp, k)
+    try:
+        card_vs_cpu = shard_card_vs_cpu(14, k)
+    except BaseException:
+        stop_shard_processes(run)
+        raise
+    return {"emulated": emulated, "card_vs_cpu": card_vs_cpu,
+            "processes": finish_shard_processes(
+                run, emulated["w2"]["sha256"])}
 
 
 # ---------------------------------------------------------------------------
@@ -3875,13 +4246,17 @@ def main(argv=None) -> int:
                     help="only run the resume phase's crash drill with one "
                          "process on the card at a time, for its times, "
                          "and print its line")
+    ap.add_argument("--scoring-compare", action="store_true",
+                    help="only run the scoring redesign's before/after "
+                         "comparisons, least_loaded_rounds and "
+                         "twopsl_scoring (RMAT-16), and print their lines")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
                          "equal calls and print {\"ms\": ...} (the "
                          "process gru_split_library starts)")
     argv = sys.argv[1:] if argv is None else argv
-    counted_cli = argv[:1] == ["--partition-counted"]
+    counted_cli = argv[:1] in (["--partition-counted"], ["--dist-counted"])
     args = ap.parse_args([] if counted_cli else argv)
 
     import torch
@@ -3890,6 +4265,8 @@ def main(argv=None) -> int:
         return 2
     if counted_cli:
         sys.path.insert(0, os.path.join(REPO, "src"))
+        if argv[0] == "--dist-counted":
+            return dist_counted(argv[1:])
         return partition_counted(argv[1:])
     if args.gru_library:
         batch, split, reps = args.gru_library
@@ -3901,6 +4278,13 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             emit({"phase": "resume", "alone": True,
                   **resume_path(tmp, alone=True)})
+        return 0
+    if args.scoring_compare:
+        print(nvidia_smi(), flush=True)
+        emit({"phase": "least_loaded_rounds",
+              **least_loaded_rounds(min(args.scale, 16))})
+        emit({"phase": "twopsl_scoring",
+              **twopsl_scoring(min(args.scale, 16))})
         return 0
     if args.spmm_tune:
         print(nvidia_smi(), flush=True)
@@ -4007,6 +4391,8 @@ def main(argv=None) -> int:
         emit({"phase": "resume", **rp_run})
         pp_run = profile_path(profiling)
         emit({"phase": "profile", **pp_run})
+        sh_run = shard_path(tmp)
+        emit({"phase": "shard", **sh_run})
         ga = gnn_aggregate(min(args.scale, 20), tmp)
         emit({"phase": "gnn_aggregate", **ga})
     bp = bag_pool()
@@ -4027,9 +4413,6 @@ def main(argv=None) -> int:
                                ("buffered", {}))],
           "artifact_and_checkpoint": artifact_card_vs_cpu(
               min(args.scale, 14))})
-    emit({"phase": "least_loaded_rounds",
-          **least_loaded_rounds(min(args.scale, 16))})
-    emit({"phase": "twopsl_scoring", **twopsl_scoring(min(args.scale, 16))})
 
     gin = ga["gin_spmm"]
     bulk = bp[f"{BULK_BATCH}_sum"]
@@ -4055,6 +4438,17 @@ def main(argv=None) -> int:
         "launches_resumed": {n: rp_run[n]["resumed_launches"]
                              for n in ("2psl", "buffered")},
         "launches_profile": pp_run["edge_score_launches"],
+        "launches_sharded": {
+            "emulated_2psl_w4": sh_run["emulated"]["w4"][
+                "edge_score_launches"],
+            "fs_ranks": [r["edge_score_launches"]
+                         for r in sh_run["processes"]["fs"]],
+            "torch_ranks": [r["edge_score_launches"]
+                            for r in sh_run["processes"]["torch"]],
+            "drill_rank1_resumed": sh_run["processes"]["drill"][
+                "rank1_resumed"]["edge_score_launches"],
+            **{f"w3_{n}": sh_run["card_vs_cpu"][n]["launches"]["edge_score"]
+               for n in ("2psl", "2psl_hosted", "buffered")}},
         "max_abs_err": max(check["max_abs_err"], e_bits["max_abs_err"]),
         "ms": timing["ms"], "previous_ms": timing["previous_ms"],
         "flags_ms": timing["flags_ms"], "plain_ms": timing["plain_ms"],
@@ -4070,6 +4464,9 @@ def main(argv=None) -> int:
         "launches": paths["hdrf_score"],
         "launches_by_entry": hp["hdrf_launches_by_entry"],
         "launches_resumed": {"hdrf": rp_run["hdrf"]["resumed_launches"]},
+        "launches_sharded": {
+            "w3_hdrf_capped": sh_run["card_vs_cpu"]["hdrf_capped"][
+                "launches"]["hdrf_score"]},
         "max_abs_err": max(h_check["max_abs_err"], h_bits["max_abs_err"],
                            *(c["max_abs_err"] for c in h_wide.values())),
         "ms": h_timing["bits_ms"],

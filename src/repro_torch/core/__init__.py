@@ -13,8 +13,9 @@ from .artifact import ASSIGNMENT_FILE, PartitionArtifact
 from .clustering import (ClusteringResult, cluster_in_memory_scan,
                          cluster_sequential, default_max_vol,
                          streaming_clustering)
-from .engine import (PORTED, PartitionRunResult, StreamingPartitioner,
-                     StreamPass, build_partitioner, compute_degrees_streaming,
+from .engine import (MERGE_RULES, PORTED, PartitionRunResult,
+                     StreamingPartitioner, StreamPass, build_partitioner,
+                     compute_degrees_streaming, merge_state_dicts,
                      resolve_device, run_spec)
 from .mapping import map_clusters_lpt, map_clusters_lpt_torch
 from .metrics import (PartitionQuality, capacity, cross_host_replicas,
@@ -49,4 +50,6 @@ __all__ = [
     "run_spec",
     "compute_degrees_streaming", "resolve_device",
     "ASSIGNMENT_FILE", "PartitionArtifact",
+    # shard merge protocol (repro_torch.shard)
+    "MERGE_RULES", "merge_state_dicts",
 ]

@@ -206,7 +206,8 @@ class PartitionArtifact:
              plan=None, edges: np.ndarray | None = None,
              stream=None, pair_cap_quantile: float = 1.0,
              host_groups=None,
-             graph_path: str | None = None) -> "PartitionArtifact":
+             graph_path: str | None = None,
+             shards: dict | None = None) -> "PartitionArtifact":
         """Persist a run.  The halo plan is taken from ``plan`` if given,
         else planned out-of-core from ``stream`` (an ``EdgeStream``,
         chunked against the just-written assignment memmap — O(chunk+plan)
@@ -216,7 +217,12 @@ class PartitionArtifact:
         ``host_groups`` (a host count or explicit groups, see
         ``repro_torch.dist.multihost``) additionally persists the host-grouped
         re-slicing of the plan in ``host_plan.npz``; passing an already
-        host-grouped ``HostHaloPlan`` as ``plan`` does the same."""
+        host-grouped ``HostHaloPlan`` as ``plan`` does the same.
+
+        ``shards`` records a sharded run's provenance
+        (``repro_torch.shard``: worker count, round geometry, per-rank
+        slice sha256s) as manifest metadata — pure JSON, no sidecar, so
+        the integrity block is unchanged."""
         spec = spec if spec is not None else result.spec
         if spec is None:
             raise ValueError("no spec: pass spec= or run via run_spec")
@@ -278,6 +284,8 @@ class PartitionArtifact:
             "host_plan": None,
             "local_graphs": None,
         }
+        if shards is not None:
+            manifest["shards"] = shards     # caller-built pure JSON
         if plan is not None:
             arrays = {f.name: getattr(plan, f.name)
                       for f in dataclasses.fields(plan)}

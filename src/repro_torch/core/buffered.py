@@ -286,3 +286,10 @@ class _BufferedPartitioner(StreamingPartitioner):
     # re-derives from the spec, so resume needs no stream sweep at all
     def init_for_resume(self, stream, k, timer):
         self._setup_run(stream, k)
+
+    # -- shard merge ----------------------------------------------------
+    def merge_rules(self):
+        # the w* tables are per-window scratch (rebuilt by the next
+        # window's clustering): merging keeps the base's
+        return {"bits": "or", "sizes": "sum", "d": "constant",
+                "wv2c": "scratch", "wc2p": "scratch", "wvol": "scratch"}

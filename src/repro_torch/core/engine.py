@@ -43,10 +43,16 @@ to disk through ``convert.state_to_numpy`` (word matrices as the
 reference's uint32), beside the partitioner's ``host_state`` and the
 cursor.  A resumed run restores it with ``convert.state_to_torch`` and
 replays the remaining chunks into identical assignments, whichever of the
-two packages wrote the checkpoint.  Shard merging is not ported yet.
+two packages wrote the checkpoint.
+
+Sharded runs (``repro_torch.shard``) drive the same ``_run_pass_pipeline``
+over each worker's chunk ranges and reconcile the workers' O(|V|) states
+at round boundaries with each partitioner's ``merge_rules``
+(``merge_state_dicts``, on numpy arrays in the reference's layout).
 """
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import time
@@ -149,10 +155,14 @@ def _alloc_assignment(num_edges: int, out_path: str | None,
     return mm
 
 
-def _assignment_writer(dest):
+def _assignment_writer(dest, offset: int = 0):
     """Row sink for the pass pipeline: writes chunk results into ``dest``
-    at their stream rows and returns the number of rows assigned."""
+    at ``row + offset`` and returns the number of rows assigned.  The
+    sequential engine writes the global assignment (offset 0); a shard
+    worker writes its rank-local slice (offset maps global stream rows
+    onto the slice)."""
     def write_rows(lo, n, asg_np, merge):
+        lo = lo + offset
         if merge:
             sel = asg_np >= 0
             dest[lo:lo + n][sel] = asg_np[sel]
@@ -172,12 +182,86 @@ def _set_replication_gauge(part, metrics, bits) -> None:
     """Refresh ``engine.replication_state_bytes``: budgeted partitioners
     (HEP) report their pinned footprint; everyone else the size of
     ``bits``, the replication bit matrix currently resident (the finalized
-    matrix at finalize; on resume restore the device's, or the host-folded
-    copy when the pass folds it on the host)."""
+    matrix at finalize; on resume restore and after a shard merge the
+    device's, or the host-folded copy when the pass folds it on the
+    host: ``_resident_bits``)."""
     resident = part.replication_state_bytes()
     if resident is None:
         resident = _nbytes(bits) if bits is not None else 0
     metrics.gauge("engine.replication_state_bytes").set(int(resident))
+
+
+def _resident_bits(part, state):
+    """The replication bit matrix a run holds mid-pass: the device state's
+    when the pass folds it there, else the host-folded copy (or None)."""
+    bits = state.get("bits") if isinstance(state, dict) else None
+    return part.host_state().get("bits") if bits is None else bits
+
+
+# ---------------------------------------------------------------------------
+# shard-state merging (repro_torch.shard)
+# ---------------------------------------------------------------------------
+# A sharded run gives every worker the same round-base state, streams N
+# disjoint chunk ranges, and reconciles the N end states back into one.
+# Each partitioner declares one rule per state key (``merge_rules``):
+#
+#   'sum'       additive counters (partition sizes, HDRF partial degrees):
+#               merged = base + sum(shard - base), exact for integers
+#   'or'        packed uint32 replication bit matrices: merged = base OR
+#               every shard's bits (bitops rows only ever gain bits)
+#   'constant'  prologue tables every worker derives identically and no
+#               pass mutates (degrees, cluster tables, host maps): merged
+#               = base
+#   'scratch'   per-window scratch overwritten before every read (the
+#               buffered partitioner's window tables): merged = base
+#
+# All four rules are commutative and associative in the shard states, so
+# every worker computes the identical merge locally with no designated
+# reducer.  The states are numpy arrays in the reference's layout (word
+# matrices as uint32: ``convert.state_to_numpy``), so the two packages'
+# workers can merge each other's states.
+
+MERGE_RULES = ("sum", "or", "constant", "scratch")
+
+
+def merge_state_dicts(base: dict, shards, rules: dict) -> dict:
+    """Reconcile per-shard copies of one flat state dict (see above).
+    ``base`` is the round-start state every shard started from; a single
+    shard short-circuits to its own state unchanged (this is what makes
+    ``shards=1`` identical to the sequential engine)."""
+    shards = list(shards)
+    if not shards:
+        raise ValueError("merge_state_dicts needs at least one shard")
+    if len(shards) == 1:
+        return {k: np.asarray(v) for k, v in shards[0].items()}
+    out = {}
+    for key in shards[0]:
+        rule = rules.get(key)
+        if rule is None:
+            raise KeyError(
+                f"no merge rule for state key {key!r}: the partitioner's "
+                f"merge_rules() must cover every device/host state key "
+                f"(got rules for {sorted(rules)})")
+        b = np.asarray(base[key])
+        if rule in ("constant", "scratch"):
+            out[key] = b
+        elif rule == "or":
+            acc = b.copy()
+            for s in shards:
+                acc |= np.asarray(s[key])
+            out[key] = acc
+        elif rule == "sum":
+            wide = (np.float64 if np.issubdtype(b.dtype, np.floating)
+                    else np.int64)
+            acc = b.astype(wide)
+            for s in shards:
+                acc = acc + (np.asarray(s[key]).astype(wide)
+                             - b.astype(wide))
+            out[key] = acc.astype(b.dtype)
+        else:
+            raise ValueError(f"unknown merge rule {rule!r} for {key!r} "
+                             f"(expected one of {MERGE_RULES})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +381,71 @@ class StreamingPartitioner:
         its pinned rows, which ``memory_budget_bytes`` bounds."""
         return None
 
+    # -- shard merge protocol (repro_torch.shard) ------------------------
+
+    def merge_rules(self) -> dict:
+        """State key -> merge rule (one of ``MERGE_RULES``) covering every
+        key of both the device-state dict and ``host_state()``: what a
+        sharded run uses to reconcile N workers' round-end states.  Keys
+        only present in some configurations (post-``setup`` uploads,
+        hosted hbits) are covered too."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not define merge_rules(); "
+            f"sharded execution (repro_torch.shard) needs one rule per "
+            f"state key")
+
+    def merge_states(self, base_device: dict, base_host: dict,
+                     shard_states) -> tuple:
+        """Reconcile N shards' ``(device_state, host_state)`` numpy dict
+        pairs, all produced from the same ``(base_device, base_host)``
+        round base, into one merged ``(device, host)`` pair.
+        Deterministic, commutative and associative: every rank computes
+        the identical merge locally."""
+        rules = self.merge_rules()
+        dev = merge_state_dicts(base_device,
+                                [d for d, _ in shard_states], rules)
+        host = merge_state_dicts(base_host,
+                                 [h for _, h in shard_states], rules)
+        return dev, host
+
+    def begin_shard_round(self, base_sizes, rows: int,
+                          total_rows: int) -> None:
+        """Shard-aware balance, as the reference's: a worker admitting
+        edges against the frozen round base cannot see its peers'
+        additions, so each round a worker claiming ``rows`` of the round's
+        ``total_rows`` edges gets ``base + ceil(headroom * rows /
+        total_rows)`` per partition.  Summed over workers the merged sizes
+        respect the hard alpha bound up to W-1 ceil-rounding edges per
+        partition per round.  The quota is a (k,) int32 tensor on the
+        run's device, which the admission code reads where it read the
+        scalar.  No-op when this worker owns the whole round (the scalar
+        cap stays: shards=1 is identical to the sequential run; ragged
+        final rounds get the full headroom) and for partitioners without
+        a capacity bound."""
+        cap = getattr(self, "cap", None)
+        if cap is None or base_sizes is None:
+            return
+        full = getattr(self, "_full_cap", None)
+        if rows >= total_rows:
+            # sole owner of the round: full headroom, and undo any earlier
+            # round's quota
+            if full is not None:
+                self.cap = full
+            return
+        if full is None:
+            self._full_cap = full = cap
+        base = np.asarray(base_sizes, np.int64)
+        head = np.maximum(np.asarray(full, np.int64) - base, 0)
+        quota = (base + -(-head * rows // total_rows)).astype(np.int32)
+        self.cap = torch.from_numpy(quota).to(self.device)
+
+    def end_shard_run(self) -> None:
+        """Undo ``begin_shard_round``'s per-round quota (finalize and any
+        later sequential use see the spec's true capacity)."""
+        full = getattr(self, "_full_cap", None)
+        if full is not None:
+            self.cap = full
+
 
 def _kernel_backend(device: torch.device) -> str:
     return "cuda" if device.type == "cuda" else "torch-cpu"
@@ -398,6 +547,18 @@ class _TwoPSLPartitioner(StreamingPartitioner):
         if self.num_hosts:
             self._host_of_np = host_assignment(k, self.num_hosts)
 
+    def merge_rules(self):
+        # pre-partition: sizes accumulate, bits/hbits host-fold (OR); the
+        # clustering/mapping tables are prologue constants every worker
+        # derives identically.  scoring: the same bits/hbits move
+        # on-device (post-setup keys), same rules.
+        return {"sizes": "sum", "bits": "or", "hbits": "or",
+                "d": "constant", "vol": "constant", "v2c": "constant",
+                "c2p": "constant", "host_of": "constant",
+                "clus_v2c": "constant", "clus_vol": "constant",
+                "clus_degrees": "constant", "clus_max_vol": "constant",
+                "part_vol": "constant"}
+
     def _prepartition(self, st, pc):
         _, asg, _ = P._prepartition_core(
             st["sizes"], st["d"], st["v2c"], st["c2p"],
@@ -484,6 +645,9 @@ class _HDRFPartitioner(StreamingPartitioner):
         self.cap = capacity(stream.num_edges, k, self.spec.alpha)
         self._init_hierarchy(k)
 
+    def merge_rules(self):
+        return {"bits": "or", "sizes": "sum", "dpart": "sum"}
+
     def _chunk(self, st, pc):
         sp = self.spec
         *_, asg = P._hdrf_chunk(
@@ -550,6 +714,10 @@ class _HashPartitioner(StreamingPartitioner):
         # its prologue sweep here
         self.k = k
         self._init_hierarchy(k)
+
+    def merge_rules(self):
+        # host-folded bits/sizes; "d" is DBH's degree table (constant)
+        return {"bits": "or", "sizes": "sum", "d": "constant"}
 
 
 class _DBHPartitioner(_HashPartitioner):
@@ -669,14 +837,19 @@ def _to_host_async(asg: torch.Tensor):
 
 def _run_pass_pipeline(sp, state, stream, *, chunk_size, depth, device,
                        tracer, metrics, stall, write_rows, first_chunk=0,
-                       first_lo=0, assigned0=0, ckpt_every=None,
-                       save_state=None, pass_index=0):
+                       first_lo=0, assigned0=0, num_chunks=None,
+                       ckpt_every=None, save_state=None, pass_index=0):
     """Drive one ``StreamPass``'s read -> dispatch -> writeback pipeline
-    over ``stream``'s chunks from ``first_chunk`` to the stream end.
+    over ``stream``'s chunks ``[first_chunk, first_chunk + num_chunks)``
+    (to the stream end when ``num_chunks`` is None).  The sequential
+    engine calls it once per pass; a shard worker once per round, on its
+    chunk range.  It returns drained: every writeback done, the device
+    synchronized.
 
     ``write_rows(lo, n, asg_np, merge) -> assigned`` is the assignment
-    sink; ``save_state(next_chunk, state, lo, assigned)`` persists a
-    checkpoint after the pipeline drains (every ``ckpt_every`` chunks).
+    sink (the global assignment, or a worker's local slice);
+    ``save_state(next_chunk, state, lo, assigned)`` persists a checkpoint
+    after the pipeline drains (every ``ckpt_every`` chunks).
     """
     inflight: deque = deque()   # (lo, chunk_np, n, host asg, event, index)
     assigned = assigned0
@@ -727,6 +900,8 @@ def _run_pass_pipeline(sp, state, stream, *, chunk_size, depth, device,
         metrics.counter("engine.checkpoints").inc()
 
     raw = stream.iter_chunks_from(chunk_size, first_chunk)
+    if num_chunks is not None:
+        raw = itertools.islice(raw, num_chunks)
     it = prefetch(_traced_chunks(raw, tracer, stall, start=first_chunk),
                   readahead=depth - 1)
     ci = first_chunk
@@ -861,10 +1036,7 @@ def _run_spec_traced(spec, part, stream, k, out_path, degrees, tracer,
         metrics.counter("engine.resumes").inc()
         # restoring mid-run state re-establishes the O(|V|) footprint the
         # gauge advertises — a resumed process must not report 0
-        bits = state.get("bits") if isinstance(state, dict) else None
-        if bits is None:
-            bits = part.host_state().get("bits")
-        _set_replication_gauge(part, metrics, bits)
+        _set_replication_gauge(part, metrics, _resident_bits(part, state))
     else:
         with tracer.span("init", cat="engine", algorithm=spec.algorithm,
                          k=k):

@@ -147,3 +147,11 @@ class _HEPPartitioner(StreamingPartitioner):
         # degrees and the hot-slot map live in the device state; n_hot is a
         # pure function of (budget, k, |V|) — no stream sweep needed
         self._setup_run(stream, k)
+
+    # -- shard merge ----------------------------------------------------
+    def merge_rules(self):
+        # hot-row bits and the host bit oracle union across shards;
+        # partition sizes accumulate; degrees and the hot-slot map are
+        # prologue tables every shard derives identically
+        return {"bits": "or", "hbits": "or", "sizes": "sum",
+                "d": "constant", "slot": "constant"}

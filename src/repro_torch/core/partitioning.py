@@ -61,8 +61,10 @@ def _chunk_rank(target: torch.Tensor, eligible: torch.Tensor, k: int):
 
 def _ranked_admit(target, eligible, sizes, cap, k):
     """Admit eligible edges up to the remaining capacity ``cap - sizes``
-    (``cap`` an int; stream order).  Updates ``sizes`` in place; returns
-    ``(admitted_mask, sizes)``."""
+    (stream order).  ``cap`` is an int, or a (k,) integer tensor on the
+    run's device: a sharded run's per-round quota
+    (``StreamingPartitioner.begin_shard_round``).  Updates ``sizes`` in
+    place; returns ``(admitted_mask, sizes)``."""
     rank = _chunk_rank(target, eligible, k)
     remaining = (cap - sizes).clamp_min(0)
     ok = eligible & (rank < remaining[target.clamp(0, k - 1)])
@@ -86,11 +88,14 @@ def _least_loaded_rounds(assignment, pending, sizes, cap, k):
 def _fill_rounds(assignment, pending, sizes, cap, k):
     """The rounds themselves.  The reference's loop stops when nothing is
     pending or after k+1 rounds; a round with nothing pending changes
-    nothing, so running exactly k+1 rounds gives the same result."""
+    nothing, so running exactly k+1 rounds gives the same result.  A (k,)
+    ``cap`` is read at the round's partition, as the reference's
+    ``broadcast_to(cap, sizes.shape)[t]``."""
+    vector = isinstance(cap, torch.Tensor)
     for _ in range(k + 1):
         un = pending & (assignment < 0)
         t = torch.argmin(sizes)                # lowest index wins ties
-        rem = (cap - sizes[t]).clamp_min(0)
+        rem = ((cap[t] if vector else cap) - sizes[t]).clamp_min(0)
         rank = torch.cumsum(un.to(torch.int32), 0) - 1
         take = un & (rank < rem)
         assignment = torch.where(take, t.to(assignment.dtype), assignment)

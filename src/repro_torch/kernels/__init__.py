@@ -23,18 +23,27 @@ Kernels:
   embedding_bag — weighted sum / mean of the rows of a bag of table
                lookups, the gather fused (recsys history pooling)
 """
+import threading
+
 import torch
 
 
 class LaunchCounter:
     """Number of kernel launches, incremented by a wrapper right where it
-    launches and nowhere else; ``reset`` before a run, read after it."""
+    launches and nowhere else; ``reset`` before a run, read after it.
+    Increments take a lock, so the count stays exact when several threads
+    launch (a sharded run's workers share one card)."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.count = 0
 
     def reset(self) -> None:
         self.count = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
 
 
 class EntryCounter(LaunchCounter):
@@ -54,8 +63,9 @@ class EntryCounter(LaunchCounter):
         self.by_entry = dict.fromkeys(self.ENTRIES, 0)
 
     def add(self, entry: str) -> None:
-        self.count += 1
-        self.by_entry[entry] += 1
+        with self._lock:
+            self.count += 1
+            self.by_entry[entry] += 1
 
 
 def wrap_clamp_index(idx: torch.Tensor, n: int) -> torch.Tensor:

@@ -73,5 +73,5 @@ def embedding_bag(table, indices, weights=None, *, mode: str = "sum",
     if out.numel() == 0:
         return out
     kernel.launch(table, indices, weights, mean=mode == "mean", out=out)
-    launches.count += 1
+    launches.add()
     return out

@@ -114,5 +114,5 @@ def flash_attention(q, k, v, *, causal: bool = True):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     kernel.launch(q, k, v, out=out, causal=causal,
                   scale=1.0 / (q.shape[-1] ** 0.5))
-    launches.count += 1
+    launches.add()
     return out

@@ -45,8 +45,9 @@ class RouteCounter(LaunchCounter):
         self.by_route = dict.fromkeys(ROUTES, 0)
 
     def add(self, route: str) -> None:
-        self.count += 1
-        self.by_route[route] += 1
+        with self._lock:
+            self.count += 1
+            self.by_route[route] += 1
 
 
 launches = RouteCounter()

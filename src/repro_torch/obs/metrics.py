@@ -19,10 +19,10 @@ instead of scraping prints.  Canonical instrument names:
     engine.checkpoints           counter  engine checkpoints written
     engine.resumes               counter  runs restarted from a checkpoint
     engine.shards                gauge    workers in a sharded run
-                                          (repro.shard; 0/absent when
+                                          (repro_torch.shard; 0/absent when
                                           sequential)
     shard.merge_seconds          histogram  per-round shard state merge
-                                          time (repro.shard)
+                                          time (repro_torch.shard)
     halo.boundary_rows           gauge    flat pairwise exchange rows
     halo.dcn_rows_aggregated     gauge    host-grouped DCN lane rows
     halo.dcn_rows_naive          gauge    rows a flat layout would ship
