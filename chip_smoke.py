@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's partitioning (every registered algorithm), DIEN
-serving, LM serving, GNN aggregation and embedding pooling paths on one
-NVIDIA GPU and check them.
+serving, LM serving, GNN aggregation, GNN models and serving, and
+embedding pooling paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -139,7 +139,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               its halo and host plans equal array for array to a fresh
               ``plan_halo_exchange_stream`` and ``host_plan_from_halo``,
               every local graph's ids the plan's ``vmap_global[p]``, and
-              one flipped byte of ``halo_plan.npz`` refused.
+              one flipped byte of ``halo_plan.npz`` refused (then put
+              back: ``gnn_serve`` serves the artifact).
 18. resume    the crash drill through the CLI, in processes of their own
               (``--partition-counted``): 2PS-L at RMAT-16 (three chunks a
               pass), HDRF and buffered at RMAT-14; a clean run,
@@ -183,17 +184,39 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               events beside the previous route (``previous_ms``), cuSPARSE's
               SpMM and without the hub split; the messages' sum also timed
               and checked on the bound route.
-22. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
+              The same phase then runs gin-tu's whole forward at full
+              width (``config_for_shape("ogb_products")``: d_in 100, 5
+              layers with BN) through ``gin_apply`` on that graph and
+              prep: a warm-up and 2 calls, each 5 ``spmm`` launches on the
+              bound route and the readout's on perm; card against CPU on
+              4 copies of RMAT-14 within ``GNN_TOL``.
+22. gnn_serve  ``serve_gnn`` on the ``artifact`` phase's artifact (its
+              local graphs), 32 requests of 4 roots after a warm-up
+              request: full fan-out cached and uncached, ``--fanout 15
+              10``, 2 and 5 injected fetch faults, the CLI with ``--json``
+              and the cached run on the CPU; exactly (32 + 1) x
+              len(fanouts) ``spmm`` launches a call, all on the bound
+              route; cached == uncached and recovered == fault-free logits
+              bit for bit; card against CPU the report's counters equal
+              and the logits within ``GNN_TOL``; p50/p99, hit rate and the
+              spans (sampler, features, forward).
+23. gnn_models  GatedGCN and EGNN at full width on ``full_graph_sm``
+              (``full_graph_batch``: 2,708 nodes, d_in 1,433) and NequIP
+              on ``molecule`` (``molecule_batch``: 128 x 30 atoms), each
+              through its entry: every segment sum one ``spmm`` launch on
+              perm (33, 10 and 16 a forward), timed by CUDA events, card
+              against CPU within ``GNN_TOL``.
+24. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
               ``InteractionStream`` histories (seq 100, ``hist_mask`` as
               the weights) at 512 and 65,536 bags, ``sum`` and ``mean``: a
               warm-up and 3 calls each, exactly one launch per call; timed
               by CUDA-graph replays beside the previous design and by
               events beside ``F.embedding_bag``; bounds on the touched
               rows, a row per lookup and the sectors each row spans.
-23. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
+25. ops_card_vs_cpu  ``spmm`` at D = 64 on a relabelled RMAT-16 graph and
               ``embedding_bag`` at 512 bags, on the card and on the CPU
               through the same op, within the kernels' tolerance.
-24. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
+26. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
               (2PS-L at RMAT-16; 2PS-HDRF, HDRF, Greedy, HEP at the
               default budget, 131,072 and 8,192 bytes, and buffered at
               RMAT-14);
@@ -1613,7 +1636,10 @@ SUM_TOL = (f"|kernel - plain| <= {SUM_REL} * sum |w R| + {SUM_ABS} per "
 #: above the split length (one of exactly 1,025 edges, one at a D of two
 #: column passes), a wide D; the bound route's load widths (D = 4 and 64 in
 #: 16 bytes, 70 in 8, 63 and 65 one element, bf16 at 64) and a view whose
-#: base is one element off the 16 bytes
+#: base is one element off the 16 bytes; the GNN models' message widths
+#: (EGNN's degree and readout sums at D = 1, its coordinates at 3,
+#: NequIP's vector and matrix messages at 3C = 96 and 9C = 288, with hubs,
+#: and D = 1 and 3 with no edges)
 SPMM_CHECK = (
     (50, 300, 16, {}), (300, 2000, 70, {}), (1000, 5000, 128, {}),
     (257, 1, 5, {}), (128, 128, 128, {}), (5, 40, 200, {}),
@@ -1625,7 +1651,10 @@ SPMM_CHECK = (
     (64, 3000, 300, {"hub": 2100, "idx": "int64", "bad_src": True}),
     (40, 600, 520, {}), (300, 4000, 63, {}), (300, 4000, 65, {}),
     (300, 4000, 4, {"hub": 1500}), (300, 4000, 64, {"offset": 1}),
-    (300, 4000, 64, {"dtype": "bfloat16", "hub": 1500}))
+    (300, 4000, 64, {"dtype": "bfloat16", "hub": 1500}),
+    (300, 4000, 1, {}), (300, 4000, 1, {"hub": 2500}),
+    (300, 4000, 3, {"hub": 1500}), (300, 4000, 96, {}),
+    (300, 4000, 288, {"hub": 1100}), (10, 0, 1, {}), (10, 0, 3, {}))
 #: (V, D, B, L, mode, options): the reference test's four cases, no
 #: weights, a bag whose weights are all 0 (mean), negative and
 #: out-of-range indices, int64 indices, a bf16 table, an empty bag, then
@@ -2775,6 +2804,10 @@ def artifact_path(scale: int, tmp: str, k: int = 32, hosts: int = 4) -> dict:
         refused = True
     else:
         raise AssertionError("a flipped byte of halo_plan.npz loads")
+    with open(npz, "r+b") as f:        # the artifact serves in gnn_serve
+        f.seek(os.path.getsize(npz) // 2)
+        f.write(byte)
+    PartitionArtifact.load(art_dir)
     partition_s = sum(report["timings_s"].values())
     return {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0)",
             "edges": E, "vertices": report["vertices"], "k": k,
@@ -3473,7 +3506,8 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
     and ``segment_sum_tiles`` of (E, 70) messages, one warm-up and two
     calls; exactly one ``spmm`` launch per call.  Then the last outputs
     against the plain versions, and the kernel's routes, the plain
-    versions and cuSPARSE timed on the same inputs by CUDA events."""
+    versions and cuSPARSE timed on the same inputs by CUDA events.  Last,
+    gin-tu's whole forward on the graph (``gin_tu_forward``)."""
     import torch
     from repro_torch.kernels import wrap_clamp_index
     from repro_torch.kernels.spmm import (kernel, prepare_tiles,
@@ -3588,6 +3622,7 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
                              f"{vec_agree}")
     del msgs, y, want, vec_y, seg_scale
     torch.cuda.empty_cache()
+    forward = gin_tu_forward(src_d, dst_d, mask, prep, N, tmp)
     seg = {"D": GATED_D, "route": "perm", "calls_ms": seg_ms,
            "warmup_ms": seg_ms[0],
            "ms_per_call": float(np.median(seg_ms[1:])), "launches": seg_n,
@@ -3611,8 +3646,336 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
             "graph_s": graph_s, "prepare_tiles_s": prepare_s,
             "prep_to_cuda_s": to_s, "tolerance": SUM_TOL,
             "gin_spmm": gin, "gated_segment_sum": seg,
+            "gin_tu_forward": forward,
             "spmm_launches": gin_n + seg_n,
             "launches_by_route": {"bound": gin_n, "perm": seg_n}}
+
+
+# ---------------------------------------------------------------------------
+# the GNN models and GNN serving: every segment sum through spmm
+# ---------------------------------------------------------------------------
+
+#: a GNN model's outputs, card against CPU: every element within this share
+#: of the CPU output's largest magnitude (float32 products on cuBLAS and on
+#: the CPU round differently, the segment sums add in other orders, and the
+#: batch norms of the deep stacks amplify both; TF32 stays off)
+GNN_TOL = 1e-4
+#: gnn_aggregate's gin-tu forward held card against CPU on this RMAT scale
+#: (GNN_COPIES relabelled copies)
+GIN_CHECK_SCALE = 14
+#: outputs held card against CPU, by model
+GNN_OUTPUTS = {"gin": ("node_logits", "graph_logits"),
+               "gatedgcn": ("node_logits", "graph_logits"),
+               "egnn": ("node_logits", "graph_logits", "coords"),
+               "nequip": ("atom_energy", "energy")}
+
+
+def outputs_agree(card: dict, cpu: dict, keys) -> dict:
+    """Each of ``keys`` finite, of the CPU's shape, and within ``GNN_TOL``
+    of the CPU output's largest magnitude; the worst share."""
+    import torch
+    worst = 0.0
+    for k in keys:
+        a, b = card[k].float().cpu(), cpu[k].float()
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{k}: card output {tuple(a.shape)} not "
+                                 f"finite or not of shape {tuple(b.shape)}")
+        share = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+        worst = max(worst, share)
+    if worst > GNN_TOL:
+        raise AssertionError(f"card against CPU: {worst} of the largest "
+                             f"magnitude, above {GNN_TOL}")
+    return {"max_err_share": worst, "tolerance": GNN_TOL, "ok": True}
+
+
+def forward_calls(fn, n: int, by_route: dict, what: str) -> tuple:
+    """``n`` calls of ``fn``, each with every counter reset just before and
+    read just after: ``spmm`` launches exactly ``by_route`` by route,
+    nothing else; each timed between CUDA events.  (The last output, ms
+    per call, launches.)"""
+    import torch
+    ms, launches, out = [], 0, None
+    for _ in range(n):
+        out = None
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+
+        def call():
+            a.record()
+            r = fn()
+            b.record()
+            b.synchronize()
+            return r
+        out, counts, _ = counted(call)
+        expect_launches(counts, {"spmm": sum(by_route.values())}, what)
+        got = dict(counters()["spmm"].by_route)
+        if got != {**dict.fromkeys(got, 0), **by_route}:
+            raise AssertionError(f"{what}: spmm launches by route {got}, "
+                                 f"expected {by_route}")
+        ms.append(a.elapsed_time(b))
+        launches += counts["spmm"]
+    return out, ms, launches
+
+
+def gnn_card_vs_cpu(kind: str, cfg, batch: dict, n_graphs: int,
+                    seed: int) -> dict:
+    """``kind``'s forward through its entry on the same numpy batch and
+    weights (drawn on the CPU from ``seed``) on the card and on the CPU."""
+    import torch
+    from repro_torch.models import gnn as G
+    _, init, apply = G.GNN_MODELS[kind]
+    params = init(cfg, torch.Generator().manual_seed(seed))
+    cpu_b = {k: None if v is None else torch.from_numpy(v)
+             for k, v in batch.items()}
+    cpu = apply(cfg, params, cpu_b, n_graphs=n_graphs)
+    card = apply(cfg, G.params_to(params, "cuda"),
+                 {k: None if v is None else v.cuda()
+                  for k, v in cpu_b.items()}, n_graphs=n_graphs)
+    return outputs_agree(card, cpu, GNN_OUTPUTS[kind])
+
+
+def gin_tu_forward(src, dst, mask, prep, N: int, tmp: str) -> dict:
+    """gin-tu at full width (``config_for_shape("ogb_products")``: d_in
+    100) through ``gin_apply`` on ``gnn_aggregate``'s graph, with BN: its
+    ``GraphPrep`` made from the phase's prep (src and the edge mask bound
+    once, the readout over one graph), a warm-up and 2 timed calls, each 5
+    ``spmm`` launches on the bound route and the readout's on perm; the
+    outputs finite and shaped; then card against CPU on
+    ``GIN_CHECK_SCALE``'s copies."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn as G
+    t_phase = time.perf_counter()
+    cfg = get_arch("gin-tu").config_for_shape("ogb_products")
+    params = G.params_to(G.gin_init(cfg, torch.Generator().manual_seed(0)),
+                         "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"nodes": torch.randn((N, cfg.d_in), generator=g, device="cuda"),
+             "node_mask": torch.ones(N, device="cuda")}
+    t0 = time.perf_counter()
+    gp = G.GraphPrep(src=src, dst=dst, edge_mask=mask, num_nodes=N,
+                     edges=prep.with_edges(src, mask, num_rows=N),
+                     n_graphs=1, graphs=G.segments(np.zeros(N, np.int32),
+                                                   1, "cuda"))
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    out, ms, n = forward_calls(
+        lambda: G.gin_apply(cfg, params, batch, prep=gp), 3,
+        {"bound": cfg.n_layers, "perm": 1},
+        "gin-tu forward (5 bound spmm and the readout)")
+    peak = torch.cuda.max_memory_allocated()
+    for k, shape in (("node_logits", (N, cfg.n_classes)),
+                     ("graph_logits", (1, cfg.n_classes))):
+        if tuple(out[k].shape) != shape or not bool(
+                torch.isfinite(out[k]).all()):
+            raise AssertionError(f"gin-tu forward: {k} not finite or not "
+                                 f"{shape}")
+    del out, batch, gp
+    torch.cuda.empty_cache()
+    path, _ = write_graph(GIN_CHECK_SCALE, tmp)
+    s, d, n_small = relabelled_copies(np.fromfile(path, np.uint32)
+                                      .reshape(-1, 2), GNN_COPIES, seed=0)
+    rng = np.random.default_rng(2)
+    small = {"nodes": rng.standard_normal((n_small, cfg.d_in))
+             .astype(np.float32),
+             "edges": np.stack([s, d], 1),
+             "edge_mask": (rng.random(len(s)) < 0.99).astype(np.float32),
+             "node_mask": np.ones(n_small, np.float32),
+             "graph_ids": np.zeros(n_small, np.int32)}
+    agree = gnn_card_vs_cpu("gin", cfg, small, 1, 0)
+    return {"config": vars(cfg), "seconds": time.perf_counter() - t_phase,
+            "graph_prep_s": prep_s, "calls_ms": ms,
+            "warmup_ms": ms[0], "ms_per_call": float(np.median(ms[1:])),
+            "spmm_launches": n,
+            "spmm_launches_per_call": {"bound": cfg.n_layers, "perm": 1},
+            "peak_device_bytes": peak,
+            "card_vs_cpu": {"graph": f"{GNN_COPIES} copies of rmat_graph("
+                                     f"{GIN_CHECK_SCALE}), relabelled",
+                            "nodes": n_small, "edges": len(s),
+                            **agree}}
+
+
+def gnn_models() -> dict:
+    """GatedGCN and EGNN at full width on ``full_graph_sm`` (2,708 nodes,
+    10,556 edges, d_in 1,433 by ``config_for_shape``, ``full_graph_batch``)
+    and NequIP at full width on ``molecule`` (128 graphs of 30 atoms and
+    64 edges, ``molecule_batch``), each through its entry on the card: a
+    warm-up and 5 timed calls, every segment sum one ``spmm`` launch on
+    perm (GatedGCN 2 a layer and the readout, EGNN the degrees, 2 a layer
+    and the readout, NequIP 3 a layer and the readout); then card against
+    CPU on the same batch and weights."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.gnn_batches import full_graph_batch, molecule_batch
+    from repro_torch.models import gnn as G
+    t0 = time.perf_counter()
+    sm, mol = GNN_SHAPES["full_graph_sm"], GNN_SHAPES["molecule"]
+    graph = full_graph_batch(sm["n_nodes"], sm["n_edges"], sm["d_feat"],
+                             seed=0, with_coords=True)
+    nequip = get_arch("nequip").config_for_shape("molecule")
+    molecules, B = molecule_batch(mol["batch"], mol["n_nodes"],
+                                  mol["n_edges"], n_species=nequip.n_species,
+                                  seed=0)
+    cases = {
+        "gatedgcn": ("gatedgcn", "full_graph_sm", graph, 1,
+                     lambda c: 2 * c.n_layers + 1),
+        "egnn": ("egnn", "full_graph_sm", graph, 1,
+                 lambda c: 2 * c.n_layers + 2),
+        "nequip": ("nequip", "molecule", molecules, B,
+                   lambda c: 3 * c.n_layers + 1)}
+    out, total = {}, 0
+    for kind, (arch, shape, batch, n_graphs, perm) in cases.items():
+        cfg = get_arch(arch).config_for_shape(shape)
+        _, init, apply = G.GNN_MODELS[kind]
+        params = G.params_to(init(cfg, torch.Generator().manual_seed(0)),
+                             "cuda")
+        tb = {k: None if v is None else torch.from_numpy(v).cuda()
+              for k, v in batch.items()}
+        gp = G.graph_prep(tb, n_graphs)
+        res, ms, n = forward_calls(
+            lambda: apply(cfg, params, tb, n_graphs=n_graphs, prep=gp), 6,
+            {"perm": perm(cfg)}, f"{kind} forward")
+        total += n
+        out[kind] = {"shape": shape, "config": vars(cfg),
+                     "nodes": int(len(batch["node_mask"])),
+                     "edges": int(len(batch["edges"])),
+                     "calls_ms": ms, "ms_per_call": float(np.median(ms[1:])),
+                     "spmm_launches_per_call": {"perm": perm(cfg)},
+                     "card_vs_cpu": gnn_card_vs_cpu(kind, cfg, batch,
+                                                    n_graphs, 0)}
+    return {**out, "spmm_launches": total,
+            "seconds": time.perf_counter() - t0}
+
+
+#: gnn_serve's requests per call and roots per request
+GNN_SERVE_REQUESTS, GNN_SERVE_ROOTS = 32, 4
+#: the reference's serve_gnn report keys
+GNN_REPORT_KEYS = {"mode", "artifact", "requests", "roots_per_request",
+                   "fanouts", "k", "num_vertices", "num_edges", "p50_ms",
+                   "p99_ms", "cache", "remote_rows_fetched",
+                   "fetch_failures", "fetch_retries"}
+#: the spans of a served request
+GNN_SERVE_SPANS = ("serve.request", "sample.minibatch", "serve.features",
+                   "serve.forward")
+
+
+def serve_gnn_counted(art_dir: str, *, device: str = "cuda",
+                      cli: bool = False, **kw) -> dict:
+    """One ``serve_gnn`` call (or the CLI with ``--json``) under a fresh
+    tracer, every counter reset just before: exactly ``(requests + 1) *
+    len(fanouts)`` ``spmm`` launches on the card, all on the bound route
+    (none on the CPU); its logits, report, spans and wall."""
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    fanouts = tuple(kw.get("fanouts", (-1, -1)))
+    tracer = obs.Tracer()
+    buf = io.StringIO()
+
+    def call():
+        with obs.use_tracer(tracer), contextlib.redirect_stdout(buf):
+            if not cli:
+                return serve.serve_gnn(art_dir, n_requests=GNN_SERVE_REQUESTS,
+                                       roots_per=GNN_SERVE_ROOTS,
+                                       device=device, **kw)
+            serve.main(["--gnn-artifact", art_dir, "--requests",
+                        str(GNN_SERVE_REQUESTS), "--roots-per",
+                        str(GNN_SERVE_ROOTS), "--fanout",
+                        *map(str, fanouts), "--json"])
+            return None, json.loads(buf.getvalue().strip().splitlines()[-1])
+    (logits, report), counts, wall = counted(call)
+    n = (GNN_SERVE_REQUESTS + 1) * len(fanouts) if device == "cuda" else 0
+    expect_launches(counts, {"spmm": n}, f"serve_gnn {kw} on {device}")
+    by = dict(counters()["spmm"].by_route)
+    if by != {**dict.fromkeys(by, 0), "bound": n}:
+        raise AssertionError(f"serve_gnn: spmm launches by route {by}, "
+                             f"expected {n} on bound")
+    if set(report) != GNN_REPORT_KEYS:
+        raise AssertionError(f"serve_gnn report keys {sorted(report)}")
+    spans = dict.fromkeys(GNN_SERVE_SPANS, 0.0)
+    for ev in tracer.events():
+        if ev.get("ph") == "X" and ev["name"] in spans:
+            spans[ev["name"]] += ev["dur"] / 1e6
+    if logits is not None and not np.isfinite(logits).all():
+        raise AssertionError("serve_gnn: logits not finite")
+    return {"logits": logits, "report": report, "spans_s": spans,
+            "wall_s": wall, "spmm_launches": n,
+            "spmm_launches_by_route": by}
+
+
+def gnn_serve(tmp: str) -> dict:
+    """``serve_gnn`` on the ``artifact`` phase's RMAT-18 hosted artifact
+    (local graphs built there), 32 requests of 4 roots after a warm-up
+    request: full fan-out cached and uncached, ``--fanout 15 10``
+    (minibatch_lg's), 2 and 5 injected fetch faults (2 recover within the
+    default 2 retries, 5 serve degraded rows), the CLI with ``--json``,
+    and the cached full fan-out on the CPU.  Cached == uncached and
+    recovered == fault-free logits bit for bit on the card; card against
+    CPU the same report counters and logits within ``GNN_TOL``."""
+    art_dir = os.path.join(tmp, "artifact")
+    t0 = time.perf_counter()
+    runs = {"cached": serve_gnn_counted(art_dir),
+            "uncached": serve_gnn_counted(art_dir, no_cache=True),
+            "fanout_15_10": serve_gnn_counted(art_dir, fanouts=(15, 10)),
+            "faults_2": serve_gnn_counted(art_dir, inject_fetch_faults=2),
+            "faults_5": serve_gnn_counted(art_dir, inject_fetch_faults=5),
+            "cli": serve_gnn_counted(art_dir, cli=True),
+            "cpu": serve_gnn_counted(art_dir, device="cpu")}
+    card_s = time.perf_counter() - t0
+    cached = runs["cached"]
+    checks = {}
+    for name in ("uncached", "faults_2"):
+        if not np.array_equal(runs[name]["logits"], cached["logits"]):
+            raise AssertionError(f"serve_gnn {name}: logits are not the "
+                                 f"cached run's, bit for bit")
+        checks[f"{name}_bit_equal"] = True
+    f2, f5 = runs["faults_2"]["report"], runs["faults_5"]["report"]
+    if f2["fetch_failures"] != 0 or f2["fetch_retries"] != 2:
+        raise AssertionError(f"2 injected faults: {f2}")
+    if f5["fetch_failures"] <= 0:
+        raise AssertionError(f"5 injected faults served no degraded row")
+    checks["degraded_rows_at_5_faults"] = f5["fetch_failures"]
+    counters_equal = ("requests", "cache", "remote_rows_fetched",
+                      "fetch_failures", "fetch_retries")
+    cpu = runs["cpu"]
+    for k in counters_equal:
+        if cpu["report"][k] != cached["report"][k]:
+            raise AssertionError(f"serve_gnn card against CPU: {k} "
+                                 f"{cached['report'][k]} on the card, "
+                                 f"{cpu['report'][k]} on the CPU")
+    share = float(np.abs(cached["logits"] - cpu["logits"]).max()
+                  / np.abs(cpu["logits"]).max())
+    if share > GNN_TOL:
+        raise AssertionError(f"serve_gnn card against CPU: logits differ "
+                             f"by {share} of the largest, above {GNN_TOL}")
+    checks["card_vs_cpu"] = {"report_counters_equal": list(counters_equal),
+                             "logits_max_err_share": share,
+                             "tolerance": GNN_TOL}
+    lines = {}
+    for name, r in runs.items():
+        rep = r["report"]
+        req = max(r["spans_s"]["serve.request"], 1e-12)
+        lines[name] = {
+            "p50_ms": rep["p50_ms"], "p99_ms": rep["p99_ms"],
+            "hit_rate": rep["cache"]["hit_rate"],
+            "remote_rows_fetched": rep["remote_rows_fetched"],
+            "fetch_failures": rep["fetch_failures"],
+            "fetch_retries": rep["fetch_retries"],
+            "wall_s": r["wall_s"], "spans_s": r["spans_s"],
+            "span_shares": {k: v / req for k, v in r["spans_s"].items()
+                            if k != "serve.request"},
+            "spmm_launches": r["spmm_launches"],
+            "spmm_launches_by_route": r["spmm_launches_by_route"]}
+    report = cached["report"]
+    return {"artifact": "the artifact phase's (k = 32, 4 hosts)",
+            "num_vertices": report["num_vertices"],
+            "num_edges": report["num_edges"], "k": report["k"],
+            "requests": GNN_SERVE_REQUESTS,
+            "roots_per_request": GNN_SERVE_ROOTS, "runs": lines,
+            "checks": checks, "seconds": card_s,
+            "spmm_launches": sum(r["spmm_launches"] for r in runs.values())}
 
 
 #: the bound route's launch shapes --spmm-tune times, (SPMM_STEPS,
@@ -4395,6 +4758,10 @@ def main(argv=None) -> int:
         emit({"phase": "shard", **sh_run})
         ga = gnn_aggregate(min(args.scale, 20), tmp)
         emit({"phase": "gnn_aggregate", **ga})
+        gs = gnn_serve(tmp)
+        emit({"phase": "gnn_serve", **gs})
+    gm = gnn_models()
+    emit({"phase": "gnn_models", **gm})
     bp = bag_pool()
     emit({"phase": "bag_pool", **bp})
     emit({"phase": "ops_card_vs_cpu", **ops_card_vs_cpu(min(args.scale, 16))})
@@ -4427,6 +4794,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"the path launched no {name} kernel")
     if bp_run["edge_score_launches"] == 0:
         raise AssertionError("the buffered path launched no edge_score")
+    if gs["spmm_launches"] == 0 or gm["spmm_launches"] == 0:
+        raise AssertionError("the GNN paths launched no spmm")
     emit({"kernels": [{
         "name": "edge_score", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_score/csrc/edge_score.cu",
@@ -4502,6 +4871,9 @@ def main(argv=None) -> int:
                            ga["gated_segment_sum"]["max_abs_err"]),
         "kernel_route": gin["route"],
         "launches_by_route": ga["launches_by_route"],
+        "launches_gnn_serve": gs["spmm_launches"],
+        "launches_gnn_models": gm["spmm_launches"]
+        + ga["gin_tu_forward"]["spmm_launches"],
         "ms": gin["ms"], "previous_ms": gin["previous_ms"],
         "plain_ms": gin["plain_ms"],
         "bound_ms": gin["bound_ms"], "bound_by": gin["bound_by"],

@@ -1,10 +1,12 @@
 """Step factories of the port, the counterparts of ``repro.launch.steps``:
-LM prefill and decode, recsys (DIEN) serving and retrieval.  The reference
-jits these; the port runs them eagerly, without autograd."""
+LM prefill and decode, recsys (DIEN) serving and retrieval, and the GNN
+losses (forward only).  The reference jits these; the port runs them
+eagerly, without autograd."""
 from __future__ import annotations
 
 import torch
 
+from ..models import gnn as G
 from ..models import recsys as R
 from ..models import transformer as T
 
@@ -48,3 +50,54 @@ def make_recsys_retrieval_step(cfg, top_k: int = 100):
         values, indices = torch.topk(scores, top_k, sorted=True)
         return values, indices
     return retrieve
+
+
+def gnn_loss_fn(spec_family_cfg, kind: str, n_graphs: int = 1):
+    """Builds ``loss(params, batch)`` for any of the four GNN archs: the
+    reference's loss, forward only (``make_gnn_train_step`` is not ported
+    yet)."""
+    cfg = spec_family_cfg
+    is_nequip = cfg.__class__.__name__ == "NequIPConfig"
+
+    @torch.no_grad()
+    def loss(params, batch):
+        m = batch["node_mask"]
+        if "loss_mask" in batch:
+            m = m * batch["loss_mask"]
+        if is_nequip:
+            out = G.nequip_apply(cfg, params, batch, n_graphs=n_graphs)
+            if kind == "molecule":
+                return torch.mean(torch.square(
+                    out["energy"] - batch["energy_target"]))
+            # non-molecular cells: per-node energy regression on the labels
+            tgt = batch["labels"].float()
+            err = torch.square(out["atom_energy"] - tgt) * m
+            return err.sum() / torch.clamp_min(m.sum(), 1.0)
+
+        _, _, apply = G.GNN_MODELS[_gnn_kind(cfg)]
+        out = apply(cfg, params, batch, n_graphs=n_graphs)
+        logp = torch.log_softmax(out["node_logits"].float(), dim=-1)
+        ll = torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0]
+        return -(ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+    return loss
+
+
+def _gnn_kind(cfg):
+    return {"GINConfig": "gin", "GatedGCNConfig": "gatedgcn",
+            "EGNNConfig": "egnn", "NequIPConfig": "nequip"}[
+                cfg.__class__.__name__]
+
+
+def gnn_init(cfg, generator: torch.Generator) -> dict:
+    _, init, _ = G.GNN_MODELS[_gnn_kind(cfg)]
+    return init(cfg, generator)
+
+
+def make_gnn_train_step(cfg, kind: str, *, n_graphs: int = 1, lr=1e-3):
+    """Not ported yet: a GNN train step needs the optimizer and training
+    loop of ROADMAP.md Queue 1 item 12, and a backward of the ``spmm``
+    segment sums."""
+    raise NotImplementedError(
+        "GNN training (make_gnn_train_step) is not ported to repro_torch "
+        "yet: see ROADMAP.md Queue 1 item 12 (optim/ and training/)")

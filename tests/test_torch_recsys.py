@@ -218,16 +218,49 @@ def test_serve_main_full_width_on_cpu(monkeypatch):
 @pytest.mark.parametrize("argv", [["--arch", "qwen2-moe-a2.7b"],
                                   ["--arch", "egnn"],
                                   ["--gnn-artifact", "parts/"]])
-def test_unported_serving_raises(argv):
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_unported_serving_raises(argv, tmp_path):
+    """The serving CLI beyond DIEN and the dense LMs: an MoE LM is not
+    ported and raises ``NotImplementedError``; a GNN ``--arch`` without an
+    artifact raises ``ValueError``; ``--gnn-artifact`` serves (here a small
+    artifact in place of ``parts/``) and prints the reference's report."""
+    if argv[0] == "--gnn-artifact":
+        from repro_torch.core import (InMemoryEdgeStream, PartitionArtifact,
+                                      run_spec, spec_for)
+        from repro_torch.sample import build_local_graphs
+        edges = np.random.default_rng(0).integers(0, 60, (300, 2))
+        res = run_spec(spec_for("2psl", chunk_size=128),
+                       InMemoryEdgeStream(edges, num_vertices=60), 2,
+                       device="cpu")
+        art = PartitionArtifact.save(str(tmp_path / "parts"), res,
+                                     num_vertices=60, num_edges=300,
+                                     edges=edges)
+        build_local_graphs(art, edges=edges)
+        report = _report(serve.main, ["--gnn-artifact", art.path,
+                                      "--requests", "3", "--device", "cpu",
+                                      "--json"])
+        assert report["mode"] == "gnn" and report["requests"] == 3
+        assert report["fetch_failures"] == 0
+        return
+    error, match = ((ValueError, "needs --gnn-artifact") if argv[1] == "egnn"
+                    else (NotImplementedError, "not ported"))
+    with pytest.raises(error, match=match):
         serve.main(argv + ["--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "olmoe-1b-7b", "egnn",
                                   "nequip", "gin-tu", "gatedgcn"])
 def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_arch(arch)
+    """The MoE LMs name their ROADMAP item; the GNNs resolve to the
+    reference's configs."""
+    if arch in ("qwen2-moe-a2.7b", "olmoe-1b-7b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            get_arch(arch)
+        return
+    spec, ref = get_arch(arch), r_get_arch(arch)
+    assert spec.family == ref.family == "gnn"
+    for make in ("make_config", "make_smoke_config"):
+        assert (dataclasses.asdict(getattr(spec, make)())
+                == dataclasses.asdict(getattr(ref, make)()))
 
 
 def test_serve_defaults_to_the_card():
