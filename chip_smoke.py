@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's partitioning (every registered algorithm), DIEN
-serving, LM serving, GNN aggregation, GNN models and serving, and
-embedding pooling paths on one NVIDIA GPU and check them.
+serving, LM serving, GNN aggregation, GNN models and serving, embedding
+pooling and training (LM, DIEN, GNN, the train CLI) paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. env        the card (nvidia-smi name and power limit), torch and CUDA.
-2. build      every kernel (``edge_score``, ``hdrf_score``, ``augru``,
-              ``flash_attention``, ``spmm``, ``embedding_bag``), compiled
+2. build      every kernel (``edge_score``, ``hdrf_score``, ``augru`` and
+              its backward, ``flash_attention`` and its backward,
+              ``spmm``, ``embedding_bag``), compiled
               from ``src/`` with one nvcc per source, all started together;
               each compiled function's registers and spills (ptxas), by
               template instantiation.
@@ -82,8 +84,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               65,536 rows beside the previous design and cuDNN's GRU (at
               65,536 rows as equal sub-batches, in a process of its own),
               back to back between CUDA events (cuDNN also as CUDA-graph
-              replays), per step and by route, and both register routes
-              at 8 to 64 rows per SM, around where the plan switches.
+              replays; at 65,536 rows, and both register routes at 8 to
+              64 rows per SM, only with ``--previous-designs``).
+              The backward kernels against their plain backwards, two
+              launches bit-equal: ``flash_attention_backward`` (the CPU
+              tests' cases, D 256 and 33, starcoder2-3b's heads at 4,096
+              tokens in the model's layout; float32 within 1e-4 of each
+              gradient's largest magnitude, bf16 elementwise within
+              ``ops.bf16_gradient_bound``), ``augru_backward`` (T = 1 and
+              100, H 24 to 1,000, 512 and 65,536 rows; within 1e-5), and
+              ``spmm``'s backward (the reversed edges' bound route after a
+              bound and a perm forward, D 64 and 70, weighted or not,
+              wrapped and clamped src; within ``SUM_TOL``); timed beside
+              SDPA's flash backward at (1, 24/2, 4,096, 128) bf16 and
+              cuDNN's GRU backward at 512 and 65,536 rows.
 4. recsys_serve  DIEN at full width through the serving CLI (``python -m
               repro_torch.launch.serve --arch dien --full --requests N``):
               ``serve_p99`` (512) after a warm-up, ``serve_bulk`` as four
@@ -106,20 +120,32 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               argmax); and, recorded but not gated, the bf16 model's 30
               layers on (1, 2,048) through the kernel and through the
               previous design, each against the plain attention.
+9a. lm_train  starcoder2-3b at full width and depth (bf16, 30 layers,
+              ``remat="full"``) through ``make_lm_train_step`` on
+              train_4k's 4,096 tokens, batch cut from 256 to 4 (the
+              config's 4 microbatches of 1): a warm-up and 3 timed steps,
+              each exactly 240 ``flash_attention`` forwards and 120
+              backwards; step ms, tokens/s, peak memory; card against CPU
+              in float32 on 2 layers and (1, 512) tokens (loss and every
+              gradient within 1e-3 of the largest magnitude).
+9b. recsys_train  DIEN at full width on train_batch's 65,536 rows: a
+              warm-up and 3 steps, each exactly 2 ``augru`` forwards and 2
+              backwards; card against CPU at 512 rows within 1e-4.
 10. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
               stream (the user's entry point, through
               ``MemmapEdgeStream``), k=32: one ``edge_score`` launch per
               scoring chunk, all through ``edge_score_choose_bits``.
 11. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
               dcn_penalty 1.0), its launches checked the same way.
-12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-20 (``--scale``): one
+12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-19: one
               ``hdrf_score`` launch per scoring chunk, all through
               ``hdrf_choose_bits``, no ``edge_score``.
 13. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
               RMAT-16: one ``hdrf_score`` launch per non-empty 64-edge
-              micro-batch, all through ``hdrf_choose_bits``; each run
-              again with the previous composition of the choice,
-              byte-equal, its wall beside; the device operations per
+              micro-batch, all through ``hdrf_choose_bits``; with
+              ``--previous-designs`` each run again with the previous
+              composition of the choice, byte-equal, its wall beside; the
+              device operations per
               micro-batch of both, profiled over one 4,096-edge chunk.
 14. hash      DBH, Grid and Random through the CLI at RMAT-20.
 15. hep       HEP through the CLI at RMAT-19, at the default budget (every
@@ -190,6 +216,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               prep: a warm-up and 2 calls, each 5 ``spmm`` launches on the
               bound route and the readout's on perm; card against CPU on
               4 copies of RMAT-14 within ``GNN_TOL``.
+21a. gnn_train  gin-tu at full width on ``gnn_aggregate``'s graph: the
+              batch prepared once in both directions (the reverse's host
+              seconds), 3 AdamW steps, each exactly 5 ``spmm`` forwards and
+              5 backwards on the bound route and the readout's forward on
+              perm, run twice from the same state with bit-equal
+              parameters; the backward ``spmm`` timed beside cuSPARSE's
+              transposed SpMM; card against CPU on 4 RMAT-14 copies; one
+              step each of GatedGCN, EGNN (``full_graph_sm``) and NequIP
+              (``molecule``), every segment sum's backward a gather (33, 10
+              and 16 ``spmm`` launches a step), card against CPU (1e-4).
 22. gnn_serve  ``serve_gnn`` on the ``artifact`` phase's artifact (its
               local graphs), 32 requests of 4 roots after a warm-up
               request: full fan-out cached and uncached, ``--fanout 15
@@ -206,6 +242,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               through its entry: every segment sum one ``spmm`` launch on
               perm (33, 10 and 16 a forward), timed by CUDA events, card
               against CPU within ``GNN_TOL``.
+22a. train_cli  ``python -m repro_torch.launch.train`` on the card:
+              gin-tu ``--full``, 12 steps, a failure injected at 7,
+              checkpoints every 5 (``restarts=1``, 154 ``spmm`` launches,
+              the losses bit-equal to a clean run's in a process of its
+              own through ``-m``); DIEN 6 steps then 10 (``resuming from
+              checkpoint step 6``, 2 + 2 ``augru`` launches a step);
+              starcoder2-3b's smoke config.
 24. bag_pool  ``embedding_bag`` over DIEN's 2,097,152 x 18 item table with
               ``InteractionStream`` histories (seq 100, ``hist_mask`` as
               the weights) at 512 and 65,536 bags, ``sum`` and ``mean``: a
@@ -234,6 +277,14 @@ checks the counts just after.
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --previous-designs
+
+runs the whole script and also the earlier redesigns' before/after
+measurements the default run leaves out (the HDRF baselines again with
+the previous composition, the previous flash design's prefill time, the
+bf16 model's logits through it, cuDNN's GRU at 65,536 rows and the augru
+route edges).
 
     python3 chip_smoke.py --scoring-compare
 
@@ -1362,7 +1413,8 @@ def gru_split_library(B: int, reps: int = 5) -> dict:
                        f"{GRU_SPLITS} equal sub-batches"}
 
 
-def time_augru(B: int, T: int = 100, H: int = 108, reps: int = 50) -> dict:
+def time_augru(B: int, T: int = 100, H: int = 108, reps: int = 50,
+               library: bool = True) -> dict:
     """The kernel (by ``kernel.launch``, the route ``ops.augru`` takes),
     the previous design (``kernel.launch_previous``), the plain version and
     cuDNN's GRU at (B, T, H), each as ``reps`` back-to-back calls between
@@ -1370,7 +1422,8 @@ def time_augru(B: int, T: int = 100, H: int = 108, reps: int = 50) -> dict:
     replays (``library_ms`` up to ``GRU_MAX_BATCH``: the device's time
     alone); per step (ms / T) beside each.  ``op_call_ms``: one
     ``ops.augru`` call between events, the host's checks and launch
-    included."""
+    included.  ``library=False`` leaves cuDNN out (above ``GRU_MAX_BATCH``
+    its split takes a process of its own per try)."""
     import torch
     from repro_torch.kernels.augru import augru, augru_ref, kernel
     args = augru_inputs(B, T, H, seed=7, ones=False, device="cuda")
@@ -1395,6 +1448,8 @@ def time_augru(B: int, T: int = 100, H: int = 108, reps: int = 50) -> dict:
            **bound(nbytes, 2 * B * T * H * 3 * H)}
     del args, out
     torch.cuda.empty_cache()
+    if not library:
+        return {**res, "library_ms": None}
     res.update({"library_ms": gru_library_ms(B, T, reps=reps, graph=True),
                 "library_batched_ms": gru_library_ms(B, T, reps=reps),
                 "library": "torch.nn.GRU(18, 108) on (B, 100, 18), cuDNN, "
@@ -1575,7 +1630,7 @@ def previous_attention(q, k, v, *, causal: bool = True):
 
 
 def time_flash_attention(S: int, Hq: int = 24, Hkv: int = 2,
-                         D: int = 128) -> dict:
+                         D: int = 128, previous: bool = False) -> dict:
     """One causal bf16 prefill layer of (1, Hq, S, D) in the model's layout
     (``flash_inputs(model_layout=True)``): the kernel's output held to its
     plain version's by ``flash_agree``, then the kernel, the previous design
@@ -1595,8 +1650,8 @@ def time_flash_attention(S: int, Hq: int = 24, Hkv: int = 2,
         raise AssertionError(f"flash_attention disagrees at the prefill "
                              f"shape: {agree}")
     ms = cuda_time_ms(lambda: flash_attention(q, k, v), reps=10, warmup=2)
-    previous_ms = cuda_time_ms(lambda: previous_attention(q, k, v), reps=2,
-                               warmup=1)
+    previous_ms = (cuda_time_ms(lambda: previous_attention(q, k, v), reps=2,
+                                warmup=1) if previous else None)
     plain_ms = cuda_time_ms(lambda: plain_attention(q, k, v), reps=2,
                             warmup=1)
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
@@ -1608,9 +1663,9 @@ def time_flash_attention(S: int, Hq: int = 24, Hkv: int = 2,
     return {"shape": [1, Hq, Hkv, S, S, D], "causal": True,
             "dtype": "bfloat16", "model_layout": True, **agree, "ms": ms,
             "previous_ms": previous_ms, "speedup_over_previous":
-            previous_ms / ms, "plain_ms": plain_ms,
+            previous_ms and previous_ms / ms, "plain_ms": plain_ms,
             "ms_source": "cuda_events", "tflop_per_s": ops / ms / 1e9,
-            "previous_tflop_per_s": ops / previous_ms / 1e9,
+            "previous_tflop_per_s": previous_ms and ops / previous_ms / 1e9,
             "library_tflop_per_s": ops / lib_ms / 1e9,
             **bound(nbytes, ops, BF16_OPS_PER_S), "library_ms": lib_ms,
             "library": "torch.nn.functional.scaled_dot_product_attention("
@@ -2253,11 +2308,13 @@ def lm_bf16_vs_plain(long: int = 2048) -> dict:
     return line
 
 
-def lm_card_vs_cpu(short: int = 512, long: int = 2048) -> dict:
+def lm_card_vs_cpu(short: int = 512, long: int = 2048,
+                   previous: bool = False) -> dict:
     """starcoder2-3b's widths in float32 (TF32 off): 2 layers on (1,
     ``short``) on the card and on the CPU; all 30 layers on (1, ``long``)
     on the card through the kernel and through the plain attention.  Then,
-    recorded beside them, the bf16 model's logits (``lm_bf16_vs_plain``)."""
+    with ``previous`` (``--previous-designs``), recorded beside them, the
+    bf16 model's logits (``lm_bf16_vs_plain``)."""
     import dataclasses
     import torch
     import repro_torch.models.transformer as T
@@ -2301,7 +2358,7 @@ def lm_card_vs_cpu(short: int = 512, long: int = 2048) -> dict:
             "kernel_vs_plain": long_line}
     if not (short_line["ok"] and long_line["ok"]):
         raise AssertionError(f"LM card vs cpu disagree: {line}")
-    return {**line, "bf16": lm_bf16_vs_plain(long)}
+    return {**line, "bf16": lm_bf16_vs_plain(long) if previous else None}
 
 
 # ---------------------------------------------------------------------------
@@ -2356,7 +2413,10 @@ def counters() -> dict:
             "augru": augru.launches,
             "flash_attention": flash_attention.launches,
             "spmm": spmm.launches,
-            "embedding_bag": embedding_bag.launches}
+            "embedding_bag": embedding_bag.launches,
+            "flash_attention_backward": flash_attention.backward_launches,
+            "augru_backward": augru.backward_launches,
+            "spmm_backward": spmm.backward_launches}
 
 
 def counted(fn):
@@ -2521,11 +2581,13 @@ def micro_batch_kernels(scale: int, k: int = 32, chunk: int = 4096) -> dict:
             "device_ops_per_micro_batch": out}
 
 
-def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
-    """HDRF, Greedy and host-aware HDRF through the CLI, each then again
-    with the previous composition of the choice (``previous_choose_bits``
-    in place of ``hdrf_choose_bits``: the gather, ``host_any`` and the
-    previous kernel), byte-equal.  Each 64-edge micro-batch is a few dozen
+def hdrf_baselines(scale: int, tmp: str, k: int = 32,
+                   previous: bool = False) -> dict:
+    """HDRF, Greedy and host-aware HDRF through the CLI, each (with
+    ``previous``, ``--previous-designs``) then again with the previous
+    composition of the choice (``previous_choose_bits`` in place of
+    ``hdrf_choose_bits``: the gather, ``host_any`` and the previous
+    kernel), byte-equal.  Each 64-edge micro-batch is a few dozen
     eager launches; at RMAT-16 that is 14,927 micro-batches per run (12-15
     s each), which is why this phase runs below the 2PS-HDRF path's
     scale."""
@@ -2551,6 +2613,8 @@ def hdrf_baselines(scale: int, tmp: str, k: int = 32) -> dict:
                                micro_batches=want)
         if extra:
             runs[name]["cross_host_rf"] = report["cross_host_rf"]
+        if not previous:
+            continue
         original = hs_ops.hdrf_choose_bits
         hs_ops.hdrf_choose_bits = previous_choose_bits
         try:
@@ -3489,8 +3553,12 @@ def counted_calls(fn, n: int, kernel: str, what: str,
 def csr_library_ms(prep, col, values, n_cols: int, rows, reps: int = 5):
     """cuSPARSE's SpMM (``torch.sparse.mm`` of a CSR matrix built once from
     the prep) on the same operands: a yardstick of speed only, never on the
-    port's path.  Returns (ms, its output)."""
+    port's path.  Returns (ms, its output).  The column ids take
+    ``row_ptr``'s width: cuSPARSE reads both index arrays at one width,
+    and with the invariants unchecked an int32 ``col`` beside the int64
+    ``row_ptr`` is read past its end (an illegal address)."""
     import torch
+    col = col.to(prep.row_ptr.dtype)
     a = torch.sparse_csr_tensor(prep.row_ptr, col, values,
                                 size=(prep.num_nodes, n_cols),
                                 check_invariants=False)
@@ -3623,6 +3691,7 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
     del msgs, y, want, vec_y, seg_scale
     torch.cuda.empty_cache()
     forward = gin_tu_forward(src_d, dst_d, mask, prep, N, tmp)
+    train = gnn_train(src_d, dst_d, mask, N, tmp)
     seg = {"D": GATED_D, "route": "perm", "calls_ms": seg_ms,
            "warmup_ms": seg_ms[0],
            "ms_per_call": float(np.median(seg_ms[1:])), "launches": seg_n,
@@ -3646,7 +3715,7 @@ def gnn_aggregate(scale: int, tmp: str) -> dict:
             "graph_s": graph_s, "prepare_tiles_s": prepare_s,
             "prep_to_cuda_s": to_s, "tolerance": SUM_TOL,
             "gin_spmm": gin, "gated_segment_sum": seg,
-            "gin_tu_forward": forward,
+            "gin_tu_forward": forward, "gnn_train": train,
             "spmm_launches": gin_n + seg_n,
             "launches_by_route": {"bound": gin_n, "perm": seg_n}}
 
@@ -4591,6 +4660,829 @@ def twopsl_scoring(scale: int, k: int = 32) -> dict:
     out["chunk_device_ops"] = chunk_device_ops(scale, k)
     return out
 
+# ---------------------------------------------------------------------------
+# training: the backward kernels of flash_attention, augru and spmm
+# ---------------------------------------------------------------------------
+
+#: a float32 gradient of a backward kernel within this share of the plain
+#: backward's largest magnitude, by kernel (flash attention's float32 sums
+#: in another order, with the cancellation in dp - delta; augru's and
+#: spmm's as their forwards'); bf16 flash gradients elementwise within
+#: ``ops.bf16_gradient_bound``
+GRAD_TOL = {"flash_attention": 1e-4, "augru": 1e-5}
+
+#: flash attention's backward cases: the CPU tests' (GQA 1:1, 2:1, 12:1,
+#: Sq != Skv both ways, D 16 and 128, ragged S), D 256 and an odd 33, and
+#: starcoder2-3b's heads at 4,096 tokens in the model's layout (v strided)
+FLASH_BWD_CHECK = (
+    (1, 2, 2, 16, 16, 16, True), (2, 4, 2, 19, 19, 16, True),
+    (1, 12, 1, 33, 33, 16, True), (1, 4, 2, 5, 23, 16, True),
+    (1, 4, 2, 21, 13, 16, False), (2, 4, 4, 17, 17, 16, False),
+    (1, 4, 2, 37, 37, 128, True), (1, 24, 2, 9, 70, 128, True),
+    (2, 8, 8, 100, 300, 256, True), (1, 4, 2, 70, 70, 33, False),
+    (1, 24, 2, 4096, 4096, 128, True))
+#: augru's backward cases: the CPU tests' (T = 1 and 100; H 24, 37, 112),
+#: H above what U in shared memory takes (160, 1000), DIEN's serve rows
+#: and the recsys_train phase's rows (``RECSYS_TRAIN_ROWS``, added there)
+AUGRU_BWD_CHECK = ((3, 1, 24), (2, 100, 24), (4, 7, 37), (2, 5, 112),
+                   (1, 100, 37), (5, 9, 160), (2, 3, 1000), (512, 100, 108))
+
+
+def grad_share(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def check_flash_backward(cases) -> dict:
+    """``flash_attention_backward`` against ``gqa_attention_backward`` on the
+    card, float32 and bf16, on the forward kernel's output: each float32
+    gradient within ``GRAD_TOL``, each bf16 element within
+    ``ops.bf16_gradient_bound`` of the plain backward evaluated in float32
+    on the same bf16 operands; two launches bit-equal.  The 4,096-token case
+    in the model's layout."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        bf16_gradient_bound, flash_attention, flash_attention_backward,
+        gqa_attention_backward)
+    worst, worst_bf16, n, abs_err = 0.0, 0.0, 0, 0.0
+    for (B, Hq, Hkv, Sq, Skv, D, causal) in cases:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = flash_inputs(B, Hq, Hkv, Sq, Skv, D, dtype,
+                                   seed=Sq + D, device="cuda",
+                                   model_layout=Sq >= 4096)
+            do = torch.randn(q.shape, device="cuda").to(q.dtype)
+            with torch.no_grad():
+                o = flash_attention(q, k, v, causal=causal)
+            got = flash_attention_backward(q, k, v, o, do, causal=causal)
+            again = flash_attention_backward(q, k, v, o, do, causal=causal)
+            want = gqa_attention_backward(q.float(), k.float(), v.float(),
+                                          o.float(), do.float(),
+                                          causal=causal)
+            torch.cuda.synchronize()
+            for name, g, a, w in zip("qkv", got, again, want):
+                what = case_str(B, Hq, Hkv, Sq, Skv, D, causal, dtype)
+                if not torch.equal(g, a):
+                    raise AssertionError(f"flash backward d{name}: two "
+                                         f"launches differ at {what}")
+                if dtype == "float32":
+                    share = grad_share(g, w)
+                    worst = max(worst, share)
+                    abs_err = max(abs_err, float((g - w).abs().max()))
+                    ok = share <= GRAD_TOL["flash_attention"]
+                else:
+                    ratio = float(((g.float() - w).abs()
+                                   / bf16_gradient_bound(w)).max())
+                    worst_bf16 = max(worst_bf16, ratio)
+                    ok = ratio <= 1.0
+                if not ok:
+                    raise AssertionError(f"flash backward d{name} "
+                                         f"disagrees at {what}")
+            n += 1
+            del q, k, v, do, o, got, again, want
+    torch.cuda.empty_cache()
+    return {"cases": n, "max_abs_err": abs_err,
+            "max_err_share_float32": worst,
+            "max_err_over_bf16_bound": worst_bf16,
+            "tolerance": f"float32 within {GRAD_TOL['flash_attention']} of "
+                         f"each gradient's largest magnitude; bf16 "
+                         f"elementwise within 2^-8 |plain| + 1e-4 max "
+                         f"|plain| (ops.bf16_gradient_bound)",
+            "bit_equal": True, "ok": True}
+
+
+def case_str(*case) -> str:
+    return "(" + ", ".join(map(str, case)) + ")"
+
+
+def flash_backward_work(B, Hq, Hkv, Sq, Skv, D, causal, itemsize) -> tuple:
+    """(bytes, operations) of one backward: q, k, v, o, do read once and
+    dq, dk, dv written once; 10 D operations per visible (query, key) pair
+    and head (S, dP, dV, dQ and dK, each two multiply-adds of D)."""
+    nbytes, ops = flash_work(B, Hq, Hkv, Sq, Skv, D, causal, itemsize)
+    nbytes = itemsize * D * (4 * B * Hq * Sq + 4 * B * Hkv * Skv)
+    return nbytes, ops // 4 * 10
+
+
+def time_flash_backward(S: int = 4096, Hq: int = 24, Hkv: int = 2,
+                        D: int = 128) -> dict:
+    """starcoder2-3b's causal bf16 layer at ``S`` tokens in the model's
+    layout: the backward kernel, the plain backward and SDPA's flash
+    backend's backward (GQA, causal; a yardstick of speed only, never on
+    the port's path) timed between CUDA events on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, gqa_attention_backward)
+    q, k, v = flash_inputs(1, Hq, Hkv, S, S, D, "bfloat16", seed=11,
+                           device="cuda", model_layout=True)
+    do = torch.randn(q.shape, device="cuda").to(q.dtype)
+    with torch.no_grad():
+        o = flash_attention(q, k, v)
+    ms = cuda_time_ms(lambda: flash_attention_backward(q, k, v, o, do),
+                      reps=10, warmup=2)
+    plain_ms = cuda_time_ms(lambda: gqa_attention_backward(q, k, v, o, do),
+                            reps=2, warmup=1)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                             enable_gqa=True)
+        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do, retain_graph=True), reps=10, warmup=2)
+    nbytes, ops = flash_backward_work(1, Hq, Hkv, S, S, D, True, 2)
+    del q, k, v, do, o, out, ql, kl, vl
+    torch.cuda.empty_cache()
+    return {"shape": [1, Hq, Hkv, S, S, D], "causal": True,
+            "dtype": "bfloat16", "model_layout": True, "ms": ms,
+            "plain_ms": plain_ms, "ms_source": "cuda_events",
+            "tflop_per_s": ops / ms / 1e9,
+            **bound(nbytes, ops, BF16_OPS_PER_S), "library_ms": lib_ms,
+            "library": "torch.autograd.grad of torch.nn.functional."
+                       "scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True), flash backend"}
+
+
+def check_augru_backward(shapes) -> dict:
+    """``augru_backward`` against ``augru_backward_ref`` on the card with
+    random attention: every gradient within ``GRAD_TOL`` of its largest
+    magnitude, two launches bit-equal."""
+    import torch
+    from repro_torch.kernels.augru import (augru, augru_backward,
+                                           augru_backward_ref)
+    worst, abs_err = 0.0, 0.0
+    for (B, T, H) in shapes:
+        xg, u, att, h0 = augru_inputs(B, T, H, seed=B + H, ones=False,
+                                      device="cuda")
+        do = torch.randn((B, T, H), device="cuda")
+        with torch.no_grad():
+            out = augru(xg, u, att, h0)
+        got = augru_backward(xg, u, att, h0, out, do)
+        again = augru_backward(xg, u, att, h0, out, do)
+        want = augru_backward_ref(xg, u, att, h0, out, do)
+        torch.cuda.synchronize()
+        for name, g, a, w in zip(("x_gates", "u", "att", "h0"), got, again,
+                                 want):
+            share = grad_share(g, w)
+            worst = max(worst, share)
+            abs_err = max(abs_err, float((g - w).abs().max()))
+            if not torch.equal(g, a) or share > GRAD_TOL["augru"]:
+                raise AssertionError(
+                    f"augru backward d{name} at {(B, T, H)}: bit-equal "
+                    f"{torch.equal(g, a)}, share {share}")
+        del xg, u, att, h0, do, out, got, again, want
+    torch.cuda.empty_cache()
+    return {"cases": len(shapes), "max_abs_err": abs_err,
+            "max_err_share": worst,
+            "tolerance": f"within {GRAD_TOL['augru']} of each gradient's "
+                         f"largest magnitude",
+            "bit_equal": True, "ok": True}
+
+
+def gru_backward_library_ms(B: int, T: int = 100, e: int = 18,
+                            H: int = 108, reps: int = 5) -> float:
+    """cuDNN's GRU backward (``torch.nn.GRU``, float32 without TF32) on
+    (B, T, e), above ``GRU_MAX_BATCH`` rows as the sum of equal
+    sub-batches of at most that many (the forward faults at 65,536): a
+    yardstick of speed only, never of parity."""
+    import torch
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gru = torch.nn.GRU(e, H, batch_first=True).cuda()
+        split = -(-B // GRU_MAX_BATCH)
+        total = 0.0
+        for _ in range(split):
+            x = torch.randn(B // split, T, e, device="cuda",
+                            requires_grad=True)
+            out, _ = gru(x)
+            do = torch.randn_like(out)
+            leaves = [x, *gru.parameters()]
+            total += batched_ms(lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), reps, 1)
+            del x, out, do, leaves
+        return total
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def time_augru_backward(B: int, T: int = 100, H: int = 108,
+                        reps: int = 20) -> dict:
+    """The backward kernel (with ``du``'s product, as the op runs it), the
+    plain backward and cuDNN's GRU backward at (B, T, H), CUDA events."""
+    import torch
+    from repro_torch.kernels.augru import (augru, augru_backward,
+                                           augru_backward_ref, kernel)
+    xg, u, att, h0 = augru_inputs(B, T, H, seed=5, ones=False,
+                                  device="cuda")
+    do = torch.randn((B, T, H), device="cuda")
+    with torch.no_grad():
+        out = augru(xg, u, att, h0)
+    ms = batched_ms(lambda: augru_backward(xg, u, att, h0, out, do), reps,
+                    2)
+    plain_ms = cuda_time_ms(lambda: augru_backward_ref(xg, u, att, h0, out,
+                                                       do), 2, 1)
+    lib_ms = gru_backward_library_ms(B, T, H=H)
+    plan = kernel.backward_plan(B, H, *kernel.device_limits(
+        torch.cuda.current_device()))
+    # bytes: x_gates, out, dout, att, h0, u read once; dx_gates, dhU_n,
+    # datt, dh0, du written once.  Operations: per (row, step) hU (2 H 3H),
+    # dhU U^T (2 3H H) and du's share (2 H 3H)
+    nbytes = 4 * (B * T * (3 * H + 2 * H + 1) + B * H + 3 * H * H
+                  + B * T * (3 * H + H + 1) + B * H + 3 * H * H)
+    ops = 18 * B * T * H * H
+    del xg, u, att, h0, do, out
+    torch.cuda.empty_cache()
+    return {"shape": [B, T, H], "plan": plan._asdict(), "ms": ms,
+            "plain_ms": plain_ms, "ms_source": "cuda_events",
+            **bound(nbytes, ops), "library_ms": lib_ms,
+            "library": "torch.autograd.grad of torch.nn.GRU(18, 108), "
+                       "cuDNN, TF32 off"}
+
+
+def check_spmm_backward(D: int, *, N: int = 65_536, E: int = 1 << 20) -> dict:
+    """``spmm``'s backward on the card on a random graph (wrapped and
+    clamped src, isolated rows), weighted and not: the forward on the bound
+    route (the reverse built once, ``with_reverse``) and on perm (the
+    reverse built for the call), each gradient one ``spmm`` launch on the
+    bound route, held to the gradient written from its definition
+    (``index_add_`` of w * G[dst] into the wrapped in-range src) within
+    ``SUM_TOL``; two launches bit-equal."""
+    import torch
+    from repro_torch.kernels.spmm import launches, prepare_tiles, spmm
+    rng = np.random.default_rng(D)
+    dst = rng.integers(0, N - 100, E)
+    src = rng.integers(-N - 50, N + 50, E).astype(np.int32)
+    src_d = torch.from_numpy(src).cuda()
+    dst_d = torch.from_numpy(dst).cuda()
+    wrapped = torch.where(src_d < 0, src_d + N, src_d).long()
+    keep = (wrapped >= 0) & (wrapped < N)
+    host = prepare_tiles(dst, N)
+    out = {}
+    for weighted in (True, False):
+        w = (torch.rand(E, device="cuda") if weighted else None)
+        preps = {"bound": host.to("cuda").with_edges(src_d, w, num_rows=N)
+                 .with_reverse(src_d),
+                 "perm": host.to("cuda")}
+        x = torch.randn((N, D), device="cuda", requires_grad=True)
+        g = torch.randn((N, D), device="cuda")
+        ww = torch.ones(E, device="cuda") if w is None else w
+        sel = keep.nonzero().flatten()
+        want = torch.zeros((N, D), device="cuda").index_add_(
+            0, wrapped[sel], (ww[:, None] * g[dst_d])[sel])
+        scale = torch.zeros((N, D), device="cuda").index_add_(
+            0, wrapped[sel], (ww[:, None] * g[dst_d]).abs()[sel])
+        for route, prep in preps.items():
+            y = spmm(x, src_d, w, prep)
+            launches.reset()
+            (got,) = torch.autograd.grad(y, x, g, retain_graph=True)
+            by = dict(launches.by_route)
+            (again,) = torch.autograd.grad(y, x, g)
+            agree = sum_agree(got, want, scale)
+            if (by != {"bound": 1, "perm": 0} or not torch.equal(got, again)
+                    or not agree["ok"]):
+                raise AssertionError(f"spmm backward at D={D}, weighted "
+                                     f"{weighted}, forward on {route}: "
+                                     f"launches {by}, {agree}")
+            out[f"{'weighted' if weighted else 'unweighted'}_{route}"] = agree
+    return {"D": D, "nodes": N, "edges": E, "tolerance": SUM_TOL,
+            "cases": out, "bit_equal": True,
+            "max_abs_err": max(c["max_abs_err"] for c in out.values()),
+            "ok": True}
+
+
+# ---------------------------------------------------------------------------
+# training: the train phases (LM, DIEN, GNN, the train CLI)
+# ---------------------------------------------------------------------------
+
+#: the LM's card-against-CPU gate: the loss and every gradient within this
+#: share of the CPU's largest magnitude (as the prefill's logits)
+LM_TRAIN_TOL = 1e-3
+#: DIEN's and the GNNs' card-against-CPU gate, the same way
+TRAIN_TOL = 1e-4
+#: train_4k's sequence, its batch cut from 256 to 4: the config's 4
+#: microbatches of 1
+LM_TRAIN_SEQ, LM_TRAIN_BATCH = 4096, 4
+#: DIEN's train rows (train_batch's 65,536, not cut: the step's peak fits)
+RECSYS_TRAIN_ROWS = 65_536
+#: timed steps after one warm-up
+TRAIN_STEPS = 3
+
+
+def loss_and_grads(loss_fn, params, batch) -> tuple:
+    """(loss, gradients in ``tree_leaves`` order) of ``loss_fn(params,
+    batch)`` (``training.value_and_grad``), the parameters untouched."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training import value_and_grad
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    return loss, tree_leaves(grads)
+
+
+def leaf_shares(card, cpu) -> tuple:
+    """(the loss's relative error, each gradient leaf's largest error as a
+    share of its largest CPU magnitude, floored at 1e-2 of the tree's
+    largest: a leaf whose gradient vanishes analytically, a bias just
+    before a batch norm, holds float32 noise alone, ~1e-9 of the largest),
+    card against CPU."""
+    import torch
+    (l_card, g_card), (l_cpu, g_cpu) = card, cpu
+    loss_err = abs(float(l_card) - float(l_cpu)) / max(abs(float(l_cpu)),
+                                                       1e-30)
+    top = max(float(g.abs().max()) for g in g_cpu if g.numel())
+    shares = []
+    for a, b in zip(g_card, g_cpu):
+        a = a.cpu()
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"a card gradient {tuple(a.shape)} not "
+                                 f"finite or not of shape {tuple(b.shape)}")
+        scale = max(float(b.abs().max()) if b.numel() else 0.0, 1e-2 * top,
+                    1e-30)
+        shares.append(float((a.double() - b.double()).abs().max()) / scale
+                      if b.numel() else 0.0)
+    return loss_err, shares
+
+
+def grads_agree(card, cpu, tol: float) -> dict:
+    """The loss within ``tol`` relative and every gradient leaf within
+    ``tol`` of its largest magnitude (``leaf_shares``), card against
+    CPU."""
+    loss_err, shares = leaf_shares(card, cpu)
+    line = {"loss_rel_err": loss_err, "max_grad_err_share": max(shares),
+            "tolerance": tol,
+            "ok": loss_err <= tol and max(shares) <= tol}
+    if not line["ok"]:
+        raise AssertionError(f"train card against CPU: {line}")
+    return line
+
+
+def train_steps(step, state, batch, n: int, expect: dict, what: str,
+                by_route: dict | None = None) -> tuple:
+    """``n`` train steps on ``batch``, each with every counter reset just
+    before and read just after (exactly ``expect``, nothing else; ``spmm``
+    by route where ``by_route`` names it), timed on the host clock to a
+    synchronize; (losses, ms per step, launches summed by kernel)."""
+    import torch
+    losses, ms, total = [], [], {}
+    for _ in range(n):
+        def one():
+            t0 = time.perf_counter()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            return m, time.perf_counter() - t0
+        (m, secs), counts, _ = counted(one)
+        expect_launches(counts, expect, what)
+        if by_route is not None:
+            got = dict(counters()["spmm"].by_route)
+            if got != by_route:
+                raise AssertionError(f"{what}: spmm by route {got}, "
+                                     f"expected {by_route}")
+        loss = float(m["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"{what}: loss {loss}")
+        losses.append(loss)
+        ms.append(secs * 1e3)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return losses, ms, {k: v for k, v in total.items() if v}
+
+
+def step_breakdown(fn, step_ms: float, top: int = 8) -> dict:
+    """One profiled run of ``fn`` (a train step, or one microbatch's
+    forward and backward): the device time its kernels took, its share of
+    ``step_ms`` (the unprofiled time of the same work), the number of
+    kernels and the ``top`` kernels by device time (ms)."""
+    by_name, wall_us = profile_kernels(fn)
+    busy = sum(us for us, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"device_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / step_ms if busy
+            else "not measured",
+            "profiled_wall_ms": wall_us / 1e3,
+            "kernels": sum(n for _, n in by_name.values()),
+            "top_kernels_ms": {k[:80]: us / 1e3 for k, (us, _) in ranked}}
+
+
+def lm_train() -> dict:
+    """starcoder2-3b at full width and depth (30 layers, bf16, remat
+    "full") through ``make_lm_train_step`` on train_4k's 4,096 tokens, 4
+    sequences as the config's 4 microbatches of 1: a warm-up and
+    ``TRAIN_STEPS`` timed steps, each exactly 2 ``flash_attention``
+    forwards (the forward and the recomputation) and 1 backward per layer
+    and microbatch; then card against CPU in float32 on 2 layers and (1,
+    512) tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+    spec = get_arch(LM_ARCH)
+    cfg = spec.make_config()
+    mb = spec.shapes["train_4k"]["microbatches"]
+    t0 = time.perf_counter()
+    state = S.init_state("lm", cfg, torch.Generator(device="cuda")
+                         .manual_seed(0))
+    init_s = time.perf_counter() - t0
+    step = S.make_lm_train_step(cfg, microbatches=mb)
+    raw = TokenStream(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                      seed=0).next_batch()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    forwards = 1 if cfg.remat == "none" else 2   # the recomputation
+    per_step = {"flash_attention": forwards * cfg.n_layers * mb,
+                "flash_attention_backward": cfg.n_layers * mb}
+    torch.cuda.reset_peak_memory_stats()
+    warm, warm_ms, _ = train_steps(step, state, batch, 1, per_step,
+                                   "starcoder2-3b train step (warm-up)")
+    losses, ms, launches = train_steps(step, state, batch, TRAIN_STEPS,
+                                       per_step, "starcoder2-3b train step")
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    # one microbatch's forward and backward, profiled (a quarter step but
+    # the optimizer update)
+    one = {k: v[:1] for k, v in batch.items()}
+    breakdown = step_breakdown(lambda: loss_and_grads(
+        S.lm_loss_fn(cfg), state["params"], one),
+        float(np.median(ms)) / mb)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    step_ms = float(np.median(ms))
+    # card against CPU: float32, 2 layers, (1, 512)
+    small = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    params = T.init_params(small, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (1, 513))
+    b = {"tokens": torch.from_numpy(toks[:, :-1]),
+         "targets": torch.from_numpy(toks[:, 1:])}
+    loss_fn = S.lm_loss_fn(small)
+    t0 = time.perf_counter()
+    cpu = loss_and_grads(loss_fn, params, b)
+    cpu_s = time.perf_counter() - t0
+    card = loss_and_grads(loss_fn, T.params_to(params, "cuda"),
+                          {k: v.cuda() for k, v in b.items()})
+    agree = grads_agree(card, cpu, LM_TRAIN_TOL)
+    del params, card, cpu
+    torch.cuda.empty_cache()
+    return {"config": {"arch": LM_ARCH, "layers": cfg.n_layers,
+                       "dtype": cfg.dtype, "remat": cfg.remat,
+                       "parameters": n_params},
+            "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ], "microbatches": mb,
+            "init_s": init_s, "warmup_ms": warm_ms[0],
+            "first_loss": warm[0], "losses": losses, "step_ms": ms,
+            "ms_per_step": step_ms,
+            "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / step_ms * 1e3,
+            "peak_device_bytes": peak, "launches": launches,
+            "launches_per_step": per_step,
+            "microbatch_breakdown": breakdown,
+            "card_vs_cpu": {"layers": 2, "dtype": "float32",
+                            "shape": [1, 512], "cpu_s": cpu_s, **agree}}
+
+
+def recsys_train(rows: int = RECSYS_TRAIN_ROWS, check_rows: int = 512) -> dict:
+    """DIEN at full width (2,097,152 x 18 items) through
+    ``make_recsys_train_step`` on ``rows`` ``InteractionStream`` rows: a
+    warm-up and ``TRAIN_STEPS`` steps, each exactly 2 ``augru`` forwards
+    and 2 backwards; then card against CPU on ``check_rows`` rows."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import InteractionStream
+    from repro_torch.launch import steps as S
+    from repro_torch.models import recsys as R
+    cfg = get_arch("dien").make_config()
+    state = S.init_state("recsys", cfg, torch.Generator(device="cuda")
+                         .manual_seed(0))
+    step = S.make_recsys_train_step(cfg)
+    stream = InteractionStream(cfg.n_items, rows, cfg.seq_len, seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.next_batch().items()}
+    per_step = {"augru": 2, "augru_backward": 2}
+    torch.cuda.reset_peak_memory_stats()
+    warm, warm_ms, _ = train_steps(step, state, batch, 1, per_step,
+                                   "DIEN train step (warm-up)")
+    losses, ms, launches = train_steps(step, state, batch, TRAIN_STEPS,
+                                       per_step, "DIEN train step")
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = step_breakdown(lambda: step(state, batch),
+                               float(np.median(ms)))
+    del state, step, batch
+    torch.cuda.empty_cache()
+    params = R.dien_init(cfg, torch.Generator().manual_seed(1))
+    b = {k: torch.from_numpy(v) for k, v in InteractionStream(
+        cfg.n_items, check_rows, cfg.seq_len, seed=1).next_batch().items()}
+    loss_fn = lambda p, bb: R.dien_loss(cfg, p, bb)   # noqa: E731
+    cpu = loss_and_grads(loss_fn, params, b)
+    card = loss_and_grads(loss_fn, R.params_to(params, "cuda"),
+                          {k: v.cuda() for k, v in b.items()})
+    agree = grads_agree(card, cpu, TRAIN_TOL)
+    step_ms = float(np.median(ms))
+    return {"rows": rows, "warmup_ms": warm_ms[0], "first_loss": warm[0],
+            "losses": losses, "step_ms": ms, "ms_per_step": step_ms,
+            "rows_per_s": rows / step_ms * 1e3, "peak_device_bytes": peak,
+            "step_breakdown": breakdown,
+            "launches": launches, "launches_per_step": per_step,
+            "card_vs_cpu": {"rows": check_rows, **agree}}
+
+
+def gnn_train(src, dst, mask, N: int, tmp: str) -> dict:
+    """gin-tu at full width (d_in 100) on ``gnn_aggregate``'s graph: the
+    train step prepares the batch once through its ``PrepCache``
+    (forward and reverse, host seconds reported), then takes
+    ``TRAIN_STEPS`` AdamW steps, each exactly 5 ``spmm`` forwards and 5
+    backwards on the bound route and the readout's forward on perm; the
+    same steps from the same state again, bit-equal parameters.  Then the
+    backward's ``spmm`` timed beside cuSPARSE's transposed SpMM, card
+    against CPU on ``GIN_CHECK_SCALE``'s copies, and one train step of
+    GatedGCN, EGNN and NequIP at ``gnn_models``' cells, card against
+    CPU."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.spmm import spmm
+    from repro_torch.launch import steps as S
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_arch("gin-tu").config_for_shape("ogb_products")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"nodes": torch.randn((N, cfg.d_in), generator=g, device="cuda"),
+             "edges": torch.stack([src, dst], 1),
+             "edge_mask": mask,
+             "node_mask": torch.ones(N, device="cuda"),
+             "graph_ids": torch.zeros(N, dtype=torch.int32, device="cuda"),
+             "labels": torch.randint(0, cfg.n_classes, (N,), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    step = S.make_gnn_train_step(cfg, "full")
+    edges = step.prep_cache.get(batch).edges
+    torch.cuda.synchronize()
+    prepare_s = step.prep_cache.prepare_s[0]
+    per_step = {"spmm": 2 * cfg.n_layers + 1, "spmm_backward": cfg.n_layers}
+    routes = {"bound": 2 * cfg.n_layers, "perm": 1}
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        params = G.params_to(G.gin_init(cfg, torch.Generator()
+                                        .manual_seed(0)), "cuda")
+        state = {"params": params, "opt": adamw_init(params)}
+        losses, ms, launches = train_steps(
+            step, state, batch, TRAIN_STEPS, per_step,
+            "gin-tu train step (5 spmm forwards, 5 backwards, the readout)",
+            by_route=routes)
+        if len(step.prep_cache.prepare_s) != 1:
+            raise AssertionError("gin-tu: the train step prepared the batch "
+                                 "again")
+        runs.append((losses, ms, launches, tree_leaves(state["params"])))
+    peak = torch.cuda.max_memory_allocated()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(runs[0][3], runs[1][3]))
+    if not bit_equal or runs[0][0] != runs[1][0]:
+        raise AssertionError("gin-tu: two runs from the same state differ")
+    # a fourth step of the second run, profiled
+    breakdown = step_breakdown(lambda: step(state, batch),
+                               float(np.median(runs[0][1])))
+    del runs[1], state, params
+    # the backward's spmm alone, beside its plain version and cuSPARSE
+    rev = edges.reverse
+    grad = torch.randn((N, cfg.d_hidden), generator=g, device="cuda")
+    bwd_ms = cuda_time_ms(lambda: spmm(grad, rev.src, rev.weights, rev.prep),
+                          6, 1)
+    rows = torch.where(src < 0, src + N, src).long()
+    plain_ms = cuda_time_ms(lambda: torch.zeros_like(grad).index_add_(
+        0, rows, grad[dst.long()] * mask[:, None]), 3, 1)
+    lib_ms, lib_out = csr_library_ms(rev.prep, rev.prep.edges.src,
+                                     rev.prep.edges.weights, N, grad, reps=3)
+    got = spmm(grad, rev.src, rev.weights, rev.prep)[:N]
+    lib_err = float((lib_out[:N] - got).abs().max())
+    touched = int(torch.unique(dst).numel())
+    rest = len(src) * (4 + 4 + 4) + (N + 1) * 8 + N * cfg.d_hidden * 4
+    bwd_bound = bound(touched * cfg.d_hidden * 4 + rest,
+                      2 * len(src) * cfg.d_hidden)
+    del grad, lib_out, got, batch, step, edges, rev, rows
+    torch.cuda.empty_cache()
+    # card against CPU: one step's loss and gradients on RMAT-14 copies
+    path, _ = write_graph(GIN_CHECK_SCALE, tmp)
+    s, d, n_small = relabelled_copies(np.fromfile(path, np.uint32)
+                                      .reshape(-1, 2), GNN_COPIES, seed=0)
+    rng = np.random.default_rng(4)
+    small = {"nodes": rng.standard_normal((n_small, cfg.d_in))
+             .astype(np.float32),
+             "edges": np.stack([s, d], 1),
+             "edge_mask": (rng.random(len(s)) < 0.99).astype(np.float32),
+             "node_mask": np.ones(n_small, np.float32),
+             "graph_ids": np.zeros(n_small, np.int32),
+             "labels": rng.integers(0, cfg.n_classes, n_small)
+             .astype(np.int32)}
+    gin_agree = gnn_train_card_vs_cpu("gin-tu", cfg, small, 1, "full")
+    models = gnn_models_train()
+    losses, ms, launches, _ = runs[0]
+    return {"config": vars(cfg), "seconds": time.perf_counter() - t_phase,
+            "prepare_s": prepare_s, "losses": losses, "step_ms": ms,
+            "ms_per_step": float(np.median(ms)), "launches": launches,
+            "launches_by_route": {k: v * TRAIN_STEPS
+                                  for k, v in routes.items()},
+            "launches_by_direction": {
+                "forward": {"bound": cfg.n_layers * TRAIN_STEPS,
+                            "perm": TRAIN_STEPS},
+                "backward": {"bound": launches["spmm_backward"]}},
+            "launches_per_step": routes, "peak_device_bytes": peak,
+            "two_runs_bit_equal": bit_equal, "step_breakdown": breakdown,
+            "backward_spmm": {"D": cfg.d_hidden, "route": "bound",
+                              "ms": bwd_ms, "plain_ms": plain_ms,
+                              **bwd_bound, "library_ms": lib_ms,
+                              "library_max_abs_diff": lib_err,
+                              "library": "torch.sparse.mm(CSR of the "
+                                         "reversed edges, grad), cuSPARSE "
+                                         "SpMM"},
+            "card_vs_cpu": {"graph": f"{GNN_COPIES} copies of rmat_graph("
+                                     f"{GIN_CHECK_SCALE}), relabelled",
+                            "nodes": n_small, "edges": len(s), **gin_agree},
+            "models": models,
+            "spmm_launches": launches["spmm"] + models["spmm_launches"]}
+
+
+def gnn_train_card_vs_cpu(arch: str, cfg, batch: dict, n_graphs: int,
+                          kind: str) -> dict:
+    """One train step's loss and gradients of ``arch`` on the same numpy
+    batch and weights (drawn on the CPU) on the card and on the CPU, in
+    float32 (``grads_agree``).  A leaf beyond the tolerance is held to it
+    again with the model in float64 on both sides (the segment sums still
+    float32): in GatedGCN's 16 batch-normed ReLU layers another float32
+    summation order moves some weight gradients by ~1e-3 of their scale
+    (on the CPU too: ``segment_sum``'s additions merely reordered move
+    them up to 7.8e-4, and 2.7e-7 in float64; ``scripts/
+    gnn_grad_precision.py``), so only float64 tells a wrong function from
+    float32 rounding.  Each such leaf is listed with both readings."""
+    import torch
+    from repro_torch.launch import steps as S
+    from repro_torch.models import gnn as G
+    from repro_torch.optim.adamw import tree_map
+    params = S.gnn_init(cfg, torch.Generator().manual_seed(0))
+    loss_fn = S.gnn_loss_fn(cfg, kind, n_graphs)
+    cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()
+             if v is not None}
+
+    def both(p, b):
+        return (loss_and_grads(loss_fn, G.params_to(p, "cuda"),
+                               {k: v.cuda() for k, v in b.items()}),
+                loss_and_grads(loss_fn, p, b))
+    card, cpu = both(params, cpu_b)
+    loss_err, shares = leaf_shares(card, cpu)
+    over = [i for i, x in enumerate(shares) if x > TRAIN_TOL]
+    line = {"loss_rel_err": loss_err, "max_grad_err_share": max(shares),
+            "tolerance": TRAIN_TOL, "leaves": len(shares),
+            "leaves_over_tolerance_in_float32": len(over)}
+    ok = loss_err <= TRAIN_TOL
+    if over:
+        card64, cpu64 = both(
+            tree_map(lambda p: p.double(), params),
+            {k: v.double() if v.is_floating_point() else v
+             for k, v in cpu_b.items()})
+        loss64, shares64 = leaf_shares(card64, cpu64)
+        line["float64"] = {
+            "loss_rel_err": loss64,
+            "max_grad_err_share": max(shares64),
+            "rechecked": [{"leaf": i, "shape": list(cpu[1][i].shape),
+                           "float32": shares[i], "float64": shares64[i]}
+                          for i in over]}
+        ok = ok and all(shares64[i] <= TRAIN_TOL for i in over)
+    line["ok"] = ok
+    if not ok:
+        raise AssertionError(f"{arch} train card against CPU: {line}")
+    return line
+
+
+def gnn_models_train() -> dict:
+    """GatedGCN and EGNN on ``full_graph_sm`` and NequIP on ``molecule``
+    at full width (``gnn_models``' cells): one train step each on the
+    card, exactly the forward's ``spmm`` launches on perm (every segment
+    sum's backward is a gather), then card against CPU, every gradient
+    leaf within ``TRAIN_TOL`` of its scale (``gnn_train_card_vs_cpu``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.gnn_batches import full_graph_batch, molecule_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.models.gnn import params_to
+    from repro_torch.optim import adamw_init
+    sm, mol = GNN_SHAPES["full_graph_sm"], GNN_SHAPES["molecule"]
+    graph = full_graph_batch(sm["n_nodes"], sm["n_edges"], sm["d_feat"],
+                             seed=0, with_coords=True)
+    nequip = get_arch("nequip").config_for_shape("molecule")
+    molecules, B = molecule_batch(mol["batch"], mol["n_nodes"],
+                                  mol["n_edges"], n_species=nequip.n_species,
+                                  seed=0)
+    cases = {"gatedgcn": ("full_graph_sm", graph, 1, "full",
+                          lambda c: 2 * c.n_layers + 1),
+             "egnn": ("full_graph_sm", graph, 1, "full",
+                      lambda c: 2 * c.n_layers + 2),
+             "nequip": ("molecule", molecules, B, "molecule",
+                        lambda c: 3 * c.n_layers + 1)}
+    out, total = {}, 0
+    for arch, (shape, batch, n_graphs, kind, perm) in cases.items():
+        cfg = get_arch(arch).config_for_shape(shape)
+        if kind == "full":               # the graph's classes, the model's
+            batch = {**batch, "labels": (batch["labels"] % cfg.n_classes)
+                     .astype(np.int32)}
+        params = params_to(S.init_params("gnn", cfg, torch.Generator()
+                                         .manual_seed(0)), "cuda")
+        state = {"params": params, "opt": adamw_init(params)}
+        step = S.make_gnn_train_step(cfg, kind, n_graphs=n_graphs)
+        tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+              if v is not None}
+        losses, ms, launches = train_steps(
+            step, state, tb, 1, {"spmm": perm(cfg)}, f"{arch} train step",
+            by_route={"bound": 0, "perm": perm(cfg)})
+        total += launches["spmm"]
+        out[arch] = {"shape": shape, "loss": losses[0], "step_ms": ms[0],
+                     "spmm_launches_per_step": {"perm": perm(cfg)},
+                     "card_vs_cpu": gnn_train_card_vs_cpu(
+                         arch, cfg, batch, n_graphs, kind)}
+    return {**out, "spmm_launches": total}
+
+
+def run_train_cli(argv) -> tuple:
+    """``repro_torch.launch.train.main(argv)`` in this process with every
+    launch counter reset just before: (its printed lines, the counts)."""
+    from repro_torch.launch import train as TR
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            TR.main(argv)
+    _, counts, wall = counted(run)
+    return buf.getvalue().splitlines(), counts, wall
+
+
+def train_cli(tmp: str) -> dict:
+    """``python -m repro_torch.launch.train`` on the card: gin-tu
+    ``--full`` 12 steps with a failure injected at 7 and checkpoints every
+    5 (``restarts=1``; its losses from the restored step on bit-equal to a
+    clean run's, the clean run in a process of its own through ``-m``),
+    DIEN's resume (6 steps, then 10: ``resuming from checkpoint step 6``)
+    and starcoder2-3b's smoke config, the launches of each run counted."""
+    from repro_torch.configs import get_arch
+    gin = ["--arch", "gin-tu", "--full", "--steps", "12",
+           "--ckpt-interval", "5"]
+    clean_m = os.path.join(tmp, "gin_clean.json")
+    clean = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *gin,
+         "--ckpt-dir", os.path.join(tmp, "gin_clean"), "--metrics-out",
+         clean_m], cwd=REPO, env={**os.environ, "PYTHONPATH": os.path.join(
+             REPO, "src")}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        fail_m = os.path.join(tmp, "gin_fail.json")
+        lines, counts, wall = run_train_cli(
+            [*gin, "--inject-failure-at", "7", "--ckpt-dir",
+             os.path.join(tmp, "gin_fail"), "--metrics-out", fail_m])
+        # 7 steps, the failure before step 7, 7 replayed from step 5; each
+        # L forwards and L backwards on the bound route and the readout
+        layers = get_arch("gin-tu").make_config().n_layers
+        expect_launches(counts, {"spmm": 14 * (2 * layers + 1),
+                                 "spmm_backward": 14 * layers},
+                        "gin-tu CLI run")
+        if "restarts=1" not in lines[-1]:
+            raise AssertionError(f"gin-tu CLI: {lines[-1]}")
+        out, err = clean.communicate(timeout=600)
+    finally:
+        if clean.poll() is None:
+            clean.kill()
+            clean.communicate()
+    if clean.returncode != 0 or "restarts=0" not in out:
+        raise AssertionError(f"gin-tu clean CLI run: {clean.returncode} "
+                             f"{out[-500:]} {err[-2000:]}")
+    failed = [m["loss"] for m in json.load(open(fail_m))]
+    cleaned = [m["loss"] for m in json.load(open(clean_m))]
+    # the failing run's steps 0-6, then 5-11 replayed from step 5's state
+    if failed[:7] != cleaned[:7] or failed[7:] != cleaned[5:]:
+        raise AssertionError(f"gin-tu: the restored run's losses differ "
+                             f"from a clean run's: {failed} {cleaned}")
+    ck = os.path.join(tmp, "dien")
+    d1, c1, w1 = run_train_cli(["--arch", "dien", "--steps", "6",
+                                "--ckpt-interval", "3", "--ckpt-dir", ck])
+    expect_launches(c1, {"augru": 12, "augru_backward": 12}, "DIEN CLI run")
+    d2, c2, w2 = run_train_cli(["--arch", "dien", "--steps", "10",
+                                "--ckpt-interval", "3", "--ckpt-dir", ck])
+    expect_launches(c2, {"augru": 8, "augru_backward": 8},
+                    "DIEN CLI resumed run")
+    if "resuming from checkpoint step 6" not in d2:
+        raise AssertionError(f"DIEN CLI resume: {d2}")
+    lm, c3, w3 = run_train_cli(["--arch", "starcoder2-3b", "--steps", "3",
+                                "--ckpt-dir", os.path.join(tmp, "lm")])
+    expect_launches(c3, {"flash_attention": 6,
+                         "flash_attention_backward": 6}, "LM CLI run")
+    return {"gin_tu": {"line": lines[-1], "wall_s": wall,
+                       "launches": {k: counts[k]
+                                    for k in ("spmm", "spmm_backward")},
+                       "losses_bit_equal_to_clean_run": True,
+                       "losses": failed},
+            "dien": {"first": d1[-1], "resumed": d2, "wall_s": [w1, w2],
+                     "launches": [{k: v for k, v in c.items() if v}
+                                  for c in (c1, c2)]},
+            "starcoder2_3b_smoke": {"line": lm[-1], "wall_s": w3,
+                                    "launches": {k: v for k, v in c3.items()
+                                                 if v}}}
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4613,6 +5505,12 @@ def main(argv=None) -> int:
                     help="only run the scoring redesign's before/after "
                          "comparisons, least_loaded_rounds and "
                          "twopsl_scoring (RMAT-16), and print their lines")
+    ap.add_argument("--previous-designs", action="store_true",
+                    help="also run the earlier redesigns' before/after "
+                         "measurements the full run no longer runs: the "
+                         "HDRF baselines again with the previous "
+                         "composition, the previous flash design's prefill "
+                         "time and the bf16 model's logits through it")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
@@ -4673,7 +5571,9 @@ def main(argv=None) -> int:
     cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
                       hs_kernel.NAME: hs_kernel.SOURCE,
                       ag_kernel.NAME: ag_kernel.SOURCE,
+                      ag_kernel.BACKWARD_NAME: ag_kernel.BACKWARD_SOURCE,
                       fa_kernel.NAME: fa_kernel.SOURCE,
+                      fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE,
                       sp_kernel.NAME: sp_kernel.SOURCE,
                       eb_kernel.NAME: eb_kernel.SOURCE})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -4694,16 +5594,24 @@ def main(argv=None) -> int:
     a_check = check_augru(augru_check_shapes())
     a_one = time_augru(1, reps=200)
     a_timing = time_augru(512, reps=200)
-    a_bulk = time_augru(BULK_BATCH, reps=5)
-    a_edge = time_augru_edge()
+    a_bulk = time_augru(BULK_BATCH, reps=5, library=args.previous_designs)
+    a_edge = time_augru_edge() if args.previous_designs else None
     f_check = check_flash_attention(FLASH_CHECK)
     f_model = check_flash_attention(FLASH_MODEL, model_layout=True)
     f_main = check_flash_attention(FLASH_MAIN, model_layout=True)
-    f_timing = time_flash_attention(PREFILL_SEQ)
+    f_timing = time_flash_attention(PREFILL_SEQ,
+                                    previous=args.previous_designs)
     f_err = max(f_check["max_abs_err"], f_model["max_abs_err"],
                 f_main["max_abs_err"], f_timing["max_abs_err"])
     s_check = check_spmm(SPMM_CHECK)
     b_check = check_embedding_bag(BAG_CHECK)
+    fb_check = check_flash_backward(FLASH_BWD_CHECK)
+    fb_timing = time_flash_backward(LM_TRAIN_SEQ)
+    ab_check = check_augru_backward(AUGRU_BWD_CHECK
+                                    + ((RECSYS_TRAIN_ROWS, 100, 108),))
+    ab_timing = time_augru_backward(512)
+    ab_train = time_augru_backward(RECSYS_TRAIN_ROWS, reps=3)
+    sb_check = [check_spmm_backward(D) for D in (GIN_D, GATED_D)]
     emit({"phase": "kernels",
           "edge_score": {**check, "bits_entry": e_bits, "chunk": timing,
                          "buffered_sub_batch": b_timing},
@@ -4714,8 +5622,13 @@ def main(argv=None) -> int:
                     "retrieval": a_one, "route_edge": a_edge},
           "flash_attention": {**f_check, "model_layout_4096": f_model,
                               "prefill_layer_float32": f_main,
-                              "prefill_layer": f_timing},
-          "spmm": s_check, "embedding_bag": b_check})
+                              "prefill_layer": f_timing,
+                              "backward": fb_check,
+                              "backward_train_layer": fb_timing},
+          "augru_backward": {**ab_check, "serve_p99": ab_timing,
+                             "train_rows": ab_train},
+          "spmm": s_check, "spmm_backward": sb_check,
+          "embedding_bag": b_check})
 
     rs = recsys_serve()
     emit({"phase": "recsys_serve", **rs})
@@ -4724,7 +5637,12 @@ def main(argv=None) -> int:
     lp = lm_prefill()
     emit({"phase": "lm_prefill", **lp})
     emit({"phase": "lm_serve", **lm_serve()})
-    emit({"phase": "lm_card_vs_cpu", **lm_card_vs_cpu()})
+    emit({"phase": "lm_card_vs_cpu",
+          **lm_card_vs_cpu(previous=args.previous_designs)})
+    lt = lm_train()
+    emit({"phase": "lm_train", **lt})
+    rt = recsys_train()
+    emit({"phase": "recsys_train", **rt})
 
     with tempfile.TemporaryDirectory() as tmp:
         # the partitioning paths run below their earlier slices' scales
@@ -4734,10 +5652,11 @@ def main(argv=None) -> int:
         mp = main_path(min(args.scale, 19), tmp)
         emit({"phase": "main_path", **mp})
         emit({"phase": "hosted", **hosted_path(min(args.scale, 18), tmp)})
-        hp = two_ps_hdrf_path(args.scale, tmp)
+        hp = two_ps_hdrf_path(min(args.scale, 19), tmp)
         emit({"phase": "two_ps_hdrf", **hp})
         emit({"phase": "hdrf_baselines",
-              **hdrf_baselines(min(args.scale, 16), tmp)})
+              **hdrf_baselines(min(args.scale, 16), tmp,
+                               previous=args.previous_designs)})
         emit({"phase": "hash", **hash_paths(args.scale, tmp)})
         emit({"phase": "hep", **hep_path(min(args.scale, 19), tmp)})
         bp_run = buffered_path(min(args.scale, 18), tmp)
@@ -4757,9 +5676,13 @@ def main(argv=None) -> int:
         sh_run = shard_path(tmp)
         emit({"phase": "shard", **sh_run})
         ga = gnn_aggregate(min(args.scale, 20), tmp)
+        gt = ga.pop("gnn_train")
         emit({"phase": "gnn_aggregate", **ga})
+        emit({"phase": "gnn_train", **gt})
         gs = gnn_serve(tmp)
         emit({"phase": "gnn_serve", **gs})
+        tc = train_cli(tmp)
+        emit({"phase": "train_cli", **tc})
     gm = gnn_models()
     emit({"phase": "gnn_models", **gm})
     bp = bag_pool()
@@ -4796,6 +5719,13 @@ def main(argv=None) -> int:
         raise AssertionError("the buffered path launched no edge_score")
     if gs["spmm_launches"] == 0 or gm["spmm_launches"] == 0:
         raise AssertionError("the GNN paths launched no spmm")
+    train_paths = {"flash_attention_backward":
+                   lt["launches"]["flash_attention_backward"],
+                   "augru_backward": rt["launches"]["augru_backward"],
+                   "spmm_backward": gt["launches"]["spmm_backward"]}
+    for name, n in train_paths.items():
+        if n == 0:
+            raise AssertionError(f"the train path launched no {name}")
     emit({"kernels": [{
         "name": "edge_score", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_score/csrc/edge_score.cu",
@@ -4853,7 +5783,19 @@ def main(argv=None) -> int:
         "ms": a_timing["ms"], "previous_ms": a_timing["previous_ms"],
         "plain_ms": a_timing["plain_ms"],
         "bound_ms": a_timing["bound_ms"], "bound_by": a_timing["bound_by"],
-        "library_ms": a_timing["library_ms"]}, {
+        "library_ms": a_timing["library_ms"],
+        "launches_train": rt["launches"]["augru"],
+        "backward_source": "src/repro_torch/kernels/augru/csrc/"
+                           "augru_backward.cu",
+        "backward_launches": train_paths["augru_backward"],
+        "backward_max_abs_err": ab_check["max_abs_err"],
+        "backward_ms": ab_train["ms"], "backward_plain_ms":
+        ab_train["plain_ms"], "backward_bound_ms": ab_train["bound_ms"],
+        "backward_bound_by": ab_train["bound_by"],
+        "backward_library_ms": ab_train["library_ms"],
+        "backward_shape": ab_train["shape"],
+        "backward_512_ms": ab_timing["ms"],
+        "backward_512_library_ms": ab_timing["library_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
@@ -4862,7 +5804,18 @@ def main(argv=None) -> int:
         "ms": f_timing["ms"], "previous_ms": f_timing["previous_ms"],
         "plain_ms": f_timing["plain_ms"],
         "bound_ms": f_timing["bound_ms"], "bound_by": f_timing["bound_by"],
-        "library_ms": f_timing["library_ms"]}, {
+        "library_ms": f_timing["library_ms"],
+        "launches_train": lt["launches"]["flash_attention"],
+        "backward_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention_backward.cu",
+        "backward_launches": train_paths["flash_attention_backward"],
+        "backward_max_abs_err": fb_check["max_abs_err"],
+        "backward_ms": fb_timing["ms"],
+        "backward_plain_ms": fb_timing["plain_ms"],
+        "backward_bound_ms": fb_timing["bound_ms"],
+        "backward_bound_by": fb_timing["bound_by"],
+        "backward_library_ms": fb_timing["library_ms"],
+        "backward_shape": fb_timing["shape"]}, {
         "name": "spmm", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
         "replaces": "src/repro/kernels/spmm/kernel.py:52",
@@ -4878,7 +5831,18 @@ def main(argv=None) -> int:
         "plain_ms": gin["plain_ms"],
         "bound_ms": gin["bound_ms"], "bound_by": gin["bound_by"],
         "gathered_bound_ms": gin["gathered_bound_ms"],
-        "library_ms": gin["library_ms"]}, {
+        "library_ms": gin["library_ms"],
+        "launches_train": gt["spmm_launches"],
+        "launches_train_by_route": gt["launches_by_route"],
+        "backward_source": "src/repro_torch/kernels/spmm/csrc/spmm.cu "
+                           "(spmm over the reversed edges)",
+        "backward_launches": train_paths["spmm_backward"],
+        "backward_max_abs_err": max(c["max_abs_err"] for c in sb_check),
+        "backward_ms": gt["backward_spmm"]["ms"],
+        "backward_plain_ms": gt["backward_spmm"]["plain_ms"],
+        "backward_bound_ms": gt["backward_spmm"]["bound_ms"],
+        "backward_bound_by": gt["backward_spmm"]["bound_by"],
+        "backward_library_ms": gt["backward_spmm"]["library_ms"]}, {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                   "embedding_bag.cu",

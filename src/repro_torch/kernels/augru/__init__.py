@@ -1,2 +1,2 @@
-from .ops import augru, launches
-from .ref import augru_ref
+from .ops import augru, augru_backward, backward_launches, launches
+from .ref import augru_backward_ref, augru_ref

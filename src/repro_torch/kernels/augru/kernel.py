@@ -16,6 +16,10 @@ comment for each route's bound and design):
 
 The C entries derive the shared memory and scratch a plan needs and refuse
 one that does not fit; nothing falls back when a launch fails.
+
+The backward (``csrc/augru_backward.cu``, a library of its own) has one
+route, planned by ``backward_plan``: R batch rows a block, TP threads a
+row, U in shared memory where it fits.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from .. import cuda_build
 
 NAME = "augru"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "augru.cu"
+BACKWARD_NAME = "augru_backward"
+BACKWARD_SOURCE = SOURCE.parent / "augru_backward.cu"
 
 #: route codes of the C ``Plan``
 ROUTES = {"small": 0, "large": 1, "general": 2}
@@ -291,3 +297,89 @@ def launch_previous(x_gates, u, att, h0, *, out: torch.Tensor) -> None:
     B, _, H = out.shape
     _launch(previous_plan(int(B), int(H), *device_limits(out.device.index)),
             x_gates, u, att, h0, out)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+class BackwardPlan(NamedTuple):
+    """One backward launch: R batch rows a block, TP threads a row, blocks
+    (each walks over groups of R rows), U in shared memory or not."""
+    rows: int
+    threads_per_row: int
+    blocks: int
+    u_shared: bool
+
+
+#: at most this many threads a row (a row's units beyond it loop) and a
+#: block (the kernel's launch bound)
+BACKWARD_MAX_TP, BACKWARD_MAX_THREADS = 256, 512
+
+
+def backward_shared_bytes(H: int, rows: int, u_shared: bool) -> int:
+    """The backward's dynamic shared memory, as its C entry derives it: a
+    row's 7H floats of state and, when shared, U at row stride 3H | 1."""
+    return 4 * (rows * 7 * H + (H * ((3 * H) | 1) if u_shared else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(B: int, H: int, sm_count: int, max_smem: int
+                  ) -> BackwardPlan:
+    """TP: H rounded up to a warp, at most ``BACKWARD_MAX_TP``; R: the most
+    of 8, 4, 2, 1 rows within ``BACKWARD_MAX_THREADS`` that still gives
+    every SM a
+    group of rows (at least 1); U in shared memory when it fits beside R
+    rows' state, else R such that the state fits and U is read from L2; a
+    block per SM when U is shared (it loads U once and walks over the
+    groups), else a block per group."""
+    if B < 1 or H < 1 or sm_count < 1:
+        raise ValueError(f"augru backward plan: B, H and sm_count must be "
+                         f">= 1, got {(B, H, sm_count)}")
+    tp = min(32 * _ceil_div(H, 32), BACKWARD_MAX_TP)
+    fits = [r for r in (8, 4, 2, 1) if r * tp <= BACKWARD_MAX_THREADS]
+    rows = next((r for r in fits if _ceil_div(B, r) >= sm_count), 1)
+    u_shared = backward_shared_bytes(H, rows, True) <= max_smem
+    if not u_shared:
+        rows = next((r for r in fits if r <= rows
+                     and backward_shared_bytes(H, r, False) <= max_smem),
+                    None)
+        if rows is None:
+            raise ValueError(f"augru backward: H={H} leaves no room for a "
+                             f"row's state in {max_smem} bytes")
+    groups = _ceil_div(B, rows)
+    blocks = min(groups, sm_count) if u_shared else min(groups, 2**31 - 1)
+    return BackwardPlan(rows, tp, blocks, u_shared)
+
+
+def backward_library() -> ctypes.CDLL:
+    """Build (first use) and load the backward's library."""
+    lib = cuda_build.load(BACKWARD_NAME, BACKWARD_SOURCE)
+    fn = lib.augru_backward_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+        fn.restype = _I
+    return lib
+
+
+def launch_backward(x_gates, u, att, h0, out, dout, *, dx_gates, dhu_n,
+                    datt, dh0) -> None:
+    """The backward kernel on the current stream of ``out``'s device, by
+    ``backward_plan``.  All operands contiguous float32 on one card:
+    ``x_gates`` (B, T, 3H), ``u`` (H, 3H), ``att`` (B, T), ``h0`` (B, H),
+    ``out`` and ``dout`` (B, T, H); writes ``dx_gates`` (B, T, 3H),
+    ``dhu_n`` (B, T, H), ``datt`` (B, T) and ``dh0`` (B, H).  Raises if
+    the launch is refused."""
+    B, T, H = (int(n) for n in out.shape)
+    p = backward_plan(B, H, *device_limits(out.device.index))
+    with torch.cuda.device(out.device):
+        lib = backward_library()
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = lib.augru_backward_launch(
+            x_gates.data_ptr(), u.data_ptr(), att.data_ptr(), h0.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), dx_gates.data_ptr(),
+            dhu_n.data_ptr(), datt.data_ptr(), dh0.data_ptr(), B, T, H,
+            p.rows, p.threads_per_row, p.blocks, int(p.u_shared), stream)
+    if rc != 0:
+        raise RuntimeError(f"augru backward kernel launch failed: CUDA "
+                           f"error {rc} (B={B}, T={T}, H={H}, {p})")

@@ -8,6 +8,8 @@ views whose last axis is contiguous, and write a contiguous output.
 bfloat16 operands go to the tensor-core kernel (``mma.sync`` on bf16,
 ``cp.async`` staging), float32 ones to the SIMT kernel, which keeps full
 float32 products (see the source comment for their bound and design).
+The backward (``csrc/flash_attention_backward.cu``, a library of its own)
+forms dQ, dK and dV in three SIMT kernels from the saved output.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from .. import cuda_build
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BACKWARD_NAME = "flash_attention_backward"
+BACKWARD_SOURCE = SOURCE.parent / "flash_attention_backward.cu"
 
 #: operand dtypes the kernel takes, by the code its entry point expects
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,3 +110,40 @@ def launch_previous(q, k, v, *, out: torch.Tensor, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *dims, int(bool(causal)), float(scale), strides, stream)
     _raise_on(rc, q, k, "flash_attention (previous design)")
+
+
+def backward_library() -> ctypes.CDLL:
+    """Build (first use) and load the backward's library."""
+    lib = cuda_build.load(BACKWARD_NAME, BACKWARD_SOURCE)
+    fn = lib.flash_attention_backward_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * 10 + [_I] * 8 + [ctypes.c_float,
+                                              ctypes.POINTER(ctypes.c_int64),
+                                              _P])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch_backward(q, k, v, o, dout, *, dq, dk, dv, causal: bool,
+                    scale: float) -> None:
+    """The three backward kernels on the current stream of ``dq``'s device.
+
+    ``q``, ``k``, ``v`` as for ``launch``; ``o`` (the forward's output)
+    and ``dout`` contiguous like ``q``; ``dq``, ``dk`` and ``dv``
+    contiguous, of ``q``'s and ``k``'s shapes and dtype.  Allocates the
+    (B, Hq, Sq) float32 log-sum-exp and delta scratch.  Raises if a launch
+    is refused (a causal call needs Sq <= Skv).
+    """
+    dims, strides = _geometry(q, k, v)
+    B, Hq, _, Sq = dims[:4]
+    with torch.cuda.device(dq.device):
+        lib = backward_library()
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dq.device)
+        delta = torch.empty_like(lse)
+        stream = torch.cuda.current_stream(dq.device).cuda_stream
+        rc = lib.flash_attention_backward_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), DTYPES[q.dtype], *dims,
+            int(bool(causal)), float(scale), strides, stream)
+    _raise_on(rc, q, k, "flash_attention backward")

@@ -5,6 +5,13 @@ a CPU tensor goes to the plain torch version in ``ref.py``, as the
 reference's ``ops.py`` sends every non-TPU call to ``gqa_attention``
 (blockwise above ``BLOCKWISE_KV_THRESHOLD`` key positions).  Nothing falls
 back from the kernel to the plain version.
+
+When grad is enabled and an operand requires it, ``flash_attention`` runs
+through an autograd ``Function`` whose backward is the backward kernel on
+the card (``flash_attention_backward``: three launches, counted once in
+``backward_launches``) and its plain version, ``gqa_attention_backward``,
+on the CPU; the plain forward's autograd never runs on a CUDA tensor.
+Under ``no_grad`` the op is the forward alone, as before.
 """
 from __future__ import annotations
 
@@ -12,9 +19,12 @@ import torch
 
 from .. import LaunchCounter
 from . import kernel
-from .ref import gqa_attention
+from .ref import gqa_attention, gqa_attention_backward
 
 launches = LaunchCounter()
+#: backward calls on the card, one per ``flash_attention_backward`` launch
+#: (its three kernels)
+backward_launches = LaunchCounter()
 
 # above this many kv positions the plain path switches to the blockwise
 # online-softmax loop so S x S scores are never materialized
@@ -39,6 +49,8 @@ def plain_attention(q, k, v, *, causal: bool = True):
 #: the bf16 elementwise bound's terms: one bf16 rounding of each p_j
 #: (weighted by |v_j|), one rounding of the output, float32 slack
 BF16_P_REL, BF16_OUT_REL, BF16_ABS = 2.0 ** -8, 2.0 ** -7, 1e-5
+#: the bf16 gradient bound's rounding term (``bf16_gradient_bound``)
+BF16_GRAD_REL = 2.0 ** -8
 
 
 def bf16_output_bound(q, k, v, *, causal: bool = True):
@@ -67,6 +79,30 @@ def bf16_output_bound(q, k, v, *, causal: bool = True):
     want = plain_attention(q, k, v, causal=causal).float()
     weighted = plain_attention(q, k, v.abs(), causal=causal).float()
     return BF16_P_REL * weighted + BF16_OUT_REL * want.abs() + BF16_ABS
+
+
+def bf16_gradient_bound(want: torch.Tensor) -> torch.Tensor:
+    """How far a bf16 gradient of the backward kernel may lie from the
+    plain backward's (``gqa_attention_backward`` on the same bf16 operands,
+    evaluated in float32), element by element:
+
+        2^-8 |want| + 1e-4 max |want|
+
+    Derivation.  The kernel and the plain version widen the same bf16
+    operands (q, k, v, o, do) to float32 exactly and form the same float32
+    s, p, dp, delta and ds; they differ only in the order of their float32
+    sums (the plain version's einsums against the kernel's fixed-order
+    fmaf loops), which the float32 gradients' tolerance, 1e-4 of each
+    gradient's largest magnitude, covers (the cancellation in dp - delta
+    makes that error scale with the gradient's largest value, not with
+    each element).  The kernel then rounds its float32 result to bf16
+    once: round to nearest with 8 significant bits moves a value by at
+    most half a unit in its last place, 2^-8 of itself (of the float32
+    result, which the second term's slack puts within 1e-4 max |want| of
+    ``want``).  Unlike the forward, no bf16 rounding happens inside the
+    sums: the backward keeps p in float32."""
+    want = want.float()
+    return BF16_GRAD_REL * want.abs() + 1e-4 * want.abs().max()
 
 
 def _check(q, k, v):
@@ -104,10 +140,7 @@ def _check(q, k, v):
                          f"the kernel's grid")
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
-    dtype, at scale 1/sqrt(D); causal in global coordinates (key j visible
-    to query i iff j <= i + Skv - Sq)."""
+def _forward(q, k, v, causal: bool):
     if q.device.type != "cuda":
         return plain_attention(q, k, v, causal=causal)
     _check(q, k, v)
@@ -116,3 +149,63 @@ def flash_attention(q, k, v, *, causal: bool = True):
                   scale=1.0 / (q.shape[-1] ** 0.5))
     launches.add()
     return out
+
+
+def flash_attention_backward(q, k, v, o, dout, *, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` for the output gradient
+    ``dout``, given its output ``o``: the backward kernel on a CUDA tensor
+    (launches or raises), ``gqa_attention_backward`` on the CPU.  Outputs
+    are contiguous, in the operands' dtype."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type != "cuda":
+        return gqa_attention_backward(q, k, v, o, dout, causal=causal,
+                                      scale=scale)
+    _check(q, k, v)
+    o, dout = o.contiguous(), dout.to(q.dtype).contiguous()
+    for name, t in (("o", o), ("dout", dout)):
+        if t.device != q.device or tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"flash_attention backward: {name} "
+                             f"{tuple(t.shape)} on {t.device}, q "
+                             f"{tuple(q.shape)} on {q.device}")
+    if causal and q.shape[2] > k.shape[2]:
+        raise ValueError(f"flash_attention backward: causal with Sq "
+                         f"{q.shape[2]} > Skv {k.shape[2]} (rows that see "
+                         f"no key)")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    kernel.launch_backward(q, k, v, o, dout, dq=dq, dk=dk, dv=dv,
+                           causal=causal, scale=scale)
+    backward_launches.add()
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The op under autograd: the forward as ``flash_attention``, the
+    backward ``flash_attention_backward`` from the saved q, k, v and
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
+    dtype, at scale 1/sqrt(D); causal in global coordinates (key j visible
+    to query i iff j <= i + Skv - Sq).  Differentiable (see the module
+    docstring) when grad is enabled and an operand requires it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)

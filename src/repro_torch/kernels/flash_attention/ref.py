@@ -7,6 +7,9 @@ CUDA kernel is held to on the card.
                      heads), with an optional blockwise (online-softmax)
                      loop over keys so a long prefill never materializes
                      S x S scores.
+``gqa_attention_backward`` — its gradient, formed explicitly from the
+                     forward's output (the plain version of the backward
+                     kernel).
 
 Scores and the softmax are float32 whatever the operands' dtype: the
 reference asks its einsums for float32 results from bf16 operands
@@ -108,3 +111,37 @@ def gqa_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def gqa_attention_backward(q, k, v, o, dout, *, causal: bool = True,
+                           scale: float | None = None):
+    """The gradients (dq, dk, dv) of ``gqa_attention(q, k, v)`` (unblocked)
+    for the output gradient ``dout``, given its output ``o``, formed
+    explicitly in float32 and returned in the operands' dtype:
+
+        p = softmax(s),  dv = p^T do,  dp = do v^T,
+        ds = p (dp - delta) with delta = rowsum(do * o),
+        dq = scale ds k,  dk = scale ds^T q,
+
+    dk and dv summed over the query heads of each kv head."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    q5 = q.float().reshape(B, Hkv, group, Sq, D)
+    do5 = dout.float().reshape(B, Hkv, group, Sq, D)
+    kf, vf = k.float(), v.float()
+    s = _score_block(q5, kf, scale, causal=causal, offset=Skv - Sq, col0=0,
+                     kv_valid_len=None)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do5)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do5, vf)
+    delta = (do5 * o.float().reshape(B, Hkv, group, Sq, D)).sum(
+        dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, q5) * scale
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -14,10 +14,26 @@ for ``x``'s row count; it reads them in destination order.  Otherwise, and
 for ``segment_sum_tiles``, it takes ``perm``, which gathers them through
 the destination order on each call.  Both are kernels on the card; on the
 CPU each has its plain version.
+
+Gradients.  When grad is enabled and the rows require it, both ops run
+through autograd ``Function``s whose backward is the same kernel, so the
+plain version's autograd never runs on a CUDA tensor:
+``segment_sum_tiles``'s gradient is the gather ``G[dst]`` in original edge
+order; ``spmm``'s gradient for ``x`` is ``spmm`` of the output's gradient
+over the reversed edges (destinations the wrapped ``src``, gathered rows
+the destinations, the same weights), on the bound route of a reverse
+``TilePrep`` built once per graph (``TilePrep.with_reverse``; built per
+call, on the host, when the prep carries none).  As in JAX, whose gather's
+transpose is a scatter that drops out-of-range updates, an edge whose
+``src`` lies outside [0, N) after wrapping sends no gradient (the forward
+gathered the clamped row): such edges go to a cut-off extra row.  Every
+row of either gradient has one owner summing in a fixed order.  Weights
+that require grad raise: no model differentiates ``edge_mask``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import weakref
 from dataclasses import dataclass
 
@@ -51,6 +67,9 @@ class RouteCounter(LaunchCounter):
 
 
 launches = RouteCounter()
+#: the launches of ``spmm``'s backward (each also counted in ``launches``,
+#: by route): the direction of a launch, as ``by_route`` is its route
+backward_launches = LaunchCounter()
 
 #: a row with more in-edges than this is summed by several warps, one per
 #: chunk of this many edges (``csrc/spmm.cu``)
@@ -59,10 +78,19 @@ SPLIT_EDGES = 1024
 _INT32_MAX = 2**31 - 1
 
 
-def _mark(t: torch.Tensor | None) -> tuple:
+def tensor_mark(t: torch.Tensor | None) -> tuple:
     """What identifies ``t`` as it is now: the object (weakly) and its
     in-place version."""
     return (None, None) if t is None else (weakref.ref(t), t._version)
+
+
+def unchanged(t: torch.Tensor | None, mark: tuple) -> bool:
+    """True when ``t`` is the very tensor ``mark`` (``tensor_mark``) was
+    taken of, not edited in place since (None matches None)."""
+    ref, version = mark
+    if t is None or ref is None:
+        return t is None and ref is None
+    return ref() is t and t._version == version
 
 
 @dataclass(frozen=True, eq=False)
@@ -73,25 +101,54 @@ class BoundEdges:
                                     # [perm]; int32 below 2^31 rows
     weights: torch.Tensor | None    # (E,) float32 weights[perm], or None
     num_rows: int                   # the x row count the clamp was for
-    marks: tuple                    # _mark(src), _mark(weights)
+    marks: tuple                    # tensor_mark of src and of weights
 
     def built_from(self, src, weights, num_rows: int) -> bool:
         """True when ``src`` and ``weights`` are the very tensors these
         were built from, unchanged since, and ``num_rows`` is theirs."""
-        if num_rows != self.num_rows:
-            return False
-        for t, (ref, version) in zip((src, weights), self.marks):
-            if (t is None) != (ref is None):
-                return False
-            if t is not None and (ref() is not t or t._version != version):
-                return False
-        return True
+        return num_rows == self.num_rows and all(
+            unchanged(t, m) for t, m in zip((src, weights), self.marks))
 
     def to(self, device) -> "BoundEdges":
         return dataclasses.replace(
             self, src=self.src.to(device),
             weights=None if self.weights is None
             else self.weights.to(device))
+
+
+@dataclass(frozen=True, eq=False)
+class ReverseEdges:
+    """The reverse of a graph's edges for ``spmm``'s backward: ``prep``
+    over the forward's x rows (its wrapped src; a src outside [0,
+    ``num_rows``) after wrapping goes to a cut-off extra row), with ``src``
+    (the forward's destination of each edge) and ``weights`` bound to it,
+    so that ``spmm(grad, src, weights, prep)[:num_rows]`` takes the bound
+    route."""
+    prep: "TilePrep"
+    src: torch.Tensor
+    weights: torch.Tensor | None
+    num_rows: int
+
+    def to(self, device) -> "ReverseEdges":
+        src = self.src.to(device)
+        w = None if self.weights is None else self.weights.to(device)
+        return ReverseEdges(self.prep.to(device).with_edges(
+            src, w, num_rows=self.prep.edges.num_rows), src, w,
+            self.num_rows)
+
+
+def _reverse(rows: torch.Tensor, num_rows: int, gathered: torch.Tensor,
+             grad_rows: int, weights, device) -> ReverseEdges:
+    """``ReverseEdges`` of edges from x rows ``rows`` (wrapped, not
+    clamped) of ``num_rows`` into the rows ``gathered`` of a gradient of
+    ``grad_rows``, prepared on the host and moved to ``device``."""
+    ids = rows.cpu().numpy()
+    bad = (ids < 0) | (ids >= num_rows)
+    n = num_rows + 1 if bad.any() else num_rows
+    rev = prepare_tiles(np.where(bad, num_rows, ids), n).to(device)
+    return ReverseEdges(rev.with_edges(gathered, weights,
+                                       num_rows=grad_rows),
+                        gathered, weights, num_rows)
 
 
 @dataclass(frozen=True, eq=False)
@@ -113,6 +170,8 @@ class TilePrep:
     blocks: torch.Tensor         # (B + 1,) int64 first rows of the bound
                                  # route's row blocks (kernel.row_blocks)
     edges: BoundEdges | None = None  # src and weights bound by with_edges
+    reverse: "ReverseEdges | None" = None  # the bound edges reversed
+                                           # (with_reverse)
 
     @property
     def num_edges(self) -> int:
@@ -129,7 +188,9 @@ class TilePrep:
             hub_rows=self.hub_rows.to(device),
             hub_chunk_ptr=self.hub_chunk_ptr.to(device),
             blocks=self.blocks.to(device),
-            edges=None if self.edges is None else self.edges.to(device))
+            edges=None if self.edges is None else self.edges.to(device),
+            reverse=None if self.reverse is None
+            else self.reverse.to(device))
 
     def with_edges(self, src, weights=None, *, num_rows: int) -> "TilePrep":
         """The same prep with ``src`` (and ``weights``) stored in
@@ -171,7 +232,7 @@ class TilePrep:
         edges = BoundEdges(
             src=g.to(torch.int64 if wide else torch.int32),
             weights=None if weights is None else weights.float()[self.perm],
-            num_rows=num_rows, marks=(_mark(src), _mark(weights)))
+            num_rows=num_rows, marks=(tensor_mark(src), tensor_mark(weights)))
         return dataclasses.replace(self, edges=edges)
 
     def with_split(self, split: int | None) -> "TilePrep":
@@ -188,6 +249,35 @@ class TilePrep:
         return dataclasses.replace(self, split=split, hub_rows=hubs,
                                    hub_chunk_ptr=ptr,
                                    n_chunks=int(ptr[-1]))
+
+    def with_reverse(self, src) -> "TilePrep":
+        """The same prep carrying the reverse of its bound edges (``spmm``'s
+        backward), for the very ``src`` bound by ``with_edges``: a
+        ``TilePrep`` over the x rows (prepared on the host, then moved to
+        this prep's device) whose own bound edges gather the rows of this
+        prep's destinations with the bound weights, in this prep's
+        destination order.  Once per graph, after ``with_edges``;
+        ``spmm``'s backward takes it when the forward took the bound
+        route."""
+        e = self.edges
+        if e is None or e.marks[0][0]() is not src:
+            raise ValueError("with_reverse: bind these edges first "
+                             "(with_edges)")
+        n = e.num_rows
+        wrapped = src[self.perm].long()
+        wrapped = torch.where(wrapped < 0, wrapped + n, wrapped)
+        counts = self.row_ptr[1:] - self.row_ptr[:-1]
+        rows = torch.repeat_interleave(
+            torch.arange(self.num_nodes, device=self.device), counts)
+        rev = _reverse(wrapped, n, rows, self.num_nodes, e.weights,
+                       self.device)
+        return dataclasses.replace(self, reverse=rev)
+
+    @functools.cached_property
+    def dst_ids(self) -> torch.Tensor:
+        """``dst()``, made once per prep (``segment_sum_tiles``'s
+        backward gathers by it)."""
+        return self.dst()
 
     def dst(self) -> torch.Tensor:
         """(E,) int64 destination of every edge, in the original order."""
@@ -295,7 +385,13 @@ def segment_sum_tiles(messages, prep: TilePrep):
     """messages: (E, D) in original edge order -> (num_nodes, D):
     ``Y[dst] += messages``, on the ``perm`` route (the bound route's kernel
     with ``perm`` as the row ids ran slower at D = 70; ``chip_smoke.py``
-    times both)."""
+    times both).  Differentiable in ``messages`` (the module docstring)."""
+    if torch.is_grad_enabled() and messages.requires_grad:
+        return _SegmentSum.apply(messages, prep)
+    return _segment_sum(messages, prep)
+
+
+def _segment_sum(messages, prep: TilePrep):
     _check("segment_sum_tiles", messages, None, None, prep)
     if messages.shape[0] != prep.num_edges:
         raise ValueError(f"segment_sum_tiles: {messages.shape[0]} messages "
@@ -310,7 +406,36 @@ def spmm(x, src, weights, prep: TilePrep):
     """Y[dst] += w * X[src] (``src`` with JAX's wrap-then-clamp rule),
     without materialising the (E, D) messages.  The output's dtype is the
     messages' (``x``'s, promoted with ``weights``'), as in the reference.
-    Reads ``prep``'s bound edges when ``route`` says so."""
+    Reads ``prep``'s bound edges when ``route`` says so.  Differentiable in
+    ``x`` (the module docstring)."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad
+            or (weights is not None and weights.requires_grad)):
+        if weights is not None and weights.requires_grad:
+            raise ValueError("spmm: weights that require grad are not "
+                             "differentiated (no model trains edge_mask)")
+        return _Spmm.apply(x, src, weights, prep)
+    return _spmm(x, src, weights, prep)
+
+
+def reverse_prep(prep: TilePrep, src, weights,
+                 num_rows: int) -> ReverseEdges:
+    """The reverse edges of ``spmm(x, src, weights, prep)`` for an x of
+    ``num_rows`` rows: ``prep.reverse`` when the call takes the bound route
+    and the prep carries one, else reverse edges built now on the host
+    (over the wrapped ``src``, gathering ``prep``'s destinations)."""
+    e = prep.edges
+    if (prep.reverse is not None and e is not None
+            and e.built_from(src, weights, num_rows)):
+        return prep.reverse
+    wrapped = src.long()
+    wrapped = torch.where(wrapped < 0, wrapped + num_rows, wrapped)
+    w = None if weights is None else weights.float()
+    return _reverse(wrapped, num_rows, prep.dst_ids, prep.num_nodes, w,
+                    prep.device)
+
+
+def _spmm(x, src, weights, prep: TilePrep):
     _check("spmm", x, src, weights, prep)
     if src is None:
         raise ValueError("spmm: src is required")
@@ -327,3 +452,37 @@ def spmm(x, src, weights, prep: TilePrep):
     if bound:
         return _launch(x, e.src, e.weights, prep, out_dtype, "spmm", "bound")
     return _launch(x, src, weights, prep, out_dtype, "spmm")
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``segment_sum_tiles`` under autograd: the backward gathers the
+    output's gradient by each edge's destination."""
+
+    @staticmethod
+    def forward(ctx, messages, prep):
+        ctx.prep = prep
+        return _segment_sum(messages, prep)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.prep.dst_ids], None
+
+
+class _Spmm(torch.autograd.Function):
+    """``spmm`` under autograd: the backward is ``spmm`` of the output's
+    gradient over the reversed edges (``reverse_prep``), on the bound
+    route."""
+
+    @staticmethod
+    def forward(ctx, x, src, weights, prep):
+        ctx.args = (prep, src, weights, int(x.shape[0]))
+        ctx.x_dtype = x.dtype
+        return _spmm(x, src, weights, prep)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rev = reverse_prep(*ctx.args)
+        dx = _spmm(grad.contiguous(), rev.src, rev.weights, rev.prep)
+        if grad.device.type == "cuda":
+            backward_launches.add()
+        return dx[:rev.num_rows].to(ctx.x_dtype), None, None, None

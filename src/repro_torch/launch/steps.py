@@ -1,14 +1,37 @@
 """Step factories of the port, the counterparts of ``repro.launch.steps``:
-LM prefill and decode, recsys (DIEN) serving and retrieval, and the GNN
-losses (forward only).  The reference jits these; the port runs them
-eagerly, without autograd."""
+the train steps of the three families (LM, GNN, recsys), LM prefill and
+decode, recsys (DIEN) serving and retrieval, and the state helpers of the
+train launcher.  The reference jits these; the port runs them eagerly, the
+serving steps without autograd, the train steps through ``torch.autograd``
+(each kernel's backward on the card)."""
 from __future__ import annotations
 
+import functools
+import time
+
+import numpy as np
 import torch
 
+from ..kernels.spmm.ops import tensor_mark, unchanged
 from ..models import gnn as G
 from ..models import recsys as R
 from ..models import transformer as T
+from ..optim import adamw_init
+from ..optim.schedules import linear_warmup_cosine
+from ..training import make_train_step
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+def lm_loss_fn(cfg):
+    return functools.partial(T.lm_loss, cfg)
+
+
+def make_lm_train_step(cfg, *, lr=3e-4, microbatches: int = 1):
+    lr_fn = linear_warmup_cosine(lr, 100, 10_000)
+    return make_train_step(lm_loss_fn(cfg), lr_fn, microbatches=microbatches)
 
 
 def make_lm_prefill_step(cfg):
@@ -53,19 +76,19 @@ def make_recsys_retrieval_step(cfg, top_k: int = 100):
 
 
 def gnn_loss_fn(spec_family_cfg, kind: str, n_graphs: int = 1):
-    """Builds ``loss(params, batch)`` for any of the four GNN archs: the
-    reference's loss, forward only (``make_gnn_train_step`` is not ported
-    yet)."""
+    """Builds ``loss(params, batch, prep=None)`` for any of the four GNN
+    archs, the reference's loss; ``prep`` is the batch's ``GraphPrep``
+    (made from the batch when None)."""
     cfg = spec_family_cfg
     is_nequip = cfg.__class__.__name__ == "NequIPConfig"
 
-    @torch.no_grad()
-    def loss(params, batch):
+    def loss(params, batch, prep=None):
         m = batch["node_mask"]
         if "loss_mask" in batch:
             m = m * batch["loss_mask"]
         if is_nequip:
-            out = G.nequip_apply(cfg, params, batch, n_graphs=n_graphs)
+            out = G.nequip_apply(cfg, params, batch, n_graphs=n_graphs,
+                                 prep=prep)
             if kind == "molecule":
                 return torch.mean(torch.square(
                     out["energy"] - batch["energy_target"]))
@@ -75,7 +98,7 @@ def gnn_loss_fn(spec_family_cfg, kind: str, n_graphs: int = 1):
             return err.sum() / torch.clamp_min(m.sum(), 1.0)
 
         _, _, apply = G.GNN_MODELS[_gnn_kind(cfg)]
-        out = apply(cfg, params, batch, n_graphs=n_graphs)
+        out = apply(cfg, params, batch, n_graphs=n_graphs, prep=prep)
         logp = torch.log_softmax(out["node_logits"].float(), dim=-1)
         ll = torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0]
         return -(ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
@@ -94,10 +117,112 @@ def gnn_init(cfg, generator: torch.Generator) -> dict:
     return init(cfg, generator)
 
 
+class PrepCache:
+    """The ``GraphPrep`` of the last batch a GNN train step saw, made once
+    and reused while the batch is the same (the very ``edges``,
+    ``edge_mask``, ``node_mask`` and ``graph_ids`` tensors, unchanged
+    since: ``spmm``'s rule for bound edges): a batch's host preparation
+    (``prepare_tiles``, seconds at ogb_products' scale) runs once per
+    graph, not once per step.  For GIN it carries the reverse of the bound
+    edges (``spmm``'s backward).  ``prepare_s`` holds the host seconds of
+    each preparation made."""
+
+    KEYS = ("edges", "edge_mask", "node_mask", "graph_ids")
+
+    def __init__(self, n_graphs: int, reverse: bool):
+        self.n_graphs, self.reverse = n_graphs, reverse
+        self._marks, self._prep = None, None
+        self.prepare_s: list[float] = []
+
+    def get(self, batch) -> G.GraphPrep:
+        if self._marks is not None and all(
+                unchanged(batch[k], m) for k, m in zip(self.KEYS,
+                                                       self._marks)):
+            return self._prep
+        marks = tuple(tensor_mark(batch[k]) for k in self.KEYS)
+        t0 = time.perf_counter()
+        self._prep = G.graph_prep(batch, self.n_graphs, reverse=self.reverse)
+        self.prepare_s.append(time.perf_counter() - t0)
+        self._marks = marks
+        return self._prep
+
+
 def make_gnn_train_step(cfg, kind: str, *, n_graphs: int = 1, lr=1e-3):
-    """Not ported yet: a GNN train step needs the optimizer and training
-    loop of ROADMAP.md Queue 1 item 12, and a backward of the ``spmm``
-    segment sums."""
-    raise NotImplementedError(
-        "GNN training (make_gnn_train_step) is not ported to repro_torch "
-        "yet: see ROADMAP.md Queue 1 item 12 (optim/ and training/)")
+    """The reference's GNN train step (AdamW, no weight decay) on
+    ``gnn_loss_fn``, each batch prepared once (``PrepCache``, as
+    ``step.prep_cache``)."""
+    lr_fn = linear_warmup_cosine(lr, 20, 2_000)
+    loss = gnn_loss_fn(cfg, kind, n_graphs)
+    cache = PrepCache(n_graphs, reverse=_gnn_kind(cfg) == "gin")
+    step = make_train_step(
+        lambda params, batch: loss(params, batch, prep=cache.get(batch)),
+        lr_fn, weight_decay=0.0)
+    step.prep_cache = cache
+    return step
+
+
+# ---------------------------------------------------------------------------
+# recsys (DIEN)
+# ---------------------------------------------------------------------------
+
+def make_recsys_train_step(cfg, *, lr=1e-3):
+    lr_fn = linear_warmup_cosine(lr, 50, 5_000)
+    return make_train_step(functools.partial(R.dien_loss, cfg), lr_fn,
+                           weight_decay=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the train launcher's state: initial, from the reference, to numpy
+# ---------------------------------------------------------------------------
+
+_FROM_REFERENCE = {"lm": T.params_from_reference,
+                   "gnn": G.params_from_reference,
+                   "recsys": R.params_from_reference}
+
+
+def init_params(family: str, cfg, generator: torch.Generator):
+    """Random parameters of ``family``'s model on the generator's device."""
+    if family == "lm":
+        return T.init_params(cfg, generator)
+    if family == "gnn":
+        return gnn_init(cfg, generator)
+    return R.dien_init(cfg, generator)
+
+
+def init_state(family: str, cfg, generator: torch.Generator) -> dict:
+    """``{"params", "opt"}`` of a fresh train state (the concrete twin of
+    the reference's ``init_state_abstract`` train branch)."""
+    params = init_params(family, cfg, generator)
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def state_from_reference(family: str, tree, device="cpu") -> dict:
+    """The reference's train state as a tree of numpy arrays
+    (``jax.tree.map(np.asarray, state)``) as the port's tensors on
+    ``device``: parameters, moments and step, bit for bit."""
+    convert = _FROM_REFERENCE[family]
+    opt = tree["opt"]
+    return {"params": convert(tree["params"], device),
+            "opt": {"m": convert(opt["m"], device),
+                    "v": convert(opt["v"], device),
+                    "step": torch.tensor(np.asarray(opt["step"]),
+                                         dtype=torch.int32, device=device)}}
+
+
+def _to_numpy(t):
+    if isinstance(t, dict):
+        return {k: _to_numpy(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_to_numpy(v) for v in t]
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes   # the reference's bf16 numpy dtype (CPU tests)
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def state_to_numpy(state) -> dict:
+    """A train state (or any tree of tensors) as a tree of numpy arrays
+    with the reference's dtypes (bf16 as ``ml_dtypes.bfloat16``), copied:
+    the port updates its tensors in place."""
+    return _to_numpy(state)

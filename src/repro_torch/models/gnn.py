@@ -23,7 +23,12 @@ NequIP-lite keeps the reference's l<=2 feature algebra in the Cartesian
 basis (scalars / vectors / traceless symmetric matrices), every coupling
 path an einsum.  ``torch.Generator`` cannot reproduce ``jax.random``, so
 ``params_from_reference`` carries the reference's weights over for parity.
-Training (``make_gnn_train_step``) comes with the training slice.
+Under autograd every segment sum's backward is ``spmm`` too (a gather for
+``segment_sum_tiles``; ``spmm`` over the reversed edges for
+``neighbour_sum``, prepared once with ``graph_prep(..., reverse=True)``);
+the gathers by ``src_rows``/``dst_rows`` are torch indexing, whose backward
+(``index_put_`` with accumulation) sends a clamped row its gradient where
+JAX drops it, which matters only for ids outside [0, N).
 """
 from __future__ import annotations
 
@@ -86,22 +91,27 @@ def segments(ids, n: int, device) -> TilePrep:
 
 
 def edge_prep(edges: torch.Tensor, edge_mask: torch.Tensor,
-              num_nodes: int) -> GraphPrep:
+              num_nodes: int, *, reverse: bool = False) -> GraphPrep:
     """The ``GraphPrep`` of an (E, 2) edge tensor over ``num_nodes`` nodes,
     without a readout: ``segments`` of ``dst``, ``src`` and ``edge_mask``
-    bound."""
+    bound, and with ``reverse`` their reverse (``neighbour_sum``'s
+    backward; a second host preparation)."""
     src, dst = edges[:, 0], edges[:, 1]
-    prep = segments(dst, num_nodes, edges.device)
-    return GraphPrep(
-        src=src, dst=dst, edge_mask=edge_mask, num_nodes=num_nodes,
-        edges=prep.with_edges(src, edge_mask, num_rows=num_nodes))
+    prep = segments(dst, num_nodes, edges.device).with_edges(
+        src, edge_mask, num_rows=num_nodes)
+    if reverse:
+        prep = prep.with_reverse(src)
+    return GraphPrep(src=src, dst=dst, edge_mask=edge_mask,
+                     num_nodes=num_nodes, edges=prep)
 
 
-def graph_prep(batch: dict, n_graphs: int = 1) -> GraphPrep:
+def graph_prep(batch: dict, n_graphs: int = 1, *,
+               reverse: bool = False) -> GraphPrep:
     """The ``GraphPrep`` of a batch: its edges over ``node_mask``'s N nodes
-    and its readout over ``graph_ids`` into ``n_graphs`` graphs."""
+    and its readout over ``graph_ids`` into ``n_graphs`` graphs (with
+    ``reverse``, the bound edges' reverse too: a train step's)."""
     gp = edge_prep(batch["edges"], batch["edge_mask"],
-                   int(batch["node_mask"].shape[0]))
+                   int(batch["node_mask"].shape[0]), reverse=reverse)
     return dataclasses.replace(
         gp, n_graphs=n_graphs,
         graphs=segments(batch["graph_ids"], n_graphs,

@@ -16,8 +16,8 @@ tree (``item_table.table``, ``gru_wx``, ``gru_u``, ``att_w``,
 layers, einsums and MLP stay ``torch.matmul``/``einsum`` in float32, as
 the reference leaves them to XLA.  ``torch.Generator`` cannot reproduce
 ``jax.random``, so ``params_from_reference`` carries the reference's
-weights over for parity.  ``dien_loss`` (training) comes with the training
-slice.
+weights over for parity.  ``dien_loss`` is the training loss; under
+autograd both ``augru`` launches have their backward kernel.
 """
 from __future__ import annotations
 
@@ -160,6 +160,17 @@ def dien_forward(cfg: DIENConfig, params, batch, *, aux: bool = True):
 
     logit = _mlp_head(params, torch.cat([final, tgt_emb], dim=-1))
     return logit, aux_loss
+
+
+def dien_loss(cfg: DIENConfig, params, batch):
+    """Binary cross entropy of sigmoid(logit) against ``label`` (with the
+    reference's +1e-9 inside each log), plus the auxiliary loss."""
+    logit, aux = dien_forward(cfg, params, batch)
+    y = batch["label"].float()
+    p = torch.sigmoid(logit.float())
+    bce = -(y * torch.log(p + 1e-9)
+            + (1 - y) * torch.log(1 - p + 1e-9)).mean()
+    return bce + aux
 
 
 def dien_retrieval_score(cfg: DIENConfig, params, batch):

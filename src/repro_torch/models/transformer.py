@@ -13,8 +13,13 @@ ported: ``init_params`` and ``forward`` raise ``NotImplementedError``.
   ``jax.random``, so ``params_from_reference`` carries the reference's
   weights over for parity.
 - The layers run as a Python loop (the reference's ``unroll_layers``
-  path; its ``lax.scan`` computes the same).  ``remat`` is ignored: this
-  slice has no backward pass.
+  path; its ``lax.scan`` computes the same).  Under autograd ``remat``
+  is the reference's: ``"full"`` recomputes each layer in the backward
+  (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
+  layer's matrix products without batch dimensions (``aten.mm``/``addmm``,
+  the counterpart of ``dots_with_no_batch_dims_saveable``) and recomputes
+  the rest, ``"none"`` keeps everything.  ``lm_loss`` is the training
+  loss.
 - The prefill forward's attention is ``kernels/flash_attention``: the
   hand-written CUDA kernel on the card (one launch per layer), the plain
   ``gqa_attention`` on the CPU.  Decode attends over a (L, B, Hkv, S_max,
@@ -27,11 +32,13 @@ ported: ``init_params`` and ``forward`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..kernels.flash_attention import (BLOCKWISE_KV_THRESHOLD,
                                        flash_attention, gqa_attention)
@@ -75,7 +82,7 @@ class TransformerConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     dtype: str = "float32"       # parameter/compute dtype
-    remat: str = "none"          # kept for the reference's surface; ignored
+    remat: str = "none"          # none | full | dots (under autograd)
 
     @property
     def head_dim(self):
@@ -261,6 +268,31 @@ def _logits(cfg: TransformerConfig, params, h):
     return L.dense(params["lm_head"], h)
 
 
+#: the matrix products "dots" keeps (no batch dimensions): a dense layer's
+#: ``x @ w`` (+ b) reaches these aten ops
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_block(cfg: TransformerConfig, p, h, positions):
+    """One layer under ``cfg.remat`` (only where autograd records)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return _block(cfg, p, h, positions)
+    if cfg.remat == "full":
+        return _ckpt.checkpoint(_block, cfg, p, h, positions,
+                                use_reentrant=False)
+    if cfg.remat == "dots":
+        return _ckpt.checkpoint(
+            _block, cfg, p, h, positions, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
+
+
 def forward(cfg: TransformerConfig, params, tokens):
     """tokens: (B, S) -> logits (B, S, vocab), aux loss (a float32 zero:
     only the MoE FFN has one)."""
@@ -269,10 +301,22 @@ def forward(cfg: TransformerConfig, params, tokens):
     B, S = tokens.shape
     h = params["embed"]["table"][tokens]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    # the stacked leaves cut into their layers once: under autograd each
+    # leaf's gradient is then one stack of the layers' (a slice per layer
+    # would add a zero-filled leaf-sized gradient per layer)
+    layers = _tree_map(lambda t: t.unbind(0), params["layers"])
     for i in range(cfg.n_layers):
-        h = _block(cfg, layer_params(params, i), h, positions)
+        h = _run_block(cfg, _tree_map(lambda t: t[i], layers), h, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(cfg, params, h), aux
+
+
+def lm_loss(cfg: TransformerConfig, params, batch):
+    """batch: {tokens (B, S), targets (B, S)} -> scalar loss: the cross
+    entropy of the (B, S, V) logits against the targets, plus the aux
+    loss."""
+    logits, aux = forward(cfg, params, batch["tokens"])
+    return L.cross_entropy_loss(logits, batch["targets"]) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,85 @@
+"""Train-step builder: loss -> gradients -> AdamW, with optional
+microbatch gradient accumulation; the counterpart of
+``repro.training.step``.
+
+Gradients come from ``torch.autograd`` (the kernels' backward on the
+card).  The step updates the state's tensors in place (``adamw_update``)
+and returns the same dict with its metrics (``loss``, ``lr``,
+``grad_norm``, float32 tensors on the state's device: nothing is read back
+to the host)."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..optim.adamw import adamw_update, tree_leaves, tree_map
+
+
+class TrainState(dict):
+    """{'params': tree, 'opt': adamw state}, a plain dict."""
+
+    @staticmethod
+    def create(params, opt_state):
+        return {"params": params, "opt": opt_state}
+
+
+def _split(x, microbatches: int):
+    if isinstance(x, torch.Tensor):
+        return x.reshape((microbatches, x.shape[0] // microbatches)
+                         + tuple(x.shape[1:]))
+    return x
+
+
+def value_and_grad(loss_fn: Callable, params, batch):
+    """(loss, gradient tree) of ``loss_fn(params, batch)`` through
+    ``torch.autograd``, as ``jax.value_and_grad``: the parameters are
+    untouched, and a leaf the loss does not reach gets a zero gradient."""
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(live)
+    tree = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        loss = loss_fn(tree, batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    it = iter([torch.zeros_like(p) if g is None else g
+               for p, g in zip(live, grads)])
+    return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def make_train_step(loss_fn: Callable, lr_fn: Callable, *,
+                    weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                    microbatches: int = 1):
+    """loss_fn(params, batch) -> scalar.  Returns step(state, batch) ->
+    (state, metrics).  With microbatches > 1, the leading batch axis of
+    every tensor in ``batch`` is split, gradients are accumulated in
+    float32, then loss and gradients are divided by the count."""
+
+    def step(state, batch):
+        params = state["params"]
+        if microbatches == 1:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        else:
+            split = {k: _split(v, microbatches) for k, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+            grads = None
+            for i in range(microbatches):
+                mb = {k: v[i] if isinstance(v, torch.Tensor) else v
+                      for k, v in split.items()}
+                loss_i, g_i = value_and_grad(loss_fn, params, mb)
+                loss = loss + loss_i
+                if grads is None:
+                    grads = tree_map(lambda g: g.float(), g_i)
+                else:
+                    tree_map(lambda a, g: a.add_(g.float()), grads, g_i)
+                del g_i
+            loss = loss / microbatches
+            tree_map(lambda g: g.div_(microbatches), grads)
+        # schedule indexed by the step being TAKEN (warmup(0) would be lr=0)
+        lr = lr_fn(state["opt"]["step"] + 1)
+        _, _, om = adamw_update(grads, state["opt"], params, lr=lr,
+                                weight_decay=weight_decay,
+                                max_grad_norm=max_grad_norm)
+        return state, {"loss": loss, "lr": lr, **om}
+
+    return step

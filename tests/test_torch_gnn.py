@@ -424,6 +424,16 @@ def test_gnn_loss_fn_matches_reference(kind, cell):
 
 
 def test_train_step_is_not_ported_yet():
-    _, pcfg = _config("gin", "smoke")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        S.make_gnn_train_step(pcfg, "full")
+    """The GNN train step is ported now (this slice's training): its first
+    step's loss is the reference's loss on the same weights and batch
+    (``tests/test_torch_training.py`` holds the gradients and steps)."""
+    cfg, pcfg = _config("gin", "smoke")
+    r_params = RG.GNN_MODELS["gin"][1](cfg, jax.random.key(0))
+    batch, n_graphs = _graph_batch(4, d_in=cfg.d_in)
+    want = RS.gnn_loss_fn(cfg, "full", n_graphs)(r_params, _jnp(batch))
+    params = G.params_from_reference(jax.tree.map(np.asarray, r_params))
+    state = {"params": params, "opt": S.adamw_init(params)}
+    _, metrics = S.make_gnn_train_step(pcfg, "full", n_graphs=n_graphs)(
+        state, _torch(batch))
+    np.testing.assert_allclose(float(metrics["loss"]), float(want),
+                               rtol=RTOL)
