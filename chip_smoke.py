@@ -96,8 +96,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               ``spmm``'s backward (the reversed edges' bound route after a
               bound and a perm forward, D 64 and 70, weighted or not,
               wrapped and clamped src; within ``SUM_TOL``); timed beside
-              SDPA's flash backward at (1, 24/2, 4,096, 128) bf16 and
-              cuDNN's GRU backward at 512 and 65,536 rows.
+              SDPA's flash backward at (1, 24/2, 4,096, 128) bf16 (the
+              tensor-core route, its kernels' device times from one
+              profiled call, and with ``--previous-designs`` the previous
+              SIMT design on the same inputs) and cuDNN's GRU backward at
+              512 and 65,536 rows.
 4. recsys_serve  DIEN at full width through the serving CLI (``python -m
               repro_torch.launch.serve --arch dien --full --requests N``):
               ``serve_p99`` (512) after a warm-up, ``serve_bulk`` as four
@@ -4672,14 +4675,19 @@ def twopsl_scoring(scale: int, k: int = 32) -> dict:
 GRAD_TOL = {"flash_attention": 1e-4, "augru": 1e-5}
 
 #: flash attention's backward cases: the CPU tests' (GQA 1:1, 2:1, 12:1,
-#: Sq != Skv both ways, D 16 and 128, ragged S), D 256 and an odd 33, and
-#: starcoder2-3b's heads at 4,096 tokens in the model's layout (v strided)
+#: Sq != Skv both ways, D 16 and 128, ragged S), D 256 (bf16 on the SIMT
+#: route) and an odd 33; the tensor-core route's padded and element-staged
+#: widths (the LM smoke config's D 12, D 1, 64 with GQA 2:1 and B 3, 96
+#: with Hq == Hkv and Sq > Skv); and starcoder2-3b's heads at 4,096 tokens
+#: in the model's layout (v strided)
 FLASH_BWD_CHECK = (
     (1, 2, 2, 16, 16, 16, True), (2, 4, 2, 19, 19, 16, True),
     (1, 12, 1, 33, 33, 16, True), (1, 4, 2, 5, 23, 16, True),
     (1, 4, 2, 21, 13, 16, False), (2, 4, 4, 17, 17, 16, False),
     (1, 4, 2, 37, 37, 128, True), (1, 24, 2, 9, 70, 128, True),
     (2, 8, 8, 100, 300, 256, True), (1, 4, 2, 70, 70, 33, False),
+    (1, 4, 2, 64, 64, 12, True), (1, 2, 1, 130, 200, 1, True),
+    (3, 6, 3, 129, 129, 64, False), (1, 4, 4, 200, 130, 96, False),
     (1, 24, 2, 4096, 4096, 128, True))
 #: augru's backward cases: the CPU tests' (T = 1 and 100; H 24, 37, 112),
 #: H above what U in shared memory takes (160, 1000), DIEN's serve rows
@@ -4701,17 +4709,22 @@ def check_flash_backward(cases) -> dict:
     gradient within ``GRAD_TOL``, each bf16 element within
     ``ops.bf16_gradient_bound`` of the plain backward evaluated in float32
     on the same bf16 operands; two launches bit-equal.  The 4,096-token case
-    in the model's layout."""
+    in the model's layout.  ``routes`` counts the calls by
+    ``kernel.backward_route`` (bf16 at D <= 128 the tensor-core kernels,
+    float32, and bf16 at D = 256, the SIMT ones)."""
     import torch
     from repro_torch.kernels.flash_attention import (
         bf16_gradient_bound, flash_attention, flash_attention_backward,
-        gqa_attention_backward)
+        gqa_attention_backward, kernel)
     worst, worst_bf16, n, abs_err = 0.0, 0.0, 0, 0.0
+    routes = {}
     for (B, Hq, Hkv, Sq, Skv, D, causal) in cases:
         for dtype in ("float32", "bfloat16"):
             q, k, v = flash_inputs(B, Hq, Hkv, Sq, Skv, D, dtype,
                                    seed=Sq + D, device="cuda",
                                    model_layout=Sq >= 4096)
+            route = kernel.backward_route(q)
+            routes[route] = routes.get(route, 0) + 1
             do = torch.randn(q.shape, device="cuda").to(q.dtype)
             with torch.no_grad():
                 o = flash_attention(q, k, v, causal=causal)
@@ -4742,7 +4755,7 @@ def check_flash_backward(cases) -> dict:
             n += 1
             del q, k, v, do, o, got, again, want
     torch.cuda.empty_cache()
-    return {"cases": n, "max_abs_err": abs_err,
+    return {"cases": n, "routes": routes, "max_abs_err": abs_err,
             "max_err_share_float32": worst,
             "max_err_over_bf16_bound": worst_bf16,
             "tolerance": f"float32 within {GRAD_TOL['flash_attention']} of "
@@ -4765,17 +4778,35 @@ def flash_backward_work(B, Hq, Hkv, Sq, Skv, D, causal, itemsize) -> tuple:
     return nbytes, ops // 4 * 10
 
 
+def previous_flash_backward(q, k, v, o, dout, *, causal: bool = True):
+    """The previous bf16 backward design (the SIMT kernels) on
+    ``flash_attention_backward``'s arguments, to time it beside the
+    tensor-core design; no launch counter counts it."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    kernel.launch_backward_previous(q, k, v, o, dout, dq=dq, dk=dk, dv=dv,
+                                    causal=causal,
+                                    scale=1.0 / (q.shape[-1] ** 0.5))
+    return dq, dk, dv
+
+
 def time_flash_backward(S: int = 4096, Hq: int = 24, Hkv: int = 2,
-                        D: int = 128) -> dict:
+                        D: int = 128, previous: bool = False) -> dict:
     """starcoder2-3b's causal bf16 layer at ``S`` tokens in the model's
-    layout: the backward kernel, the plain backward and SDPA's flash
-    backend's backward (GQA, causal; a yardstick of speed only, never on
-    the port's path) timed between CUDA events on the same inputs."""
+    layout: the backward kernels (their route, and the device time of each
+    kernel in one profiled call), the previous design (the SIMT kernels'
+    bf16 instantiation, with ``previous``), the plain backward and SDPA's
+    flash backend's backward (GQA, causal; a yardstick of speed only, never
+    on the port's path) timed between CUDA events on the same inputs."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_backward, gqa_attention_backward)
+        flash_attention, flash_attention_backward, gqa_attention_backward,
+        kernel)
     q, k, v = flash_inputs(1, Hq, Hkv, S, S, D, "bfloat16", seed=11,
                            device="cuda", model_layout=True)
     do = torch.randn(q.shape, device="cuda").to(q.dtype)
@@ -4783,6 +4814,11 @@ def time_flash_backward(S: int = 4096, Hq: int = 24, Hkv: int = 2,
         o = flash_attention(q, k, v)
     ms = cuda_time_ms(lambda: flash_attention_backward(q, k, v, o, do),
                       reps=10, warmup=2)
+    split = kernel_breakdown(lambda: flash_attention_backward(q, k, v, o,
+                                                              do), ms)
+    previous_ms = (cuda_time_ms(lambda: previous_flash_backward(q, k, v, o,
+                                                                do),
+                                reps=3, warmup=1) if previous else None)
     plain_ms = cuda_time_ms(lambda: gqa_attention_backward(q, k, v, o, do),
                             reps=2, warmup=1)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -4792,12 +4828,17 @@ def time_flash_backward(S: int = 4096, Hq: int = 24, Hkv: int = 2,
         lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
             out, (ql, kl, vl), do, retain_graph=True), reps=10, warmup=2)
     nbytes, ops = flash_backward_work(1, Hq, Hkv, S, S, D, True, 2)
+    route = kernel.backward_route(q)
     del q, k, v, do, o, out, ql, kl, vl
     torch.cuda.empty_cache()
     return {"shape": [1, Hq, Hkv, S, S, D], "causal": True,
-            "dtype": "bfloat16", "model_layout": True, "ms": ms,
+            "dtype": "bfloat16", "model_layout": True, "route": route,
+            "ms": ms, "kernels": split, "previous_ms": previous_ms,
+            "speedup_over_previous": previous_ms and previous_ms / ms,
             "plain_ms": plain_ms, "ms_source": "cuda_events",
             "tflop_per_s": ops / ms / 1e9,
+            "previous_tflop_per_s": previous_ms and ops / previous_ms / 1e9,
+            "library_tflop_per_s": ops / lib_ms / 1e9,
             **bound(nbytes, ops, BF16_OPS_PER_S), "library_ms": lib_ms,
             "library": "torch.autograd.grad of torch.nn.functional."
                        "scaled_dot_product_attention(is_causal=True, "
@@ -5510,7 +5551,8 @@ def main(argv=None) -> int:
                          "measurements the full run no longer runs: the "
                          "HDRF baselines again with the previous "
                          "composition, the previous flash design's prefill "
-                         "time and the bf16 model's logits through it")
+                         "time and the bf16 model's logits through it, and "
+                         "the previous flash backward's time")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
@@ -5606,7 +5648,8 @@ def main(argv=None) -> int:
     s_check = check_spmm(SPMM_CHECK)
     b_check = check_embedding_bag(BAG_CHECK)
     fb_check = check_flash_backward(FLASH_BWD_CHECK)
-    fb_timing = time_flash_backward(LM_TRAIN_SEQ)
+    fb_timing = time_flash_backward(LM_TRAIN_SEQ,
+                                    previous=args.previous_designs)
     ab_check = check_augru_backward(AUGRU_BWD_CHECK
                                     + ((RECSYS_TRAIN_ROWS, 100, 108),))
     ab_timing = time_augru_backward(512)
@@ -5808,9 +5851,19 @@ def main(argv=None) -> int:
         "launches_train": lt["launches"]["flash_attention"],
         "backward_source": "src/repro_torch/kernels/flash_attention/csrc/"
                            "flash_attention_backward.cu",
+        "backward_kernels": {
+            "tensor_core": ["tc::lse_delta_kernel", "tc::dq_kernel",
+                            "tc::dkv_kernel", "tc::dkv_reduce_kernel"],
+            "simt": ["lse_delta_kernel", "dq_kernel", "dkv_kernel"]},
+        "backward_route": fb_timing["route"],
+        "backward_routes_checked": fb_check["routes"],
         "backward_launches": train_paths["flash_attention_backward"],
         "backward_max_abs_err": fb_check["max_abs_err"],
+        "backward_max_err_over_bf16_bound":
+            fb_check["max_err_over_bf16_bound"],
         "backward_ms": fb_timing["ms"],
+        "backward_previous_ms": fb_timing["previous_ms"],
+        "backward_tflop_per_s": fb_timing["tflop_per_s"],
         "backward_plain_ms": fb_timing["plain_ms"],
         "backward_bound_ms": fb_timing["bound_ms"],
         "backward_bound_by": fb_timing["bound_by"],

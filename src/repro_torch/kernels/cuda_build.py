@@ -2,8 +2,8 @@
 
 Each kernel is one ``.cu`` file with a plain C entry point.  At first use
 it is compiled for Hopper into ``kernels/build/<name>-<hash>/`` (the
-directory is listed in ``.gitignore``), keyed by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads the
+directory is listed in ``.gitignore``), keyed by a hash of the source, the
+``*.cuh`` headers beside it and the flags, so an edited source rebuilds and an unchanged one loads the
 library already built.  The compile writes to a temporary file and renames
 it into place, so processes that build at once never load a torn library.
 
@@ -54,8 +54,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str, source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, keyed by the source, the headers beside it
+    (``*.cuh``, which a source may include) and the flags."""
+    data = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_ROOT / f"{name}-{digest[:16]}" / f"lib{name}.so"
 
 

@@ -8,9 +8,10 @@ back from the kernel to the plain version.
 
 When grad is enabled and an operand requires it, ``flash_attention`` runs
 through an autograd ``Function`` whose backward is the backward kernel on
-the card (``flash_attention_backward``: three launches, counted once in
-``backward_launches``) and its plain version, ``gqa_attention_backward``,
-on the CPU; the plain forward's autograd never runs on a CUDA tensor.
+the card (``flash_attention_backward``: the kernels of its route, counted
+once in ``backward_launches``) and its plain version,
+``gqa_attention_backward``, on the CPU; the plain forward's autograd never
+runs on a CUDA tensor.
 Under ``no_grad`` the op is the forward alone, as before.
 """
 from __future__ import annotations
@@ -23,7 +24,8 @@ from .ref import gqa_attention, gqa_attention_backward
 
 launches = LaunchCounter()
 #: backward calls on the card, one per ``flash_attention_backward`` launch
-#: (its three kernels)
+#: (four kernels on the tensor-core route, three when Hq == Hkv or on the
+#: SIMT route)
 backward_launches = LaunchCounter()
 
 # above this many kv positions the plain path switches to the blockwise
@@ -92,15 +94,19 @@ def bf16_gradient_bound(want: torch.Tensor) -> torch.Tensor:
     operands (q, k, v, o, do) to float32 exactly and form the same float32
     s, p, dp, delta and ds; they differ only in the order of their float32
     sums (the plain version's einsums against the kernel's fixed-order
-    fmaf loops), which the float32 gradients' tolerance, 1e-4 of each
+    sums), which the float32 gradients' tolerance, 1e-4 of each
     gradient's largest magnitude, covers (the cancellation in dp - delta
     makes that error scale with the gradient's largest value, not with
     each element).  The kernel then rounds its float32 result to bf16
     once: round to nearest with 8 significant bits moves a value by at
     most half a unit in its last place, 2^-8 of itself (of the float32
     result, which the second term's slack puts within 1e-4 max |want| of
-    ``want``).  Unlike the forward, no bf16 rounding happens inside the
-    sums: the backward keeps p in float32."""
+    ``want``).  Unlike the forward, no bf16 rounding of p or ds enters the
+    sums: the SIMT kernels keep them in float32, and the tensor-core
+    kernels feed each as a split pair hi = bf16(x), lo = bf16(x - hi),
+    which carries x to 2^-17 of itself (one bf16 rounding of p and ds
+    would not fit this bound: ``tests/test_torch_backward.py`` emulates
+    both)."""
     want = want.float()
     return BF16_GRAD_REL * want.abs() + 1e-4 * want.abs().max()
 
@@ -153,9 +159,16 @@ def _forward(q, k, v, causal: bool):
 
 def flash_attention_backward(q, k, v, o, dout, *, causal: bool = True):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` for the output gradient
-    ``dout``, given its output ``o``: the backward kernel on a CUDA tensor
+    ``dout``, given its output ``o``: the backward kernels on a CUDA tensor
     (launches or raises), ``gqa_attention_backward`` on the CPU.  Outputs
-    are contiguous, in the operands' dtype."""
+    are contiguous, in the operands' dtype.
+
+    On the card the route follows from dtype and head dim before any
+    launch (``kernel.backward_route``): bf16 at D <= 128 takes the
+    tensor-core kernels (split-bf16 P and dS, dK/dV per query head summed
+    over the group in head order); float32 at any D, and bf16 at D > 128,
+    take the SIMT kernels.  Nothing falls back from one route to the
+    other."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type != "cuda":
         return gqa_attention_backward(q, k, v, o, dout, causal=causal,

@@ -100,7 +100,7 @@ def gnn_loss_fn(spec_family_cfg, kind: str, n_graphs: int = 1):
         _, _, apply = G.GNN_MODELS[_gnn_kind(cfg)]
         out = apply(cfg, params, batch, n_graphs=n_graphs, prep=prep)
         logp = torch.log_softmax(out["node_logits"].float(), dim=-1)
-        ll = torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0]
+        ll = G.label_log_prob(logp, batch["labels"])
         return -(ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
 
     return loss

@@ -494,12 +494,24 @@ GNN_MODELS = {
 }
 
 
+def label_log_prob(logp, labels):
+    """``logp[i, labels[i]]`` as ``jnp.take_along_axis`` gives it: a label
+    in [-C, 0) wraps once, one outside [-C, C) gives NaN (its default
+    fill).  The gather reads at a clamped index, so nothing raises on the
+    CPU and no device-side assert fires on the card."""
+    C = logp.shape[-1]
+    labels = labels.long()
+    idx = torch.where(labels < 0, labels + C, labels)
+    picked = torch.gather(logp, -1, idx.clamp(0, C - 1)[:, None])[:, 0]
+    return torch.where((idx >= 0) & (idx < C), picked, float("nan"))
+
+
 def gnn_node_loss(apply_fn, params, batch, n_classes):
     out = apply_fn(params, batch)
     logits = out["node_logits"].float()
     mask = batch["node_mask"]
     logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0]
+    ll = label_log_prob(logp, batch["labels"])
     return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 

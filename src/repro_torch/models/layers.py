@@ -141,15 +141,20 @@ def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0):
     """logits: (..., V) any float dtype; labels: (...,) integer.  The
     reference's arithmetic: the row max (no gradient) subtracted in the
     logits' dtype, exp and the sums in float32, the label's logit picked
-    in float32 (a gather, which equals the reference's one-hot masked sum);
-    mean of lse - label logit, plus ``z_loss`` * mean lse^2.  The only
-    (tokens x vocab) float32 tensor kept is what autograd saves of the
-    exp."""
+    in float32 (a gather at the label clamped into [0, V), zeroed where the
+    label lies outside: the reference's one-hot masked sum, which finds no
+    match there); mean of lse - label logit, plus ``z_loss`` * mean lse^2.
+    The only (tokens x vocab) float32 tensor kept is what autograd saves of
+    the exp."""
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - m
     sumexp = torch.sum(torch.exp(shifted.float()), dim=-1)
     lse = torch.log(sumexp) + m[..., 0].float()
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0].float()
+    V = logits.shape[-1]
+    labels = labels.long()
+    picked = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])
+    ll = torch.where((labels >= 0) & (labels < V), picked[..., 0].float(),
+                     0.0)
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * torch.square(lse).mean()

@@ -97,6 +97,102 @@ def test_flash_no_grad_keeps_the_forward_alone():
     assert F.flash_attention(*ts).grad_fn is not None
 
 
+def _emulate_tensor_core_backward(q, k, v, o, do, *, causal, split):
+    """The bf16 tensor-core backward's arithmetic in plain torch: float32 S
+    and dP from the bf16 operands (exact products), each row's lse in the
+    exp2 domain, P and dS in float32, fed to the dV, dK and dQ products as
+    the split pair hi = bf16(x), lo = bf16(x - hi) (``split``) or rounded
+    once to bf16, per-query-head dK and dV partials summed over the group
+    in head order, dK and dQ scaled after the sum, one rounding of each
+    gradient."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    scale_log2 = torch.tensor(scale * 1.4426950408889634)
+    qf, dof, of = (t.float().reshape(B, Hkv, G, Sq, D) for t in (q, do, o))
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
+    vis = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        vis = (torch.arange(Skv)[None, :]
+               <= torch.arange(Sq)[:, None] + (Skv - Sq))
+    s2 = torch.where(vis, s * scale_log2, torch.tensor(-1e30))
+    m = s2.amax(-1, keepdim=True)
+    lse2 = m + torch.log2(torch.exp2(s2 - m).sum(-1, keepdim=True))
+    p = torch.where(vis, torch.exp2(s * scale_log2 - lse2),
+                    torch.tensor(0.0))
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+    dv_h = sum(torch.einsum("bhgqk,bhgqd->bhgkd", t, dof) for t in parts(p))
+    dk_h = sum(torch.einsum("bhgqk,bhgqd->bhgkd", t, qf) for t in parts(ds))
+    dq = sum(torch.einsum("bhgqk,bhkd->bhgqd", t, kf)
+             for t in parts(ds)) * scale
+    dk = torch.zeros_like(dk_h[:, :, 0])
+    dv = torch.zeros_like(dk)
+    for g in range(G):
+        dk = dk + dk_h[:, :, g]
+        dv = dv + dv_h[:, :, g]
+    return (dq.reshape(B, Hq, Sq, D).bfloat16(), (dk * scale).bfloat16(),
+            dv.bfloat16())
+
+
+#: GQA 12:1 and 2:1, Sq != Skv both ways, D 16, 64 and 128, non-causal
+EMULATED = [(1, 12, 1, 128, 128, 128, True), (1, 4, 2, 96, 160, 64, True),
+            (1, 4, 2, 160, 96, 64, False), (1, 24, 2, 256, 256, 128, True),
+            (2, 4, 2, 33, 47, 16, True)]
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", EMULATED)
+def test_tensor_core_backward_needs_split_p_and_ds(B, Hq, Hkv, Sq, Skv, D,
+                                                   causal, split):
+    """On bf16 operands, the tensor-core design's arithmetic with P and dS
+    fed as split bf16 pairs keeps every gradient element within
+    ``bf16_gradient_bound`` of the plain backward evaluated in float32;
+    with P and dS rounded once to bf16, some gradient leaves it (by 5.9-14x
+    on these cases).  So the split is what lets the kernel keep the
+    bound."""
+    rng = np.random.default_rng(B + Hq + Sq + D)
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in (
+        rng.standard_normal(s).astype(np.float32)
+        for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D),
+                  (B, Hq, Sq, D))))
+    o = F.flash_attention(q, k, v, causal=causal)
+    want = F.gqa_attention_backward(q.float(), k.float(), v.float(),
+                                    o.float(), do.float(), causal=causal)
+    got = _emulate_tensor_core_backward(q, k, v, o, do, causal=causal,
+                                        split=split)
+    ratio = max(float(((g.float() - w).abs()
+                       / F.bf16_gradient_bound(w)).max())
+                for g, w in zip(got, want))
+    if split:
+        assert ratio <= 1.0
+    else:
+        assert ratio > 1.0
+
+
+def test_backward_route_is_decided_by_dtype_and_head_dim():
+    """bf16 at D <= 128 takes the tensor-core kernels, float32 and bf16
+    above D = 128 the SIMT ones (the route the card's check exercises at D
+    = 256)."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    def q(dtype, D):
+        return torch.zeros((1, 2, 3, D), dtype=dtype)
+
+    assert kernel.backward_route(q(torch.bfloat16, 1)) == "tensor_core"
+    assert kernel.backward_route(q(torch.bfloat16, 128)) == "tensor_core"
+    assert kernel.backward_route(q(torch.bfloat16, 129)) == "simt"
+    assert kernel.backward_route(q(torch.bfloat16, 256)) == "simt"
+    assert kernel.backward_route(q(torch.float32, 64)) == "simt"
+
+
 # ---------------------------------------------------------------------------
 # augru
 # ---------------------------------------------------------------------------
