@@ -92,7 +92,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               tokens in the model's layout; float32 within 1e-4 of each
               gradient's largest magnitude, bf16 elementwise within
               ``ops.bf16_gradient_bound``), ``augru_backward`` (T = 1 and
-              100, H 24 to 1,000, 512 and 65,536 rows; within 1e-5), and
+              100, H 24 to 1,000, 512 and 65,536 rows, the tile route's
+              edge on this card, att == 1, ragged last tiles, the tile
+              route forced at H 1, 37, 105, 128 and 512 rows and the rows
+              route forced at 65,536; within 1e-5, each case's route
+              reported), and
               ``spmm``'s backward (the reversed edges' bound route after a
               bound and a perm forward, D 64 and 70, weighted or not,
               wrapped and clamped src; within ``SUM_TOL``); timed beside
@@ -100,7 +104,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               tensor-core route, its kernels' device times from one
               profiled call, and with ``--previous-designs`` the previous
               SIMT design on the same inputs) and cuDNN's GRU backward at
-              512 and 65,536 rows.
+              512 and 65,536 rows; ``augru_backward``'s op split into the
+              kernel alone and ``du``'s product (with ``--previous-designs``
+              the previous design, the rows route, on the same inputs, and
+              both routes at 4 to 64 rows per SM and the tile route at 1 to
+              6 row groups a tile).
 4. recsys_serve  DIEN at full width through the serving CLI (``python -m
               repro_torch.launch.serve --arch dien --full --requests N``):
               ``serve_p99`` (512) after a warm-up, ``serve_bulk`` as four
@@ -286,8 +294,8 @@ of the repository, it exits non-zero and prints no result.
 runs the whole script and also the earlier redesigns' before/after
 measurements the default run leaves out (the HDRF baselines again with
 the previous composition, the previous flash design's prefill time, the
-bf16 model's logits through it, cuDNN's GRU at 65,536 rows and the augru
-route edges).
+bf16 model's logits through it, cuDNN's GRU at 65,536 rows, the augru
+route edges, and augru's previous backward and its route edges).
 
     python3 chip_smoke.py --scoring-compare
 
@@ -4689,9 +4697,11 @@ FLASH_BWD_CHECK = (
     (1, 4, 2, 64, 64, 12, True), (1, 2, 1, 130, 200, 1, True),
     (3, 6, 3, 129, 129, 64, False), (1, 4, 4, 200, 130, 96, False),
     (1, 24, 2, 4096, 4096, 128, True))
-#: augru's backward cases: the CPU tests' (T = 1 and 100; H 24, 37, 112),
-#: H above what U in shared memory takes (160, 1000), DIEN's serve rows
-#: and the recsys_train phase's rows (``RECSYS_TRAIN_ROWS``, added there)
+#: augru's backward cases on the planned route: the CPU tests' (T = 1 and
+#: 100; H 24, 37, 112), H above what U in shared memory takes (160, 1000),
+#: DIEN's serve rows and the recsys_train phase's rows
+#: (``RECSYS_TRAIN_ROWS``, added there); ``augru_backward_cases`` adds the
+#: tile route's edges on this card
 AUGRU_BWD_CHECK = ((3, 1, 24), (2, 100, 24), (4, 7, 37), (2, 5, 112),
                    (1, 100, 37), (5, 9, 160), (2, 3, 1000), (512, 100, 108))
 
@@ -4845,37 +4855,84 @@ def time_flash_backward(S: int = 4096, Hq: int = 24, Hkv: int = 2,
                        "enable_gqa=True), flash backend"}
 
 
-def check_augru_backward(shapes) -> dict:
-    """``augru_backward`` against ``augru_backward_ref`` on the card with
-    random attention: every gradient within ``GRAD_TOL`` of its largest
-    magnitude, two launches bit-equal."""
+def augru_backward_cases() -> tuple:
+    """(B, T, H, forced route or None, att == 1) for
+    ``check_augru_backward``: ``AUGRU_BWD_CHECK`` and ``RECSYS_TRAIN_ROWS``
+    on the planned route with random attention, then the tile route's
+    edges on this card (cheap: T of 2 or 3): the last B on the rows route
+    and the first on the tile route, att == 1 there (the GRU stage), a
+    ragged last tile and row group (B neither a multiple of the tile's
+    rows nor of 8) at the edge and at the train rows; the tile route forced
+    at H % 4 != 0 (37, 105), at H = 1, at the largest H it takes (128) and
+    at DIEN's serve rows, and the rows route forced at the train rows."""
+    from repro_torch.kernels.augru import kernel
+    sms, _ = kernel.device_limits(0)
+    first = kernel.BACKWARD_TILE_ROWS_PER_SM * sms
+    return tuple((B, T, H, None, False) for B, T, H in AUGRU_BWD_CHECK
+                 + ((RECSYS_TRAIN_ROWS, 100, 108),)) + (
+        (first - 1, 3, 108, None, False), (first, 3, 108, None, False),
+        (first, 3, 108, None, True), (first + 13, 2, 108, None, False),
+        (RECSYS_TRAIN_ROWS - 5, 2, 108, None, True),
+        (7, 20, 37, "tile", False), (50, 5, 105, "tile", True),
+        (3, 4, 1, "tile", False), (9, 3, 128, "tile", False),
+        (512, 100, 108, "tile", False),
+        (RECSYS_TRAIN_ROWS, 3, 108, "rows", False))
+
+
+def augru_backward_plan(route, B: int, H: int):
+    """The plan of ``route`` at (B, H) on this card (None: the op's own)."""
+    from repro_torch.kernels.augru import kernel
+    limits = kernel.device_limits(0)
+    if route is None:
+        return kernel.backward_plan(B, H, *limits)
+    if route == "tile":
+        return kernel.backward_tile_plan(B, H, *limits)
+    return kernel.backward_rows_plan(B, H, *limits)
+
+
+def check_augru_backward(cases) -> dict:
+    """``augru_backward`` against ``augru_backward_ref`` on the card for
+    each (B, T, H, route, ones) of ``cases`` (``augru_backward_cases``):
+    the planned route or the one forced (``use_plan``), random attention
+    or att == 1; every gradient within ``GRAD_TOL`` of its largest
+    magnitude, two launches bit-equal; each case's route reported, and
+    both routes reached."""
     import torch
     from repro_torch.kernels.augru import (augru, augru_backward,
                                            augru_backward_ref)
-    worst, abs_err = 0.0, 0.0
-    for (B, T, H) in shapes:
-        xg, u, att, h0 = augru_inputs(B, T, H, seed=B + H, ones=False,
+    worst, abs_err, routes, reported = 0.0, 0.0, {}, []
+    for (B, T, H, route, ones) in cases:
+        p = augru_backward_plan(route, B, H)
+        xg, u, att, h0 = augru_inputs(B, T, H, seed=B + H, ones=ones,
                                       device="cuda")
         do = torch.randn((B, T, H), device="cuda")
         with torch.no_grad():
             out = augru(xg, u, att, h0)
-        got = augru_backward(xg, u, att, h0, out, do)
-        again = augru_backward(xg, u, att, h0, out, do)
+        got = augru_backward(xg, u, att, h0, out, do, use_plan=p)
+        again = augru_backward(xg, u, att, h0, out, do, use_plan=p)
         want = augru_backward_ref(xg, u, att, h0, out, do)
         torch.cuda.synchronize()
+        case_worst = 0.0
         for name, g, a, w in zip(("x_gates", "u", "att", "h0"), got, again,
                                  want):
             share = grad_share(g, w)
-            worst = max(worst, share)
+            case_worst = max(case_worst, share)
             abs_err = max(abs_err, float((g - w).abs().max()))
             if not torch.equal(g, a) or share > GRAD_TOL["augru"]:
                 raise AssertionError(
-                    f"augru backward d{name} at {(B, T, H)}: bit-equal "
-                    f"{torch.equal(g, a)}, share {share}")
+                    f"augru backward d{name} at {(B, T, H)} on {p}: "
+                    f"bit-equal {torch.equal(g, a)}, share {share}")
+        worst = max(worst, case_worst)
+        routes[p.route] = routes.get(p.route, 0) + 1
+        reported.append({"shape": [B, T, H], "att_ones": ones,
+                         "forced": route is not None, "route": p.route,
+                         "groups": p.groups, "err_share": case_worst})
         del xg, u, att, h0, do, out, got, again, want
     torch.cuda.empty_cache()
-    return {"cases": len(shapes), "max_abs_err": abs_err,
-            "max_err_share": worst,
+    if set(routes) != {"tile", "rows"}:
+        raise AssertionError(f"augru backward: routes reached {routes}")
+    return {"cases": len(cases), "routes": routes, "by_case": reported,
+            "max_abs_err": abs_err, "max_err_share": worst,
             "tolerance": f"within {GRAD_TOL['augru']} of each gradient's "
                          f"largest magnitude",
             "bit_equal": True, "ok": True}
@@ -4908,38 +4965,132 @@ def gru_backward_library_ms(B: int, T: int = 100, e: int = 18,
         torch.backends.cudnn.allow_tf32 = tf32
 
 
-def time_augru_backward(B: int, T: int = 100, H: int = 108,
-                        reps: int = 20) -> dict:
-    """The backward kernel (with ``du``'s product, as the op runs it), the
-    plain backward and cuDNN's GRU backward at (B, T, H), CUDA events."""
+def augru_backward_operands(B: int, T: int, H: int) -> tuple:
+    """(x_gates, u, att, h0, out, dout) on the card: ``augru_inputs`` with
+    random attention, the forward kernel's states and a random output
+    gradient."""
     import torch
-    from repro_torch.kernels.augru import (augru, augru_backward,
-                                           augru_backward_ref, kernel)
+    from repro_torch.kernels.augru import augru
     xg, u, att, h0 = augru_inputs(B, T, H, seed=5, ones=False,
                                   device="cuda")
     do = torch.randn((B, T, H), device="cuda")
     with torch.no_grad():
         out = augru(xg, u, att, h0)
-    ms = batched_ms(lambda: augru_backward(xg, u, att, h0, out, do), reps,
-                    2)
-    plain_ms = cuda_time_ms(lambda: augru_backward_ref(xg, u, att, h0, out,
-                                                       do), 2, 1)
+    return xg, u, att, h0, out, do
+
+
+def augru_backward_outputs(B: int, T: int, H: int) -> dict:
+    """The backward kernel's outputs, allocated on the card."""
+    import torch
+    return dict(dx_gates=torch.empty((B, T, 3 * H), device="cuda"),
+                dhu_n=torch.empty((B, T, H), device="cuda"),
+                datt=torch.empty((B, T), device="cuda"),
+                dh0=torch.empty((B, H), device="cuda"))
+
+
+def augru_backward_kernel_ms(args, p, reps: int) -> float:
+    """The backward kernel alone on plan ``p``: ``reps`` back-to-back
+    ``kernel.launch_backward`` calls between CUDA events."""
+    from repro_torch.kernels.augru import kernel
+    outs = augru_backward_outputs(*args[4].shape)
+    return batched_ms(lambda: kernel.launch_backward(*args, **outs,
+                                                     use_plan=p), reps, 1)
+
+
+def time_augru_backward(B: int, T: int = 100, H: int = 108,
+                        reps: int = 20, previous: bool = False) -> dict:
+    """The op (the backward kernel and ``du``'s product, as autograd runs
+    it), the kernel alone and ``du``'s product alone on the planned route,
+    the plain backward and cuDNN's GRU backward at (B, T, H), back to back
+    between CUDA events; with ``previous`` the previous design (the rows
+    route, forced) on the same inputs, the op and the kernel alone, in
+    turns with the planned route (planned, previous, previous, planned)."""
+    import torch
+    from repro_torch.kernels.augru import (augru_backward,
+                                           augru_backward_ref, du_product,
+                                           kernel)
+    args = augru_backward_operands(B, T, H)
+    plan = augru_backward_plan(None, B, H)
+    res = {"shape": [B, T, H], "route": plan.route, "plan": plan._asdict()}
+    res["ms"] = batched_ms(lambda: augru_backward(*args), reps, 2)
+    res["kernel_ms"] = augru_backward_kernel_ms(args, plan, reps)
+    outs = augru_backward_outputs(B, T, H)
+    kernel.launch_backward(*args, **outs, use_plan=plan)
+    res["du_ms"] = batched_ms(lambda: du_product(
+        args[3], args[4], outs["dx_gates"], outs["dhu_n"]), reps, 2)
+    del outs
+    if previous:
+        prev = augru_backward_plan("rows", B, H)
+        res["previous_plan"] = prev._asdict()
+        res["previous_ms"] = batched_ms(
+            lambda: augru_backward(*args, use_plan=prev), reps, 1)
+        res["previous_kernel_ms"] = augru_backward_kernel_ms(args, prev,
+                                                             reps)
+        res["ms_again"] = batched_ms(lambda: augru_backward(*args), reps, 1)
+        res["speedup_over_previous"] = res["previous_ms"] / res["ms"]
+    res["plain_ms"] = cuda_time_ms(lambda: augru_backward_ref(*args), 2, 1)
+    del args
+    torch.cuda.empty_cache()
     lib_ms = gru_backward_library_ms(B, T, H=H)
-    plan = kernel.backward_plan(B, H, *kernel.device_limits(
-        torch.cuda.current_device()))
     # bytes: x_gates, out, dout, att, h0, u read once; dx_gates, dhU_n,
-    # datt, dh0, du written once.  Operations: per (row, step) hU (2 H 3H),
-    # dhU U^T (2 3H H) and du's share (2 H 3H)
+    # datt, dh0, du written once.  Operations: per (row, step) hU (2 H 3H)
+    # and dhU U^T (2 3H H) in the kernel, du's share (2 H 3H) after it
     nbytes = 4 * (B * T * (3 * H + 2 * H + 1) + B * H + 3 * H * H
                   + B * T * (3 * H + H + 1) + B * H + 3 * H * H)
-    ops = 18 * B * T * H * H
-    del xg, u, att, h0, do, out
-    torch.cuda.empty_cache()
-    return {"shape": [B, T, H], "plan": plan._asdict(), "ms": ms,
-            "plain_ms": plain_ms, "ms_source": "cuda_events",
-            **bound(nbytes, ops), "library_ms": lib_ms,
+    kernel_bytes = nbytes - 4 * 3 * H * H
+    kernel_bound = bound(kernel_bytes, 12 * B * T * H * H)
+    return {**res, "ms_source": "cuda_events (batched_ms)",
+            **bound(nbytes, 18 * B * T * H * H),
+            "kernel_bound_ms": kernel_bound["bound_ms"],
+            "kernel_bound_by": kernel_bound["bound_by"],
+            "du_bound_ms": bound(4 * (B * T * 4 * H + 3 * H * H),
+                                 6 * B * T * H * H)["bound_ms"],
+            "library_ms": lib_ms,
             "library": "torch.autograd.grad of torch.nn.GRU(18, 108), "
                        "cuDNN, TF32 off"}
+
+
+def time_augru_backward_edge(rows_per_sm=(4, 8, 12, 16, 24, 32, 48, 64),
+                             T: int = 100, H: int = 108, reps: int = 3,
+                             groups=(1, 2, 3, 4, 5, 6)) -> dict:
+    """The backward kernel alone on both routes at B = ``rows_per_sm`` x
+    the card's SMs, where ``kernel.backward_plan`` switches from the rows
+    route to the tile route at ``kernel.BACKWARD_TILE_ROWS_PER_SM``, and the
+    tile route at each count of 8-row groups a tile at
+    ``RECSYS_TRAIN_ROWS``: back to back between CUDA events, beside the
+    plan's choice."""
+    import torch
+    from repro_torch.kernels.augru import kernel
+    sms, smem = kernel.device_limits(0)
+    res = {"sms": sms,
+           "tile_rows_per_sm": kernel.BACKWARD_TILE_ROWS_PER_SM}
+    for n in rows_per_sm:
+        B = n * sms
+        args = augru_backward_operands(B, T, H)
+        plans = {"rows": kernel.backward_rows_plan(B, H, sms, smem),
+                 "tile": kernel.backward_tile_plan(B, H, sms, smem)}
+        res[str(n)] = {"B": B, "plan": kernel.backward_plan(
+            B, H, sms, smem).route, "tile_groups": plans["tile"].groups, **{
+            f"{name}_ms": augru_backward_kernel_ms(args, p, reps)
+            for name, p in plans.items()}}
+        del args
+    B = RECSYS_TRAIN_ROWS
+    args = augru_backward_operands(B, T, H)
+    chosen = kernel.backward_tile_plan(B, H, sms, smem)
+    ug = -(-H // kernel.BACKWARD_TILE_UNITS)
+    sweep = {}
+    for g in groups:
+        rows = kernel.BACKWARD_TILE_ROWS * g
+        if kernel.backward_tile_smem(H, rows) > smem:
+            continue
+        p = kernel.BackwardPlan("tile", rows, min(sms, -(-B // rows)),
+                                32 * (-(-ug * g // 32)), g)
+        sweep[str(g)] = augru_backward_kernel_ms(args, p, reps)
+    res["tile_groups_at_train_rows"] = {"B": B, "plan_groups": chosen.groups,
+                                        "kernel_ms_by_groups": sweep}
+    del args
+    torch.cuda.empty_cache()
+    return res
 
 
 def check_spmm_backward(D: int, *, N: int = 65_536, E: int = 1 << 20) -> dict:
@@ -5551,8 +5702,10 @@ def main(argv=None) -> int:
                          "measurements the full run no longer runs: the "
                          "HDRF baselines again with the previous "
                          "composition, the previous flash design's prefill "
-                         "time and the bf16 model's logits through it, and "
-                         "the previous flash backward's time")
+                         "time and the bf16 model's logits through it, "
+                         "the previous flash backward's time, and augru's "
+                         "previous backward (the rows route) beside the "
+                         "tile route with both routes' edge")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
@@ -5650,10 +5803,12 @@ def main(argv=None) -> int:
     fb_check = check_flash_backward(FLASH_BWD_CHECK)
     fb_timing = time_flash_backward(LM_TRAIN_SEQ,
                                     previous=args.previous_designs)
-    ab_check = check_augru_backward(AUGRU_BWD_CHECK
-                                    + ((RECSYS_TRAIN_ROWS, 100, 108),))
-    ab_timing = time_augru_backward(512)
-    ab_train = time_augru_backward(RECSYS_TRAIN_ROWS, reps=3)
+    ab_check = check_augru_backward(augru_backward_cases())
+    ab_timing = time_augru_backward(512, previous=args.previous_designs)
+    ab_train = time_augru_backward(RECSYS_TRAIN_ROWS, reps=3,
+                                   previous=args.previous_designs)
+    ab_edge = (time_augru_backward_edge() if args.previous_designs
+               else None)
     sb_check = [check_spmm_backward(D) for D in (GIN_D, GATED_D)]
     emit({"phase": "kernels",
           "edge_score": {**check, "bits_entry": e_bits, "chunk": timing,
@@ -5669,7 +5824,7 @@ def main(argv=None) -> int:
                               "backward": fb_check,
                               "backward_train_layer": fb_timing},
           "augru_backward": {**ab_check, "serve_p99": ab_timing,
-                             "train_rows": ab_train},
+                             "train_rows": ab_train, "route_edge": ab_edge},
           "spmm": s_check, "spmm_backward": sb_check,
           "embedding_bag": b_check})
 
@@ -5832,12 +5987,22 @@ def main(argv=None) -> int:
                            "augru_backward.cu",
         "backward_launches": train_paths["augru_backward"],
         "backward_max_abs_err": ab_check["max_abs_err"],
-        "backward_ms": ab_train["ms"], "backward_plain_ms":
-        ab_train["plain_ms"], "backward_bound_ms": ab_train["bound_ms"],
+        "backward_route": ab_train["route"],
+        "backward_ms": ab_train["ms"],
+        "backward_kernel_ms": ab_train["kernel_ms"],
+        "backward_du_ms": ab_train["du_ms"],
+        "backward_previous_ms": ab_train.get("previous_ms"),
+        "backward_previous_kernel_ms": ab_train.get("previous_kernel_ms"),
+        "backward_plain_ms": ab_train["plain_ms"],
+        "backward_bound_ms": ab_train["bound_ms"],
         "backward_bound_by": ab_train["bound_by"],
+        "backward_kernel_bound_ms": ab_train["kernel_bound_ms"],
         "backward_library_ms": ab_train["library_ms"],
         "backward_shape": ab_train["shape"],
+        "backward_512_route": ab_timing["route"],
         "backward_512_ms": ab_timing["ms"],
+        "backward_512_kernel_ms": ab_timing["kernel_ms"],
+        "backward_512_bound_ms": ab_timing["bound_ms"],
         "backward_512_library_ms": ab_timing["library_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"

@@ -17,9 +17,15 @@ comment for each route's bound and design):
 The C entries derive the shared memory and scratch a plan needs and refuse
 one that does not fit; nothing falls back when a launch fails.
 
-The backward (``csrc/augru_backward.cu``, a library of its own) has one
-route, planned by ``backward_plan``: R batch rows a block, TP threads a
-row, U in shared memory where it fits.
+The backward (``csrc/augru_backward.cu``, a library of its own) has two
+routes, planned by ``backward_plan`` before the launch:
+
+* ``tile`` (from ``BACKWARD_TILE_ROWS_PER_SM`` rows per SM, H up to 128
+  on the H100): register-tiled outer products over U resident in shared
+  memory, dh kept in registers, one persistent block per SM over tiles of
+  8 x groups rows;
+* ``rows`` (smaller batches and larger H): the previous design, R batch
+  rows a block, TP threads a row, U in shared memory where it fits.
 """
 from __future__ import annotations
 
@@ -304,82 +310,207 @@ def launch_previous(x_gates, u, att, h0, *, out: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 class BackwardPlan(NamedTuple):
-    """One backward launch: R batch rows a block, TP threads a row, blocks
-    (each walks over groups of R rows), U in shared memory or not."""
+    """One backward launch: the route, blocks and threads a block.  On the
+    tile route the rows of a tile (8 x ``groups``); on the rows route R
+    batch rows a block (each block walks over groups of R rows), TP
+    ``threads_per_row`` and whether U sits in shared memory."""
+    route: str
     rows: int
-    threads_per_row: int
     blocks: int
-    u_shared: bool
+    threads: int
+    groups: int = 0
+    threads_per_row: int = 0
+    u_shared: bool = False
 
 
-#: at most this many threads a row (a row's units beyond it loop) and a
-#: block (the kernel's launch bound)
+BACKWARD_ROUTES = ("tile", "rows")
+#: the tile route: rows and units (phase 2: k) a thread computes, threads
+#: a block at most (8 warps leave 255 registers a thread)
+BACKWARD_TILE_ROWS, BACKWARD_TILE_UNITS = 8, 4
+BACKWARD_TILE_MAX_THREADS = 256
+#: the tile route from B >= BACKWARD_TILE_ROWS_PER_SM * SMs, where the two
+#: routes meet: ``chip_smoke.py --previous-designs`` times both at 4 to 64
+#: rows per SM.  On the H100 at (., 100, 108) the tile route takes 2.60 to
+#: 2.64 ms for any batch that fits one round of tiles (up to 32 rows per
+#: SM), the rows route ~0.29 ms per row per SM: 2.35 ms at 8, 3.51 at 12
+#: (PERF.md section 6)
+BACKWARD_TILE_ROWS_PER_SM = 10
+#: the rows route: at most this many threads a row (a row's units beyond
+#: it loop) and a block (the kernel's launch bound)
 BACKWARD_MAX_TP, BACKWARD_MAX_THREADS = 256, 512
 
 
-def backward_shared_bytes(H: int, rows: int, u_shared: bool) -> int:
-    """The backward's dynamic shared memory, as its C entry derives it: a
-    row's 7H floats of state and, when shared, U at row stride 3H | 1."""
-    return 4 * (rows * 7 * H + (H * ((3 * H) | 1) if u_shared else 0))
+def backward_tile_smem(H: int, rows: int) -> int:
+    """The tile route's shared memory, as its C entry derives it: U as
+    4-k-row groups of (unit groups, 12) floats and h as 4-k-row groups of
+    ``rows``, each group padded by 4 floats; dhU as (rows, unit groups,
+    12), each 8-row group padded by 4 floats; the step's x_n and dout as
+    (rows, 2, unit groups, 4); datt's partials as (rows, unit groups | 1);
+    att as (rows,)."""
+    ug = _ceil_div(H, BACKWARD_TILE_UNITS)
+    row = 3 * BACKWARD_TILE_UNITS * ug
+    return 4 * (ug * (4 * row + 4) + ug * (4 * rows + 4)
+                + rows // BACKWARD_TILE_ROWS * (BACKWARD_TILE_ROWS * row + 4)
+                + rows * 2 * BACKWARD_TILE_UNITS * ug + rows * (ug | 1)
+                + rows)
 
 
-@functools.lru_cache(maxsize=256)
-def backward_plan(B: int, H: int, sm_count: int, max_smem: int
-                  ) -> BackwardPlan:
-    """TP: H rounded up to a warp, at most ``BACKWARD_MAX_TP``; R: the most
-    of 8, 4, 2, 1 rows within ``BACKWARD_MAX_THREADS`` that still gives
-    every SM a
-    group of rows (at least 1); U in shared memory when it fits beside R
-    rows' state, else R such that the state fits and U is read from L2; a
-    block per SM when U is shared (it loads U once and walks over the
-    groups), else a block per group."""
-    if B < 1 or H < 1 or sm_count < 1:
-        raise ValueError(f"augru backward plan: B, H and sm_count must be "
-                         f">= 1, got {(B, H, sm_count)}")
+def backward_shared_bytes(p: BackwardPlan, H: int) -> int:
+    """The backward's dynamic shared memory, as its C entries derive it:
+    on the tile route ``backward_tile_smem``; on the rows route a row's 7H
+    floats of state and, when shared, U at row stride 3H | 1."""
+    if p.route == "tile":
+        return backward_tile_smem(H, p.rows)
+    return 4 * (p.rows * 7 * H
+                + (H * ((3 * H) | 1) if p.u_shared else 0))
+
+
+def backward_tile_plan(B: int, H: int, sm_count: int, max_smem: int
+                       ) -> BackwardPlan | None:
+    """The tile route's plan, or None where not even one 8-row group fits
+    beside U (H above 128 on the H100's 232,448 bytes): the count of 8-row
+    groups a tile that minimises rounds x the warps on each of an SM's 4
+    schedulers (a round's time grows with the warps one scheduler issues
+    for: at DIEN's H = 108, 4 groups, the most that fit, make 108 threads,
+    one warp on each scheduler), the most groups among equals, within
+    ``BACKWARD_TILE_MAX_THREADS`` and ``max_smem``; at most one block per
+    SM, each walking over tiles."""
+    ug = _ceil_div(H, BACKWARD_TILE_UNITS)
+    fits = [g for g in range(1, BACKWARD_TILE_MAX_THREADS // ug + 1)
+            if backward_tile_smem(H, BACKWARD_TILE_ROWS * g) <= max_smem]
+    if not fits:
+        return None
+
+    def cost(g):
+        rounds = _ceil_div(_ceil_div(B, BACKWARD_TILE_ROWS * g), sm_count)
+        return rounds * _ceil_div(_ceil_div(ug * g, 32), 4), -g
+
+    groups = min(fits, key=cost)
+    rows = BACKWARD_TILE_ROWS * groups
+    return BackwardPlan("tile", rows, min(sm_count, _ceil_div(B, rows)),
+                        32 * _ceil_div(ug * groups, 32), groups)
+
+
+def backward_rows_plan(B: int, H: int, sm_count: int, max_smem: int
+                       ) -> BackwardPlan:
+    """The rows route's plan (the previous design's): TP, H rounded up to
+    a warp, at most ``BACKWARD_MAX_TP``; R the most of 8, 4, 2, 1 rows
+    within ``BACKWARD_MAX_THREADS`` that still gives every SM a group of
+    rows (at least 1); U in shared memory when it fits beside R rows'
+    state, else R such that the state fits and U is read from L2; a block
+    per SM when U is shared (it loads U once and walks over the groups),
+    else a block per group."""
     tp = min(32 * _ceil_div(H, 32), BACKWARD_MAX_TP)
     fits = [r for r in (8, 4, 2, 1) if r * tp <= BACKWARD_MAX_THREADS]
     rows = next((r for r in fits if _ceil_div(B, r) >= sm_count), 1)
-    u_shared = backward_shared_bytes(H, rows, True) <= max_smem
+
+    def plan_of(r, shared):
+        return BackwardPlan("rows", r, 0, r * tp, 0, tp, shared)
+
+    u_shared = backward_shared_bytes(plan_of(rows, True), H) <= max_smem
     if not u_shared:
         rows = next((r for r in fits if r <= rows
-                     and backward_shared_bytes(H, r, False) <= max_smem),
-                    None)
+                     and backward_shared_bytes(plan_of(r, False), H)
+                     <= max_smem), None)
         if rows is None:
             raise ValueError(f"augru backward: H={H} leaves no room for a "
                              f"row's state in {max_smem} bytes")
     groups = _ceil_div(B, rows)
     blocks = min(groups, sm_count) if u_shared else min(groups, 2**31 - 1)
-    return BackwardPlan(rows, tp, blocks, u_shared)
+    return plan_of(rows, u_shared)._replace(blocks=blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(B: int, H: int, sm_count: int, max_smem: int
+                  ) -> BackwardPlan:
+    """The backward launch of (B, T, H) on a card with ``sm_count`` SMs
+    and ``max_smem`` bytes of opt-in shared memory per block (T does not
+    matter): the tile route from ``BACKWARD_TILE_ROWS_PER_SM`` rows per SM
+    where U and one 8-row group fit in shared memory (H up to 128 on the
+    H100), else the rows route (``backward_rows_plan``)."""
+    if B < 1 or H < 1 or sm_count < 1:
+        raise ValueError(f"augru backward plan: B, H and sm_count must be "
+                         f">= 1, got {(B, H, sm_count)}")
+    if B >= BACKWARD_TILE_ROWS_PER_SM * sm_count:
+        p = backward_tile_plan(B, H, sm_count, max_smem)
+        if p is not None:
+            return p
+    return backward_rows_plan(B, H, sm_count, max_smem)
+
+
+@functools.lru_cache(maxsize=256)
+def backward_check(p: BackwardPlan, H: int, max_smem: int) -> None:
+    """Raise ValueError for a backward plan over the card's limits, as the
+    C entries refuse it: shared memory over ``max_smem``; on the tile
+    route fewer threads than (row group, unit group) pairs, part of a warp,
+    or more than ``BACKWARD_TILE_MAX_THREADS`` (the register limit); on the
+    rows route TP not a whole number of warps, or more than
+    ``BACKWARD_MAX_THREADS`` threads."""
+    def refuse(why):
+        raise ValueError(f"augru backward: plan {p} refused for H={H}: "
+                         f"{why}")
+
+    if p.route not in BACKWARD_ROUTES:
+        refuse("unknown route")
+    if p.blocks < 1:
+        refuse("no blocks")
+    if p.route == "tile":
+        ug = _ceil_div(H, BACKWARD_TILE_UNITS)
+        if not (p.groups >= 1 and p.rows == BACKWARD_TILE_ROWS * p.groups
+                and ug * p.groups <= p.threads <= BACKWARD_TILE_MAX_THREADS
+                and p.threads % 32 == 0):
+            refuse(f"a thread for each (row group, unit group) in whole "
+                   f"warps, at most {BACKWARD_TILE_MAX_THREADS} (the "
+                   f"register limit)")
+    elif not (p.rows >= 1 and p.threads_per_row >= 32
+              and p.threads_per_row % 32 == 0
+              and p.rows * p.threads_per_row <= BACKWARD_MAX_THREADS):
+        refuse(f"whole warps a row, at most {BACKWARD_MAX_THREADS} threads")
+    if backward_shared_bytes(p, H) > max_smem:
+        refuse(f"{backward_shared_bytes(p, H)} bytes of shared memory, the "
+               f"card has {max_smem}")
 
 
 def backward_library() -> ctypes.CDLL:
     """Build (first use) and load the backward's library."""
     lib = cuda_build.load(BACKWARD_NAME, BACKWARD_SOURCE)
-    fn = lib.augru_backward_launch
+    fn = lib.augru_backward_tile_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+        fn.argtypes = [_P] * 10 + [_I] * 6 + [_P]
         fn.restype = _I
+        rows = lib.augru_backward_rows_launch
+        rows.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+        rows.restype = _I
     return lib
 
 
 def launch_backward(x_gates, u, att, h0, out, dout, *, dx_gates, dhu_n,
-                    datt, dh0) -> None:
+                    datt, dh0, use_plan: BackwardPlan | None = None) -> None:
     """The backward kernel on the current stream of ``out``'s device, by
-    ``backward_plan``.  All operands contiguous float32 on one card:
-    ``x_gates`` (B, T, 3H), ``u`` (H, 3H), ``att`` (B, T), ``h0`` (B, H),
-    ``out`` and ``dout`` (B, T, H); writes ``dx_gates`` (B, T, 3H),
-    ``dhu_n`` (B, T, H), ``datt`` (B, T) and ``dh0`` (B, H).  Raises if
-    the launch is refused."""
+    ``backward_plan`` (or by ``use_plan``, to force either route on any
+    shape).  All operands contiguous float32 on one card: ``x_gates``
+    (B, T, 3H), ``u`` (H, 3H), ``att`` (B, T), ``h0`` (B, H), ``out`` and
+    ``dout`` (B, T, H); writes ``dx_gates`` (B, T, 3H), ``dhu_n`` (B, T,
+    H), ``datt`` (B, T) and ``dh0`` (B, H).  Raises if the launch is
+    refused."""
     B, T, H = (int(n) for n in out.shape)
-    p = backward_plan(B, H, *device_limits(out.device.index))
+    limits = device_limits(out.device.index)
+    p = use_plan or backward_plan(B, H, *limits)
+    backward_check(p, H, limits[1])
     with torch.cuda.device(out.device):
         lib = backward_library()
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = lib.augru_backward_launch(
-            x_gates.data_ptr(), u.data_ptr(), att.data_ptr(), h0.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), dx_gates.data_ptr(),
-            dhu_n.data_ptr(), datt.data_ptr(), dh0.data_ptr(), B, T, H,
-            p.rows, p.threads_per_row, p.blocks, int(p.u_shared), stream)
+        ptrs = (x_gates.data_ptr(), u.data_ptr(), att.data_ptr(),
+                h0.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                dx_gates.data_ptr(), dhu_n.data_ptr(), datt.data_ptr(),
+                dh0.data_ptr())
+        if p.route == "tile":
+            rc = lib.augru_backward_tile_launch(
+                *ptrs, B, T, H, p.groups, p.threads, p.blocks, stream)
+        else:
+            rc = lib.augru_backward_rows_launch(
+                *ptrs, B, T, H, p.rows, p.threads_per_row, p.blocks,
+                int(p.u_shared), stream)
     if rc != 0:
         raise RuntimeError(f"augru backward kernel launch failed: CUDA "
                            f"error {rc} (B={B}, T={T}, H={H}, {p})")

@@ -8,7 +8,10 @@ When grad is enabled and an operand requires it, ``augru`` runs through an
 autograd ``Function`` whose backward is the backward kernel on the card
 (``augru_backward``, counted in ``backward_launches``) and its plain
 version, ``augru_backward_ref``, on the CPU; the plain forward's autograd
-never runs on a CUDA tensor.
+never runs on a CUDA tensor.  The backward kernel takes the route
+``kernel.backward_plan`` picks by shape (``tile`` for large batches,
+``rows`` for small ones and large H) and writes every gradient but du,
+which ``du_product`` forms afterwards as one large product.
 """
 from __future__ import annotations
 
@@ -74,11 +77,13 @@ def _forward(x_gates, u, att, h0):
     return out
 
 
-def augru_backward(x_gates, u, att, h0, out, dout):
+def augru_backward(x_gates, u, att, h0, out, dout, *, use_plan=None):
     """(dx_gates, du, datt, dh0) of ``augru(x_gates, u, att, h0)`` for the
-    output gradient ``dout``, given its output ``out``: the backward kernel
-    and one ``torch.matmul`` for ``du`` on a CUDA tensor (launches or
-    raises), ``augru_backward_ref`` on the CPU.  All float32."""
+    output gradient ``dout``, given its output ``out``: on a CUDA tensor
+    the backward kernel on the route ``kernel.backward_plan`` picks (or
+    ``use_plan``, to force either route on any shape) and then
+    ``du_product``, launched or raised; ``augru_backward_ref`` on the CPU.
+    All float32."""
     if out.device.type != "cuda":
         return augru_backward_ref(x_gates, u, att, h0, out, dout)
     B, T, H = out.shape
@@ -96,15 +101,24 @@ def augru_backward(x_gates, u, att, h0, out, dout):
     if out.numel() == 0:
         return dxg.zero_(), torch.zeros_like(u), datt, dh0.zero_()
     kernel.launch_backward(x_gates, u, att, h0, out, dout, dx_gates=dxg,
-                           dhu_n=dhu_n, datt=datt, dh0=dh0)
+                           dhu_n=dhu_n, datt=datt, dh0=dh0,
+                           use_plan=use_plan)
     backward_launches.add()
-    # du = sum_t h_{t-1}^T [dx_r, dx_z, dx_n r] over all (B, T) rows
+    return dxg, du_product(h0, out, dxg, dhu_n), datt, dh0
+
+
+def du_product(h0, out, dx_gates, dhu_n):
+    """du = sum_t h_{t-1}^T [dx_r, dx_z, dx_n r] over all (B, T) rows, from
+    the backward kernel's ``dx_gates`` and ``dhu_n``: one large product
+    (two ``torch.matmul`` calls into the halves of du), as the reference
+    leaves it to XLA."""
+    B, T, H = out.shape
     h_prev = torch.cat([h0[:, None], out[:, :-1]], dim=1).reshape(B * T, H)
-    du = torch.empty_like(u)
-    torch.matmul(h_prev.T, dxg.reshape(B * T, 3 * H)[:, :2 * H],
+    du = torch.empty((H, 3 * H), dtype=torch.float32, device=out.device)
+    torch.matmul(h_prev.T, dx_gates.reshape(B * T, 3 * H)[:, :2 * H],
                  out=du[:, :2 * H])
     torch.matmul(h_prev.T, dhu_n.reshape(B * T, H), out=du[:, 2 * H:])
-    return dxg, du, datt, dh0
+    return du
 
 
 class _Augru(torch.autograd.Function):

@@ -7,10 +7,11 @@ TPU, within atol 1e-5 (rtol 0): the products and the transcendental
 functions of the two frameworks round differently, and the differences
 measured here stay below 1e-6.  The reference's Pallas kernel does not
 run under the installed jax (its ``pl.load`` is gone), so it is not the
-yardstick here.  The launch plan (``kernel.plan``: which route, rows and
-threads a shape takes, and which plans the kernels refuse) is pure Python
-and is pinned here.  The CUDA kernels are held to the plain version by the
-``gpu`` cases, which need a card and are skipped without one
+yardstick here.  The launch plans (``kernel.plan`` and, for the backward,
+``kernel.backward_plan``: which route, rows and threads a shape takes, and
+which plans the kernels refuse) are pure Python and are pinned here.
+The CUDA kernels are held to the plain version by the ``gpu`` cases,
+which need a card and are skipped without one
 (``chip_smoke.py`` runs the same checks on the card).
 """
 import jax
@@ -20,7 +21,8 @@ import torch
 
 from repro.kernels.augru import augru as r_augru
 from repro.kernels.augru import augru_ref as r_augru_ref
-from repro_torch.kernels.augru import augru, augru_ref, kernel, launches
+from repro_torch.kernels.augru import (augru, augru_backward, augru_ref,
+                                       kernel, launches)
 
 ATOL = 1e-5
 SHAPES = [(4, 7, 16), (33, 50, 108), (8, 100, 128), (1, 1, 1),
@@ -170,6 +172,122 @@ def test_previous_plan_is_the_first_ports_plan():
     # h twice and one slice of partial products, 4 rows each
     assert (p.groups, p.splits, p.state_shared) == (1, 1, False)
     assert p.scratch_floats == p.blocks * (2 * 4 * 3000 + 4 * 3 * 3000)
+
+
+# ---------------------------------------------------------------------------
+# the backward's launch plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,H,route", [
+    (65_536, 108, "tile"), (512, 108, "rows"), (65_536, 160, "rows"),
+    (65_536, 1000, "rows"), (512, 160, "rows"), (2, 3, "rows"),
+    (65_536, 128, "tile"), (65_536, 129, "rows"), (65_536, 37, "tile"),
+    (65_536, 1, "tile")])
+def test_backward_plan_routes(B, H, route):
+    """DIEN's train rows (65,536) take the tile route, its serve rows (512)
+    and an H whose U and one 8-row group do not fit in shared memory (above
+    128 on the H100) the rows route, the previous design."""
+    p = kernel.backward_plan(B, H, *H100)
+    assert p.route == route
+    kernel.backward_check(p, H, H100[1])
+
+
+def test_backward_plan_tile_route_edge():
+    """The tile route starts at ``BACKWARD_TILE_ROWS_PER_SM`` rows per SM
+    (one round of tiles: a block for each, at most one per SM)."""
+    first = kernel.BACKWARD_TILE_ROWS_PER_SM * H100[0]
+    assert kernel.backward_plan(first - 1, 108, *H100).route == "rows"
+    p = kernel.backward_plan(first, 108, *H100)
+    assert p.route == "tile"
+    assert p.blocks == -(-first // p.rows) <= H100[0]
+
+
+def test_backward_tile_plan_at_the_train_rows():
+    """At (65,536, 108): 4 row groups of 8 (108 threads, 4 warps: one on
+    each of an SM's schedulers) beside U (139,968 bytes and pads), 132
+    blocks; 227,424 bytes of shared memory, the most groups that fit."""
+    p = kernel.backward_plan(65_536, 108, *H100)
+    assert (p.groups, p.rows, p.threads, p.blocks) == (4, 32, 128, 132)
+    assert kernel.backward_shared_bytes(p, 108) == 227_424 <= H100[1]
+    assert kernel.backward_tile_smem(108, 40) > H100[1]
+
+
+@pytest.mark.parametrize("H", [1, 3, 37, 64, 105, 108, 112, 128, 129, 133,
+                               160, 1000])
+@pytest.mark.parametrize("B", [1, 7, 512, 4223, 4224, 65_536, 100_003])
+def test_backward_plans_fit_the_card(B, H):
+    """Every plan either route gives fits the H100's shared memory and
+    thread limits; a tile plan has rows a multiple of 8 and at most 256
+    threads in whole warps, at least one per (row group, unit group)."""
+    tile = kernel.backward_tile_plan(B, H, *H100)
+    plans = [kernel.backward_plan(B, H, *H100),
+             kernel.backward_rows_plan(B, H, *H100)]
+    assert (tile is None) == (H > 128)
+    if tile is not None:
+        plans.append(tile)
+        ug = -(-H // kernel.BACKWARD_TILE_UNITS)
+        assert tile.rows % kernel.BACKWARD_TILE_ROWS == 0
+        assert ug * tile.groups <= tile.threads <= (
+            kernel.BACKWARD_TILE_MAX_THREADS)
+        assert tile.threads % 32 == 0
+        assert tile.blocks == min(H100[0], -(-B // tile.rows))
+    for p in plans:
+        assert kernel.backward_shared_bytes(p, H) <= H100[1]
+        kernel.backward_check(p, H, H100[1])
+
+
+def _backward_refused(p, H, max_smem=H100[1]):
+    with pytest.raises(ValueError, match="refused"):
+        kernel.backward_check(p, H, max_smem)
+
+
+def test_backward_check_refuses_plans_over_the_limits():
+    """Shared memory over the card's limit, threads beyond the register
+    limit (tile) or the launch bound (rows), fewer threads than (row group,
+    unit group) pairs, part of a warp and an unknown route are refused, as
+    the C entries refuse them."""
+    tile = kernel.backward_plan(65_536, 108, *H100)
+    rows = kernel.backward_plan(512, 108, *H100)
+    for p in (tile, rows):
+        kernel.backward_check(p, 108, kernel.backward_shared_bytes(p, 108))
+        _backward_refused(p, 108,
+                          max_smem=kernel.backward_shared_bytes(p, 108) - 4)
+    # 5 groups of 8 rows: 135 threads fit the register limit, the shared
+    # memory does not
+    _backward_refused(tile._replace(groups=5, rows=40, threads=160), 108)
+    # at H = 37 (10 unit groups) 26 groups would take 260 threads
+    small = kernel.backward_tile_plan(65_536, 37, *H100)
+    kernel.backward_check(small, 37, H100[1])
+    _backward_refused(small._replace(groups=26, rows=208, threads=288), 37)
+    _backward_refused(tile._replace(threads=96), 108)       # < 4 x 27
+    _backward_refused(tile._replace(threads=120), 108)      # part of a warp
+    _backward_refused(tile._replace(rows=40), 108)          # rows != 8 x 4
+    _backward_refused(tile._replace(groups=0, rows=0), 108)
+    # U and one 8-row group do not fit beyond H = 128
+    _backward_refused(kernel.backward_tile_plan(65_536, 128, *H100), 129)
+    _backward_refused(rows._replace(rows=8), 108)           # 1,024 threads
+    _backward_refused(rows._replace(threads_per_row=100), 108)
+    _backward_refused(tile._replace(route="tiny"), 108)
+    _backward_refused(tile._replace(blocks=0), 108)
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (1, 5, 37), (3, 4, 105),
+                                   (1, 2, 108), (2, 3, 1)])
+def test_backward_plan_accepts_odd_and_unit_sizes(B, T, H):
+    """B, T and H of 1 and H % 4 != 0 are planned on both routes and
+    accepted (T does not enter the plan); the CPU path runs them through
+    the plain backward."""
+    for p in (kernel.backward_plan(B, H, *H100),
+              kernel.backward_tile_plan(B, H, *H100),
+              kernel.backward_rows_plan(B, H, *H100)):
+        kernel.backward_check(p, H, H100[1])
+    xg, u, a, h0 = (torch.from_numpy(x)
+                    for x in _inputs(B, T, H, "random", 5))
+    out = augru_ref(xg, u, a, h0)
+    grads = augru_backward(xg, u, a, h0, out, torch.ones_like(out))
+    assert [tuple(g.shape) for g in grads] == [
+        (B, T, 3 * H), (H, 3 * H), (B, T), (B, H)]
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def _cuda_inputs(B, T, H, att, seed):

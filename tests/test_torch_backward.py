@@ -341,23 +341,50 @@ def test_cuda_flash_backward_matches_plain(B, Hq, Hkv, Sq, Skv, D, causal,
                 assert bool(((g16.float() - w32).abs() <= bound).all())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,T,H", AUGRU_CASES + [(512, 100, 108),
-                                                 (3000, 100, 108),
-                                                 (5, 9, 160), (2, 3, 1000)])
-def test_cuda_augru_backward_matches_plain(B, T, H):
+def _cuda_augru_backward_holds(B, T, H, plan=None):
     dev = _cuda()
     xg, u, att, h0, do = (torch.tensor(a, device=dev)
                           for a in _augru_inputs(B, T, H, seed=H))
     with torch.no_grad():
         out = A.augru(xg, u, att, h0)
-    got = A.augru_backward(xg, u, att, h0, out, do)
-    again = A.augru_backward(xg, u, att, h0, out, do)
+    got = A.augru_backward(xg, u, att, h0, out, do, use_plan=plan)
+    again = A.augru_backward(xg, u, att, h0, out, do, use_plan=plan)
     want = A.augru_backward_ref(xg, u, att, h0, out, do)
     torch.cuda.synchronize()
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         _close(g.cpu(), w.cpu(), AUGRU_TOL)
+
+
+#: the planned route: the rows route (the CPU cases, 512 and 3,000 rows,
+#: H 160 and 1,000) and the tile route at the train rows, on 132 SMs at
+#: the tile route's edge plus 13 and one short of 65,536 (a ragged last
+#: tile and row group)
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H", AUGRU_CASES + [(512, 100, 108),
+                                                 (3000, 100, 108),
+                                                 (5, 9, 160), (2, 3, 1000),
+                                                 (65_536, 3, 108),
+                                                 (1_333, 3, 108),
+                                                 (65_533, 2, 108)])
+def test_cuda_augru_backward_matches_plain(B, T, H):
+    _cuda_augru_backward_holds(B, T, H)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,B,T,H", [
+    ("tile", 7, 20, 37), ("tile", 50, 5, 105), ("tile", 3, 4, 1),
+    ("tile", 9, 3, 128), ("tile", 512, 10, 108), ("rows", 5_000, 3, 108)])
+def test_cuda_augru_backward_forced_route(route, B, T, H):
+    """Either route forced through ``use_plan`` on a shape the plan gives
+    the other: the tile route at H % 4 != 0, H = 1, its largest H and a
+    small batch; the rows route above the tile route's edge."""
+    _cuda()
+    limits = A.kernel.device_limits(torch.cuda.current_device())
+    plan = (A.kernel.backward_tile_plan(B, H, *limits) if route == "tile"
+            else A.kernel.backward_rows_plan(B, H, *limits))
+    assert plan.route == route
+    _cuda_augru_backward_holds(B, T, H, plan)
 
 
 @pytest.mark.gpu
