@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's partitioning (every registered algorithm), DIEN
 serving, LM serving, GNN aggregation, GNN models and serving, embedding
-pooling and training (LM, DIEN, GNN, the train CLI) paths on one NVIDIA
-GPU and check them.
+pooling and training (LM, DIEN, GNN, partitioned GNN, the train CLI)
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -148,11 +148,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               scoring chunk, all through ``edge_score_choose_bits``.
 11. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
               dcn_penalty 1.0), its launches checked the same way.
-12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-19: one
+12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-18: one
               ``hdrf_score`` launch per scoring chunk, all through
               ``hdrf_choose_bits``, no ``edge_score``.
 13. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
-              RMAT-16: one ``hdrf_score`` launch per non-empty 64-edge
+              RMAT-15: one ``hdrf_score`` launch per non-empty 64-edge
               micro-batch, all through ``hdrf_choose_bits``; with
               ``--previous-designs`` each run again with the previous
               composition of the choice, byte-equal, its wall beside; the
@@ -237,6 +237,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               step each of GatedGCN, EGNN (``full_graph_sm``) and NequIP
               (``molecule``), every segment sum's backward a gather (33, 10
               and 16 ``spmm`` launches a step), card against CPU (1e-4).
+21b. partitioned_train  gin-tu at full width (no batch norm) trained
+              over the ``artifact`` phase's k = 32 partitions in one
+              process on the card (``dist.make_partitioned_gin_step`` on
+              a ``launch.mesh.make_host_mesh``): the host-grouped plan
+              on a (4, 8) mesh and the flat plan capped at quantile 0.9
+              (the overflow lane), 3 AdamW steps each, twice from the
+              same state with bit-equal parameters, exactly
+              ``dist.partitioned_gnn.step_spmm_launches`` ``spmm``
+              launches a step (all on the bound route), the first loss
+              and gradients within 1e-4 of a dense plain-torch GIN, one
+              step profiled; GatedGCN and EGNN at full width, two steps
+              each at RMAT-16 (exact launches, peak memory); card
+              against CPU for gin-tu at RMAT-14 and GatedGCN and EGNN at
+              RMAT-12 (gin-tu's and GatedGCN's features scaled so their
+              first logits peak at 4; EGNN's float64 recheck as in
+              ``gnn_train``), and the ranks route
+              on 2 and 4 gloo ranks at RMAT-14 within 1e-5 of one
+              process, every rank identical.
 22. gnn_serve  ``serve_gnn`` on the ``artifact`` phase's artifact (its
               local graphs), 32 requests of 4 roots after a warm-up
               request: full fan-out cached and uncached, ``--fanout 15
@@ -317,6 +335,11 @@ rebuilds ``spmm.cu`` at each launch shape of ``SPMM_TUNE`` and times it on
 
 runs the ``resume`` phase's drill with one process at a time, nothing
 beside it (its save, restore and start-up times), and does nothing else.
+
+    python3 chip_smoke.py --partitioned-only
+
+builds ``edge_score`` and ``spmm``, makes the ``artifact`` phase's RMAT-18
+artifact and runs ``partitioned_train`` on it, and does nothing else.
 
     python3 chip_smoke.py --partition-counted ARGS...
     python3 chip_smoke.py --dist-counted ARGS...
@@ -2601,7 +2624,7 @@ def hdrf_baselines(scale: int, tmp: str, k: int = 32,
     kernel), byte-equal.  Each 64-edge micro-batch is a few dozen
     eager launches; at RMAT-16 that is 14,927 micro-batches per run (12-15
     s each), which is why this phase runs below the 2PS-HDRF path's
-    scale."""
+    scale, at RMAT-15 since the partitioned training phase."""
     from repro_torch.kernels.hdrf_score import ops as hs_ops
     path, E = write_graph(scale, tmp)
     chunk = 1 << 16                     # the CLI's --chunk-size default
@@ -2638,8 +2661,9 @@ def hdrf_baselines(scale: int, tmp: str, k: int = 32,
             raise AssertionError(f"{name}: the previous composition assigns "
                                  f"otherwise")
         runs[name]["wall_change"] = wall / runs[name]["previous_wall_s"] - 1
-    return {"why_reduced": "64-edge micro-batches of a few dozen eager "
-                           "launches each: 14,927 per run at RMAT-16",
+    return {"why_reduced": f"64-edge micro-batches of a few dozen eager "
+                           f"launches each: {want} per run at "
+                           f"RMAT-{scale}",
             **runs, "micro_batch_kernels": micro_batch_kernels(scale, k)}
 
 
@@ -5675,16 +5699,620 @@ def train_cli(tmp: str) -> dict:
                                                  if v}}}
 
 
+# ---------------------------------------------------------------------------
+# partitioned GNN training: the halo exchange on the card, and over ranks
+# ---------------------------------------------------------------------------
+
+#: the flat plan's pair-table cap (``pair_cap_quantile``): the pairs above
+#: it go to the overflow lane, so that lane carries rows
+PARTITIONED_QUANTILE = 0.9
+#: the graph of gin-tu's card-against-CPU check and of the ranks
+PARTITIONED_CHECK_SCALE = 14
+#: GatedGCN's and EGNN's graph on the card: GatedGCN's 16 layers of
+#: (E, 70) edge state took 7.9 GB at RMAT-14, so ~140 GB at RMAT-18 and
+#: ~32 GB at 16
+PARTITIONED_MODELS_SCALE = 16
+#: their card-against-CPU check's graph: the CPU's float64 recheck took
+#: 56 s at RMAT-14
+PARTITIONED_MODELS_CHECK_SCALE = 12
+#: the ranks route: (ranks, host groups) of each gloo world
+PARTITIONED_WORLDS = ((2, None), (4, 2))
+#: the largest |logit| of gin-tu's and GatedGCN's first forward in the
+#: partitioned phase: the features are scaled to it (``feature_scale``)
+LOGIT_MAX = 4.0
+
+
+def partitioned_batch(plan, V: int, d_in: int, n_classes: int, seed: int,
+                      device, feature_scale: float = 1.0) -> tuple:
+    """The batch of a partitioned step on ``plan`` (``nodes``, ``labels``,
+    ``coords``, ``loss_mask``, ``plan``): per-vertex features (normal,
+    times ``feature_scale``), labels and coordinates drawn from ``seed``,
+    every replica of a vertex the same rows, its loss on its master (the
+    lowest partition holding it); and the per-vertex arrays with the
+    covered mask, the dense reference's inputs."""
+    import torch
+    base = getattr(plan, "base", plan)
+    vm, k = base.vmap_global, base.k
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((V, d_in), dtype=np.float32)
+    feats *= np.float32(feature_scale)
+    coords = rng.standard_normal((V, 3), dtype=np.float32)
+    labels = rng.integers(0, n_classes, V).astype(np.int32)
+    ok = vm >= 0
+    parts = np.broadcast_to(np.arange(k)[:, None], vm.shape)
+    master = np.full(V, k, np.int64)
+    np.minimum.at(master, vm[ok], parts[ok])
+    at = np.where(ok, vm, 0)
+    idx = torch.from_numpy(at).to(device)
+    keep = torch.from_numpy(ok).to(device)
+
+    def rows(a):
+        t = torch.from_numpy(a).to(device)[idx]
+        return t * keep.reshape(keep.shape + (1,) * (t.dim() - 2)).to(
+            t.dtype)
+    lmask = (ok & (master[at] == parts)).astype(np.float32)
+    batch = {"nodes": rows(feats), "labels": rows(labels),
+             "coords": rows(coords),
+             "loss_mask": torch.from_numpy(lmask).to(device),
+             "plan": plan.device_arrays()}
+    return batch, {"feats": feats, "labels": labels, "covered": master < k}
+
+
+def dense_gin_logits(params, feats, src, dst):
+    """gin-tu without batch norm over the whole graph in plain torch (a
+    gather and ``index_add_`` a layer)."""
+    import torch
+
+    def dense(p, x):
+        return x @ p["w"] + p["b"]
+    h = dense(params["encoder"], feats)
+    for lp in params["layers"]:
+        agg = torch.zeros_like(h).index_add_(0, dst, h[src])
+        pre = (1.0 + lp["eps"]) * h + agg
+        h = torch.relu(dense(lp["mlp"]["l2"],
+                             torch.relu(dense(lp["mlp"]["l1"], pre))))
+    return dense(params["head"], h)
+
+
+def dense_gin_loss(params, feats, src, dst, labels, covered):
+    """``dense_gin_logits``' masked cross-entropy, every covered vertex
+    once: the partitioned loss's dense reference."""
+    import torch
+    logp = torch.log_softmax(dense_gin_logits(params, feats, src, dst),
+                             dim=-1)
+    ll = logp.gather(1, labels[:, None].long())[:, 0]
+    m = covered.float()
+    return -(ll * m).sum() / m.sum()
+
+
+def dense_gatedgcn_logits(params, feats, src, dst):
+    """GatedGCN without batch norm over the whole graph in plain torch
+    (gathers and ``index_add_``), edges starting from ones."""
+    import torch
+
+    def dense(p, x):
+        return x @ p["w"] + p["b"]
+    h = dense(params["encoder"], feats)
+    ef = dense(params["edge_encoder"],
+               torch.ones((len(src), 1), dtype=h.dtype, device=h.device))
+    for lp in params["layers"]:
+        e_new = (dense(lp["A"], h)[src] + dense(lp["B"], h)[dst]
+                 + dense(lp["C"], ef))
+        eta = torch.sigmoid(e_new)
+        num = torch.zeros_like(h).index_add_(0, dst,
+                                             eta * dense(lp["V"], h)[src])
+        den = torch.zeros_like(h).index_add_(0, dst, eta)
+        h = h + torch.relu(dense(lp["U"], h) + num / (den + 1e-6))
+        ef = ef + torch.relu(e_new)
+    return dense(params["head"], h)
+
+
+#: the plain dense forward of each model whose features are scaled
+DENSE_LOGITS = {"gin": dense_gin_logits, "gatedgcn": dense_gatedgcn_logits}
+
+
+def feature_scale(model: str, cfg, V: int, edges, seed: int,
+                  device) -> float:
+    """The factor that brings the largest |logit| of ``model``'s dense
+    forward (``DENSE_LOGITS``; weights ``init_params`` of seed 0, the
+    normal features of ``seed``) to ``LOGIT_MAX``: exact after the first
+    pass for gin-tu, whose network is positively homogeneous in its
+    features at those weights (zero biases, eps 0, ReLU); a second pass
+    brings GatedGCN, whose gates are not, close.  Unscaled, the sums over
+    RMAT's hubs without batch norm give logits of ~1e6 (gin-tu, a loss of
+    3.4e6 at RMAT-12) and ~1.5e3 (GatedGCN, a loss of 1,185): the softmax
+    saturates, float32 rounding of the top logits moves its terms, and
+    two float32 summation orders of the same function disagree by more
+    than 1e-4 of a gradient leaf (gin-tu 2.5e-4, GatedGCN 2.8e-2 against
+    float64 at RMAT-12 on the CPU; GatedGCN 1.4e-5 with its logits at
+    18)."""
+    import torch
+    from repro_torch.launch import steps as S
+    from repro_torch.models import gnn as G
+    feats = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (V, cfg.d_in), dtype=np.float32)).to(device)
+    src = torch.from_numpy(edges[:, 0].astype(np.int64)).to(device)
+    dst = torch.from_numpy(edges[:, 1].astype(np.int64)).to(device)
+    params = G.params_to(S.init_params("gnn", cfg, torch.Generator()
+                                       .manual_seed(0)), device)
+    scale = 1.0
+    with torch.no_grad():
+        for _ in range(2):
+            top = float(DENSE_LOGITS[model](params, feats * scale, src,
+                                            dst).abs().max())
+            scale *= LOGIT_MAX / max(top, 1e-30)
+    return scale
+
+
+def event_timed(step, ms: list):
+    """``step`` with each call's device time (CUDA events) appended to
+    ``ms``."""
+    import torch
+
+    def timed(state, batch):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step(state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        return out
+    return timed
+
+
+def partitioned_step_runs(step, init, batch, model: str, n_layers: int,
+                          steps: int, what: str, runs: int = 2) -> list:
+    """``runs`` runs of ``steps`` steps from the state ``init()`` makes,
+    each step's launches exactly ``step_spmm_launches``; per run (losses,
+    device ms by CUDA events, launches, the parameters)."""
+    from repro_torch.dist.partitioned_gnn import step_spmm_launches
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    total, bwd, bound_n = step_spmm_launches(model, n_layers)
+    out = []
+    for _ in range(runs):
+        params = init()
+        state = {"params": params, "opt": adamw_init(params)}
+        ms = []
+        losses, _, launches = train_steps(
+            event_timed(step, ms), state, batch, steps,
+            {"spmm": total, "spmm_backward": bwd}, what,
+            by_route={"bound": bound_n, "perm": total - bound_n})
+        out.append((losses, ms, launches, tree_leaves(state["params"])))
+    return out
+
+
+def partitioned_gin_run(name: str, plan, mesh, cfg, V: int, graph,
+                        dense, feature_scale: float) -> dict:
+    """gin-tu's partitioned step on ``plan`` on the card: the plan prepared
+    once (host seconds), ``TRAIN_STEPS`` AdamW steps twice from the same
+    state (bit-equal parameters), peak memory, one profiled step
+    (``step_breakdown``), and the first loss and gradients against the
+    dense reference ``dense`` (loss and gradients of ``dense_gin_loss``
+    at the same weights)."""
+    import functools
+
+    import torch
+    from repro_torch.dist import partitioned_gnn as PG
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw_init
+    step = PG.make_partitioned_gin_step(cfg, mesh, plan)
+    batch, _ = partitioned_batch(plan, V, cfg.d_in, cfg.n_classes, 5,
+                                 "cuda", feature_scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part = step.prepare(batch["plan"])
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+
+    def init():
+        return G.params_to(G.gin_init(cfg, torch.Generator()
+                                      .manual_seed(0)), "cuda")
+    t_runs = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    runs = partitioned_step_runs(step, init, batch, "gin", cfg.n_layers,
+                                 TRAIN_STEPS, f"partitioned gin-tu ({name})")
+    runs_s = time.perf_counter() - t_runs
+    peak = torch.cuda.max_memory_allocated()
+    (losses, ms, launches, p1), (losses2, _, _, p2) = runs
+    bit_equal = all(torch.equal(a, b) for a, b in zip(p1, p2))
+    if not bit_equal or losses != losses2:
+        raise AssertionError(f"partitioned gin-tu ({name}): two runs from "
+                             f"the same state differ")
+    del runs, p1, p2
+    params = init()
+    state = {"params": params, "opt": adamw_init(params)}
+    step(state, batch)
+    breakdown = step_breakdown(lambda: step(state, batch),
+                               float(np.median(ms)))
+    del state, params
+    loss_fn = functools.partial(PG.partitioned_gin_loss, cfg,
+                                axes=mesh.axis_names, v_cap=plan.v_cap)
+    ours = loss_and_grads(loss_fn, init(), {**batch, "plan": part})
+    agree = grads_agree(ours, dense, TRAIN_TOL)
+    if abs(losses[0] - float(dense[0])) > TRAIN_TOL * abs(float(dense[0])):
+        raise AssertionError(f"partitioned gin-tu ({name}): first loss "
+                             f"{losses[0]} against the dense {dense[0]}")
+    return {"plan": name, "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+            "v_cap": plan.v_cap, "e_cap": plan.e_cap, "b_cap": plan.b_cap,
+            "o_cap": plan.o_cap, "hb_cap": getattr(plan, "hb_cap", 0),
+            "rows": part.rows, "edges": graph,
+            "replica_slots": part.lanes.total.prep.num_nodes,
+            "spmm_per_combine": part.lanes.launches, "prepare_s": prepare_s,
+            "runs_s": runs_s,
+            "losses": losses, "step_ms": ms,
+            "ms_per_step": float(np.median(ms)), "launches": launches,
+            "launches_per_step": dict(zip(
+                ("spmm", "spmm_backward", "bound"),
+                PG.step_spmm_launches("gin", cfg.n_layers))),
+            "peak_device_bytes": peak, "two_runs_bit_equal": bit_equal,
+            "step_breakdown": breakdown,
+            "dense_reference": {"first_loss": losses[0],
+                                "dense_loss": float(dense[0]), **agree}}
+
+
+def small_partition(scale: int, tmp: str, k: int, hosts):
+    """RMAT-``scale`` partitioned by 2PS-L into ``k`` on the card and
+    planned with the pair tables capped at ``PARTITIONED_QUANTILE`` (host
+    groups ``hosts``): (edges, V, plan)."""
+    from repro_torch.core import MemmapEdgeStream, run_spec, spec_for
+    from repro_torch.dist import plan_halo_exchange
+    path, _ = write_graph(scale, tmp)
+    edges = np.fromfile(path, np.uint32).reshape(-1, 2).astype(np.int64)
+    V = int(edges.max()) + 1
+    res = run_spec(spec_for("2psl"), MemmapEdgeStream(path), k)
+    plan = plan_halo_exchange(edges, np.asarray(res.assignment), V, k,
+                              pair_cap_quantile=PARTITIONED_QUANTILE,
+                              host_groups=hosts)
+    return edges, V, plan
+
+
+def partitioned_model_steps(tmp: str, k: int = 32, hosts: int = 4) -> dict:
+    """GatedGCN and EGNN at full width on RMAT-``PARTITIONED_MODELS_SCALE``
+    partitions (k, ``hosts`` host groups, every lane active), one process
+    on the card: two steps each from the same state, every step exactly
+    ``step_spmm_launches``; device ms by CUDA events, peak memory."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import partitioned_gnn as PG
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import steps as S
+    from repro_torch.models import gnn as G
+    mesh = make_host_mesh((hosts, k // hosts), ("host", "device"))
+    scale = PARTITIONED_MODELS_SCALE
+    t0 = time.perf_counter()
+    edges, V, plan = small_partition(scale, tmp, k, hosts)
+    out = {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0): {V} "
+                    f"vertices, {len(edges)} edges, 2PS-L k={k}, {hosts} "
+                    f"host groups, pair_cap_quantile {PARTITIONED_QUANTILE}",
+           "v_cap": plan.v_cap, "o_cap": plan.o_cap, "hb_cap": plan.hb_cap,
+           "partition_s": time.perf_counter() - t0}
+    for model in ("gatedgcn", "egnn"):
+        t_model = time.perf_counter()
+        cfg = get_arch(model).config_for_shape("ogb_products")
+        fscale = (feature_scale(model, cfg, V, edges, 6, "cuda")
+                  if model in DENSE_LOGITS else 1.0)
+        batch, _ = partitioned_batch(plan, V, cfg.d_in, cfg.n_classes, 6,
+                                     "cuda", fscale)
+        step = PG.make_partitioned_gnn_step(model, cfg, mesh, plan)
+        t1 = time.perf_counter()
+        step.prepare(batch["plan"])
+        prepare_s = time.perf_counter() - t1
+
+        def init():
+            return G.params_to(S.init_params(
+                "gnn", cfg, torch.Generator().manual_seed(0)), "cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        [(losses, ms, launches, _)] = partitioned_step_runs(
+            step, init, batch, model, cfg.n_layers, 2,
+            f"partitioned {model} step", runs=1)
+        out[model] = {"config": vars(cfg), "feature_scale": fscale,
+                      "prepare_s": prepare_s, "losses": losses,
+                      "step_ms": ms, "launches": launches,
+                      "launches_per_step": dict(zip(
+                          ("spmm", "spmm_backward", "bound"),
+                          PG.step_spmm_launches(model, cfg.n_layers))),
+                      "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                      "seconds": time.perf_counter() - t_model}
+        del step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def partitioned_card_vs_cpu(tmp: str, k: int = 32, hosts: int = 4) -> dict:
+    """On small RMAT partitions with every lane active, each model's
+    partitioned loss and gradients on the card against the CPU, each leaf
+    within ``TRAIN_TOL`` of its scale: gin-tu at
+    ``PARTITIONED_CHECK_SCALE``, GatedGCN and EGNN at full width at
+    ``PARTITIONED_MODELS_CHECK_SCALE``.  gin-tu's and GatedGCN's features
+    are scaled (``feature_scale``), so float32 decides them; EGNN's leaves
+    beyond the tolerance are rechecked with the model in float64 on both
+    sides, as ``gnn_train_card_vs_cpu`` does."""
+    import functools
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import partitioned_gnn as PG
+    from repro_torch.launch import steps as S
+    from repro_torch.models import gnn as G
+    from repro_torch.optim.adamw import tree_map
+    layout = PG._AxisLayout(pair=("device",), host=("host",),
+                            all=("host", "device"))
+    out, parts = {}, {}
+    for model, arch, scale in (
+            ("gin", "gin-tu", PARTITIONED_CHECK_SCALE),
+            ("gatedgcn", "gatedgcn", PARTITIONED_MODELS_CHECK_SCALE),
+            ("egnn", "egnn", PARTITIONED_MODELS_CHECK_SCALE)):
+        t_model = time.perf_counter()
+        if scale not in parts:
+            parts[scale] = small_partition(scale, tmp, k, hosts)
+        edges, V, plan = parts[scale]
+        cfg = get_arch(arch).config_for_shape("ogb_products")
+        fscale = (feature_scale(model, cfg, V, edges, 6, "cpu")
+                  if model in DENSE_LOGITS else 1.0)
+        cpu_b, _ = partitioned_batch(plan, V, cfg.d_in, cfg.n_classes, 6,
+                                     "cpu", fscale)
+        card_b = {n: v if n == "plan" else v.cuda()
+                  for n, v in cpu_b.items()}
+        params = S.init_params("gnn", cfg, torch.Generator().manual_seed(0))
+        loss_fn = functools.partial(PG.PARTITIONED_LOSSES[model], cfg,
+                                    axes=layout, v_cap=plan.v_cap)
+        line = {"graph": f"rmat_graph({scale}, edge_factor=16, seed=0), "
+                         f"2PS-L k={k}, {hosts} host groups, "
+                         f"pair_cap_quantile {PARTITIONED_QUANTILE}",
+                "v_cap": plan.v_cap, "o_cap": plan.o_cap,
+                "hb_cap": plan.hb_cap, "config": vars(cfg),
+                "feature_scale": fscale}
+
+        def both(p, cast=None):
+            cb = card_b if cast is None else {
+                n: v if n == "plan" or not v.is_floating_point()
+                else v.to(cast) for n, v in card_b.items()}
+            hb = cpu_b if cast is None else {
+                n: v if n == "plan" or not v.is_floating_point()
+                else v.to(cast) for n, v in cpu_b.items()}
+            return (loss_and_grads(loss_fn, G.params_to(p, "cuda"), cb),
+                    loss_and_grads(loss_fn, p, hb))
+        card, cpu = both(params)
+        loss_err, shares = leaf_shares(card, cpu)
+        over = [i for i, x in enumerate(shares) if x > TRAIN_TOL]
+        line.update(loss=float(cpu[0]), loss_rel_err=loss_err,
+                    max_grad_err_share=max(shares), tolerance=TRAIN_TOL,
+                    leaves=len(shares),
+                    leaves_over_tolerance_in_float32=len(over))
+        ok = loss_err <= TRAIN_TOL and not (over and model in DENSE_LOGITS)
+        if over and ok:
+            card64, cpu64 = both(tree_map(lambda p: p.double(), params),
+                                 torch.float64)
+            _, shares64 = leaf_shares(card64, cpu64)
+            line["float64"] = {"rechecked": [
+                {"leaf": i, "float32": shares[i], "float64": shares64[i]}
+                for i in over]}
+            ok = ok and all(shares64[i] <= TRAIN_TOL for i in over)
+        line["ok"] = ok
+        line["seconds"] = time.perf_counter() - t_model
+        if not ok:
+            raise AssertionError(f"partitioned {arch} card against CPU: "
+                                 f"{line}")
+        out[arch] = line
+    return out
+
+
+def partitioned_rank(rank: int, world: int, port: int, problem: str,
+                     out_dir: str, threads: int) -> None:
+    """One gloo rank of the ranks route (``torch.multiprocessing.spawn``):
+    one gin-tu step on a ``DeviceMesh`` over the host's CPU, the loss and
+    parameters saved for the parent."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.dist import make_partitioned_gin_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    torch.set_num_threads(threads)
+    with open(problem, "rb") as f:
+        cfg, plan, shape, names, batch, params = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                          mesh_dim_names=names)
+        step = make_partitioned_gin_step(cfg, mesh, plan)
+        state = {"params": params, "opt": adamw_init(params)}
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        secs = time.perf_counter() - t0
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 loss=float(metrics["loss"]), step_s=secs,
+                 **{f"p{i}": p.numpy()
+                    for i, p in enumerate(tree_leaves(state["params"]))})
+    finally:
+        dist.destroy_process_group()
+
+
+def partitioned_ranks(tmp: str) -> list:
+    """The ranks route at RMAT-``PARTITIONED_CHECK_SCALE``: for each
+    ``PARTITIONED_WORLDS`` world, gin-tu's step on gloo ranks in
+    processes of their own (the worlds at once, the host's cores shared
+    out), every rank's loss and parameters within 1e-5 of the one-process
+    route's on the CPU and equal across ranks."""
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import make_partitioned_gin_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = get_arch("gin-tu").config_for_shape("ogb_products")
+    threads = max(1, (os.cpu_count() or 1)
+                  // sum(w for w, _ in PARTITIONED_WORLDS))
+    worlds = []
+    for world, hosts in PARTITIONED_WORLDS:
+        t0 = time.perf_counter()
+        edges, V, plan = small_partition(PARTITIONED_CHECK_SCALE, tmp,
+                                         world, hosts)
+        partition_s = time.perf_counter() - t0
+        shape, names = ((hosts, world // hosts), ("host", "device")) \
+            if hosts else ((world,), ("device",))
+        batch, _ = partitioned_batch(
+            plan, V, cfg.d_in, cfg.n_classes, 7, "cpu",
+            feature_scale("gin", cfg, V, edges, 7, "cpu"))
+        params = G.gin_init(cfg, torch.Generator().manual_seed(0))
+        out_dir = tempfile.mkdtemp(dir=tmp)
+        problem = os.path.join(out_dir, "problem.pkl")
+        with open(problem, "wb") as f:
+            pickle.dump((cfg, plan, shape, names, batch, params), f)
+        ctx = mp.spawn(partitioned_rank, args=(world, _free_port(), problem,
+                                               out_dir, threads),
+                       nprocs=world, join=False)
+        worlds.append((world, hosts, plan, shape, names, batch, params,
+                       out_dir, partition_s, time.perf_counter(), ctx))
+    lines = []
+    for (world, hosts, plan, shape, names, batch, params, out_dir,
+         partition_s, t0, ctx) in worlds:
+        while not ctx.join():
+            pass
+        spawn_s = time.perf_counter() - t0
+        step = make_partitioned_gin_step(
+            cfg, make_host_mesh(shape, names, device="cpu"), plan)
+        state = {"params": G.params_to(params, "cpu")}
+        state["opt"] = adamw_init(state["params"])
+        state, metrics = step(state, batch)
+        want = [p.numpy() for p in tree_leaves(state["params"])]
+        ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz"))
+                 for r in range(world)]
+        loss_err = max(abs(float(r["loss"]) - float(metrics["loss"]))
+                       for r in ranks)
+        param_err = max(float(np.abs(r[f"p{i}"] - w).max())
+                        for r in ranks for i, w in enumerate(want))
+        identical = all(np.array_equal(r[f"p{i}"], ranks[0][f"p{i}"])
+                        for r in ranks for i in range(len(want)))
+        line = {"ranks": world, "hosts": hosts, "mesh": dict(zip(names,
+                                                                 shape)),
+                "o_cap": plan.o_cap, "loss": float(metrics["loss"]),
+                "max_loss_err": loss_err, "max_param_err": param_err,
+                "tolerance": 1e-5, "ranks_identical": identical,
+                "threads_per_rank": threads,
+                "rank_step_s": [float(r["step_s"]) for r in ranks],
+                "partition_s": partition_s, "spawn_s": spawn_s}
+        if loss_err > 1e-5 or param_err > 1e-5 or not identical:
+            raise AssertionError(f"partitioned ranks route: {line}")
+        lines.append(line)
+    return lines
+
+
+def partitioned_train(tmp: str, scale: int = 18) -> dict:
+    """gin-tu at full width (5 layers, d 64, d_in 100, no batch norm) on
+    the ``artifact`` phase's RMAT-``scale`` artifact (k = 32): on its
+    host-grouped plan on a (4, 8) ``("host", "device")`` mesh and on the
+    flat plan capped at ``PARTITIONED_QUANTILE`` (the overflow lane
+    active), each one process on the card (``partitioned_gin_run``); then
+    ``partitioned_model_steps``, ``partitioned_card_vs_cpu`` and
+    ``partitioned_ranks``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import MemmapEdgeStream, PartitionArtifact
+    from repro_torch.dist import plan_halo_exchange_stream
+    from repro_torch.dist.partitioned_gnn import _plan_dims
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import gnn as G
+    t_phase = time.perf_counter()
+    cfg = get_arch("gin-tu").config_for_shape("ogb_products")
+    art = PartitionArtifact.load(os.path.join(tmp, "artifact"))
+    k, V = art.k, art.num_vertices
+    path, E = write_graph(scale, tmp)
+    host = art.host_halo_plan()
+    if _plan_dims(art) != (k, host.v_cap, host.num_hosts):
+        raise AssertionError("the artifact's dims are not its host plan's")
+    t0 = time.perf_counter()
+    flat = plan_halo_exchange_stream(MemmapEdgeStream(path), art.assignment,
+                                     V, k,
+                                     pair_cap_quantile=PARTITIONED_QUANTILE)
+    flat_plan_s = time.perf_counter() - t0
+    if not (flat.ov_idx >= 0).any():
+        raise AssertionError("the capped plan has no overflow rows")
+    edges = np.fromfile(path, np.uint32).reshape(-1, 2)
+    fscale = feature_scale("gin", cfg, V, edges, 5, "cuda")
+    _, ref = partitioned_batch(flat, V, cfg.d_in, cfg.n_classes, 5, "cpu",
+                               fscale)
+    dense_b = {"feats": torch.from_numpy(ref["feats"]).cuda(),
+               "src": torch.from_numpy(edges[:, 0].astype(np.int64)).cuda(),
+               "dst": torch.from_numpy(edges[:, 1].astype(np.int64)).cuda(),
+               "labels": torch.from_numpy(ref["labels"]).cuda(),
+               "covered": torch.from_numpy(ref["covered"]).cuda()}
+    params = G.params_to(G.gin_init(cfg, torch.Generator().manual_seed(0)),
+                         "cuda")
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(lambda p, b: dense_gin_loss(p, **b),
+                                 params, dense_b)
+    dense = (loss.cpu(), [g.cpu() for g in grads])
+    dense_s = time.perf_counter() - t0
+    del dense_b, params, grads
+    graph = (f"rmat_graph({scale}, edge_factor=16, seed=0): {V} vertices, "
+             f"{E} edges")
+    runs = {"host_grouped": partitioned_gin_run(
+                "host-grouped (4 hosts)", host,
+                make_host_mesh((4, k // 4), ("host", "device")), cfg, V,
+                graph, dense, fscale)}
+    torch.cuda.empty_cache()
+    runs["flat_capped"] = partitioned_gin_run(
+        f"flat, pair_cap_quantile {PARTITIONED_QUANTILE}", flat,
+        make_host_mesh((k,), ("device",)), cfg, V, graph, dense, fscale)
+    del dense
+    torch.cuda.empty_cache()
+    models = partitioned_model_steps(tmp)
+    t0 = time.perf_counter()
+    check = partitioned_card_vs_cpu(tmp)
+    check["seconds"] = time.perf_counter() - t0
+    ranks = partitioned_ranks(tmp)
+    lines = [*runs.values(), models["gatedgcn"], models["egnn"]]
+    return {"config": vars(cfg), "seconds": time.perf_counter() - t_phase,
+            "feature_scale": fscale, "flat_plan_s": flat_plan_s,
+            "dense_reference_s": dense_s, **runs, "models": models,
+            "card_vs_cpu": check, "ranks": ranks,
+            "spmm_launches": sum(r["launches"].get("spmm", 0)
+                                 for r in lines),
+            "spmm_backward_launches": sum(
+                r["launches"].get("spmm_backward", 0) for r in lines)}
+
+
+#: the ``artifact`` phase's RMAT scale (at most), which
+#: ``partitioned_train`` trains on
+ARTIFACT_SCALE = 18
+
+
+def artifact_phase(tmp: str, scale: int) -> dict:
+    """The ``artifact`` phase at min(``scale``, ``ARTIFACT_SCALE``) in
+    ``tmp``, emitted."""
+    out = artifact_path(min(scale, ARTIFACT_SCALE), tmp)
+    emit({"phase": "artifact", **out})
+    return out
+
+
+def partitioned_phase(tmp: str, scale: int) -> dict:
+    """The ``partitioned_train`` phase on ``artifact_phase``'s artifact in
+    ``tmp``, emitted."""
+    out = partitioned_train(tmp, min(scale, ARTIFACT_SCALE))
+    emit({"phase": "partitioned_train", **out})
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
-                    help="RMAT scale of the 2PS-HDRF and hash graphs "
-                         "(default 20); 2PS-L and HEP run at min(scale, "
-                         "19), the hosted 2PS-L and buffered at min(scale, "
-                         "18), the HDRF "
-                         "baselines and the overflow-tail comparison at "
-                         "min(scale, 16)")
+                    help="RMAT scale of the hash graphs (default 20); "
+                         "2PS-L and HEP run at min(scale, 19), 2PS-HDRF, "
+                         "the hosted 2PS-L, buffered and the artifact at "
+                         "min(scale, 18), the overflow-tail comparison at "
+                         "min(scale, 16) and the HDRF baselines at "
+                         "min(scale, 15)")
     ap.add_argument("--spmm-tune", action="store_true",
                     help="only time the spmm bound route's launch shapes "
                          "(SPMM_TUNE) on gnn_aggregate's graph and print "
@@ -5706,6 +6334,11 @@ def main(argv=None) -> int:
                          "the previous flash backward's time, and augru's "
                          "previous backward (the rows route) beside the "
                          "tile route with both routes' edge")
+    ap.add_argument("--partitioned-only", action="store_true",
+                    help="only build edge_score and spmm, make the artifact "
+                         "phase's RMAT-18 artifact and run the "
+                         "partitioned_train phase on it, and print its "
+                         "line")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
@@ -5741,6 +6374,17 @@ def main(argv=None) -> int:
               **least_loaded_rounds(min(args.scale, 16))})
         emit({"phase": "twopsl_scoring",
               **twopsl_scoring(min(args.scale, 16))})
+        return 0
+    if args.partitioned_only:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels.edge_score import kernel as es_kernel
+        from repro_torch.kernels.spmm import kernel as sp_kernel
+        print(nvidia_smi(), flush=True)
+        cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
+                          sp_kernel.NAME: sp_kernel.SOURCE})
+        with tempfile.TemporaryDirectory() as tmp:
+            artifact_phase(tmp, args.scale)
+            partitioned_phase(tmp, args.scale)
         return 0
     if args.spmm_tune:
         print(nvidia_smi(), flush=True)
@@ -5845,22 +6489,22 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # the partitioning paths run below their earlier slices' scales
         # (2PS-HDRF and the hashes at RMAT-20, 2PS-L at 19, the HDRF
-        # baselines at 16) so that the whole run, the DIEN and LM phases
-        # included, takes about half its time limit
+        # baselines at 16; since the partitioned training phase 2PS-HDRF
+        # at 18 and the HDRF baselines at 15) so that the whole run keeps
+        # inside its time limit
         mp = main_path(min(args.scale, 19), tmp)
         emit({"phase": "main_path", **mp})
         emit({"phase": "hosted", **hosted_path(min(args.scale, 18), tmp)})
-        hp = two_ps_hdrf_path(min(args.scale, 19), tmp)
+        hp = two_ps_hdrf_path(min(args.scale, 18), tmp)
         emit({"phase": "two_ps_hdrf", **hp})
         emit({"phase": "hdrf_baselines",
-              **hdrf_baselines(min(args.scale, 16), tmp,
+              **hdrf_baselines(min(args.scale, 15), tmp,
                                previous=args.previous_designs)})
         emit({"phase": "hash", **hash_paths(args.scale, tmp)})
         emit({"phase": "hep", **hep_path(min(args.scale, 19), tmp)})
         bp_run = buffered_path(min(args.scale, 18), tmp)
         emit({"phase": "buffered", **bp_run})
-        ap_run = artifact_path(min(args.scale, 18), tmp)
-        emit({"phase": "artifact", **ap_run})
+        ap_run = artifact_phase(tmp, args.scale)
         # the profiled process runs beside the crash drill's
         profiling = start_profile(tmp, min(args.scale, 14))
         try:
@@ -5877,6 +6521,7 @@ def main(argv=None) -> int:
         gt = ga.pop("gnn_train")
         emit({"phase": "gnn_aggregate", **ga})
         emit({"phase": "gnn_train", **gt})
+        pt = partitioned_phase(tmp, args.scale)
         gs = gnn_serve(tmp)
         emit({"phase": "gnn_serve", **gs})
         tc = train_cli(tmp)
@@ -5915,7 +6560,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"the path launched no {name} kernel")
     if bp_run["edge_score_launches"] == 0:
         raise AssertionError("the buffered path launched no edge_score")
-    if gs["spmm_launches"] == 0 or gm["spmm_launches"] == 0:
+    if (gs["spmm_launches"] == 0 or gm["spmm_launches"] == 0
+            or pt["spmm_launches"] == 0):
         raise AssertionError("the GNN paths launched no spmm")
     train_paths = {"flash_attention_backward":
                    lt["launches"]["flash_attention_backward"],
@@ -6052,6 +6698,9 @@ def main(argv=None) -> int:
         "library_ms": gin["library_ms"],
         "launches_train": gt["spmm_launches"],
         "launches_train_by_route": gt["launches_by_route"],
+        "launches_partitioned_train": pt["spmm_launches"],
+        "backward_launches_partitioned_train":
+            pt["spmm_backward_launches"],
         "backward_source": "src/repro_torch/kernels/spmm/csrc/spmm.cu "
                            "(spmm over the reversed edges)",
         "backward_launches": train_paths["spmm_backward"],

@@ -1,21 +1,42 @@
 """``repro_torch.dist`` — the bridge from a partition to distributed
 execution: the halo-exchange planner (``partitioned_gnn``: ``HaloPlan``,
 ``plan_halo_exchange{,_stream}``, ``plan_capacities{,_stream}``) and its
-host-grouped, DCN-aware re-slicing (``multihost``: ``HostHaloPlan``).
-Both are numpy copies of the reference package's planners; plans persist
-inside a ``repro_torch.core.PartitionArtifact`` and reload through
+host-grouped, DCN-aware re-slicing (``multihost``: ``HostHaloPlan``),
+numpy copies of the reference package's planners; plans persist inside a
+``repro_torch.core.PartitionArtifact`` and reload through
 ``load_halo_plan`` without re-reading the edge stream.
+
+The execution half (``partitioned_gnn``: ``partitioned_{gin,gatedgcn,
+egnn}_loss``, ``partitioned_egnn_forward`` and
+``make_partitioned_{gnn,gin,gatedgcn,egnn}_step``) trains a GNN over the
+partitions with the reference's signatures and batch layout, on one of
+two routes: all k partitions in one process on one device
+(``launch.mesh.make_host_mesh``; every exchange a fixed-order ``spmm``),
+or one partition a ``torch.distributed`` rank (a ``DeviceMesh``; the
+exchange ``all_to_all_single`` and ``all_reduce``).
 """
 from .multihost import (HostHaloPlan, host_plan_from_halo,
                         normalize_host_groups, split_mesh_axes)
 from .partitioned_gnn import (HaloPlan, capacities_from_plan,
-                              load_halo_plan, plan_capacities,
+                              load_halo_plan,
+                              make_partitioned_egnn_step,
+                              make_partitioned_gatedgcn_step,
+                              make_partitioned_gin_step,
+                              make_partitioned_gnn_step,
+                              partitioned_egnn_forward,
+                              partitioned_egnn_loss,
+                              partitioned_gatedgcn_loss,
+                              partitioned_gin_loss, plan_capacities,
                               plan_capacities_stream, plan_halo_exchange,
                               plan_halo_exchange_stream)
 
 __all__ = [
     "HaloPlan", "HostHaloPlan", "capacities_from_plan",
-    "host_plan_from_halo", "load_halo_plan", "normalize_host_groups",
-    "plan_capacities", "plan_capacities_stream", "plan_halo_exchange",
-    "plan_halo_exchange_stream", "split_mesh_axes",
+    "host_plan_from_halo", "load_halo_plan",
+    "make_partitioned_egnn_step", "make_partitioned_gatedgcn_step",
+    "make_partitioned_gin_step", "make_partitioned_gnn_step",
+    "normalize_host_groups", "partitioned_egnn_forward",
+    "partitioned_egnn_loss", "partitioned_gatedgcn_loss",
+    "partitioned_gin_loss", "plan_capacities", "plan_capacities_stream",
+    "plan_halo_exchange", "plan_halo_exchange_stream", "split_mesh_axes",
 ]

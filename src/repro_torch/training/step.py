@@ -48,11 +48,14 @@ def value_and_grad(loss_fn: Callable, params, batch):
 
 def make_train_step(loss_fn: Callable, lr_fn: Callable, *,
                     weight_decay: float = 0.1, max_grad_norm: float = 1.0,
-                    microbatches: int = 1):
+                    microbatches: int = 1,
+                    reduce_grads: Callable | None = None):
     """loss_fn(params, batch) -> scalar.  Returns step(state, batch) ->
     (state, metrics).  With microbatches > 1, the leading batch axis of
     every tensor in ``batch`` is split, gradients are accumulated in
-    float32, then loss and gradients are divided by the count."""
+    float32, then loss and gradients are divided by the count.
+    ``reduce_grads(grads) -> grads`` runs before the update (a partitioned
+    step's sum of every rank's gradients)."""
 
     def step(state, batch):
         params = state["params"]
@@ -75,6 +78,8 @@ def make_train_step(loss_fn: Callable, lr_fn: Callable, *,
                 del g_i
             loss = loss / microbatches
             tree_map(lambda g: g.div_(microbatches), grads)
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
         # schedule indexed by the step being TAKEN (warmup(0) would be lr=0)
         lr = lr_fn(state["opt"]["step"] + 1)
         _, _, om = adamw_update(grads, state["opt"], params, lr=lr,
