@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's partitioning (every registered algorithm), DIEN
-serving, LM serving, GNN aggregation, GNN models and serving, embedding
-pooling and training (LM, DIEN, GNN, partitioned GNN, the train CLI)
-paths on one NVIDIA GPU and check them.
+serving, LM serving (dense and MoE), GNN aggregation, GNN models and
+serving, embedding pooling and training (LM, DIEN, GNN, partitioned GNN,
+the train CLI) paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -131,7 +131,38 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               argmax); and, recorded but not gated, the bf16 model's 30
               layers on (1, 2,048) through the kernel and through the
               previous design, each against the plain attention.
-9a. lm_train  starcoder2-3b at full width and depth (bf16, 30 layers,
+9a. moe_serve  olmoe-1b-7b (16 layers, 64 experts top-8) and
+              qwen2-moe-a2.7b (24 layers, 60 experts top-4 + 4 shared) at
+              full width and depth in bf16, random weights drawn on the
+              card, one model on the card at a time.  First
+              ``flash_attention`` at their prefill layer ((1, 16/16,
+              32,768, 128) causal bf16, v strided as in the model) held to
+              the plain attention and timed beside it, its bound and SDPA.
+              ``make_lm_prefill_step`` on (1, 32,768) tokens (the grouped
+              dispatch, 32 groups of 1,024: C = 160 and 86), a warm-up and
+              two calls, bit-equal logits, exactly one ``flash_attention``
+              launch per layer and call, peak memory, one profiled call's
+              device ms by kernel class (by name: ``flash_attention``,
+              GEMMs, ``searchsorted``, sorts, gathers, the rest), and the
+              first MoE layer alone (ms between CUDA events, its kernel
+              classes, the expert GEMMs alone); ``python -m
+              repro_torch.launch.serve --arch ARCH --full --requests 4
+              --max-new 16`` (the global route, C = 1; no kernel launch;
+              ms per decode step); olmoe's ``decode_step`` at decode_32k's
+              batch of 128 (the grouped route, 4 tokens a group) on a
+              64-position cache.  Then card against CPU in float32 (TF32
+              off) at full width with 2 layers of each model on (1, 512)
+              (grouped) and (1, 500) (global) tokens: each layer's
+              ``_moe_apply`` on the same input on both devices (a routing
+              flip allowed only at a near-tie, the CPU's k-th and
+              (k+1)-th probabilities within 1e-6, and reported; then the
+              card dispatches the CPU's experts, and every group's
+              outputs are within 1e-3 of its largest magnitude; aux
+              within 1e-5), the last logits within 1e-3 of
+              their largest magnitude with the same argmax; and one AdamW
+              step of olmoe (2 layers, float32) on (1, 512), the loss and
+              every gradient within 1e-3 of its leaf's largest magnitude.
+9b. lm_train  starcoder2-3b at full width and depth (bf16, 30 layers,
               ``remat="full"``) through ``make_lm_train_step`` on
               train_4k's 4,096 tokens, batch cut from 256 to 4 (the
               config's 4 microbatches of 1): a warm-up and 3 timed steps,
@@ -139,7 +170,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               backwards; step ms, tokens/s, peak memory; card against CPU
               in float32 on 2 layers and (1, 512) tokens (loss and every
               gradient within 1e-3 of the largest magnitude).
-9b. recsys_train  DIEN at full width on train_batch's 65,536 rows: a
+9c. recsys_train  DIEN at full width on train_batch's 65,536 rows: a
               warm-up and 3 steps, each exactly 2 ``augru`` forwards and 2
               backwards; card against CPU at 512 rows within 1e-4.
 10. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
@@ -192,7 +223,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               validates, and the profiler's trace holds one
               ``edge_score_bits_kernel`` record per counted launch.
 20. shard     sharded 2PS-L (``repro_torch.shard``) in 16,384-edge chunks:
-              (1) at RMAT-16 through the distributed CLI's emulated backend
+              (1) at RMAT-15 through the distributed CLI's emulated backend
               (worker threads, one card) at W = 1 (byte-equal to the
               sequential partition CLI run), 4 and 2: one ``edge_score``
               launch per scoring chunk summed over the workers, all through
@@ -200,7 +231,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               card against CPU byte-equal (RF and every rank's slice
               sha256 too) for 2PS-L, hosted 2PS-L (4 hosts), HDRF with
               ``use_cap``, buffered and HEP at 131,072 bytes, the
-              launches those of the sequential geometry; (3-5) at RMAT-16,
+              launches those of the sequential geometry; (3-5) at RMAT-15,
               two ranks in processes of their own (``--dist-counted``),
               all at once: the fs backend, the torch backend (gloo on
               localhost), the fs parent mode (``python -m
@@ -293,7 +324,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               default budget, 131,072 and 8,192 bytes, and buffered at
               RMAT-14);
               the card's busy share profiled over the first 2^18 (2PS-L)
-              or 2^15 edges; and at RMAT-14 host-aware 2PS-L's artifact
+              or 2^15 edges (the card's activity alone); and at RMAT-14
+              host-aware 2PS-L's artifact
               (``--artifact-dir --local-graphs``: every sidecar byte-equal,
               the manifests equal but for timings, stall report and
               route) and a checkpoint written on the card, equal to the
@@ -335,6 +367,11 @@ rebuilds ``spmm.cu`` at each launch shape of ``SPMM_TUNE`` and times it on
 
 runs the ``resume`` phase's drill with one process at a time, nothing
 beside it (its save, restore and start-up times), and does nothing else.
+
+    python3 chip_smoke.py --moe-only
+
+builds ``flash_attention`` and its backward and runs ``moe_serve``, and
+does nothing else.
 
     python3 chip_smoke.py --partitioned-only
 
@@ -2239,13 +2276,13 @@ def run_lm_serve(argv) -> dict:
     return report
 
 
-def lm_serve(requests: int = 4, max_new: int = 16,
-             prompt_len: int = 16) -> dict:
-    """``main(--arch starcoder2-3b --full --requests 4 --max-new 16)``:
-    decode takes the plain GQA attention, as the reference's does, so no
-    kernel launches."""
+def lm_serve(requests: int = 4, max_new: int = 16, prompt_len: int = 16,
+             arch: str = LM_ARCH) -> dict:
+    """``main(--arch ARCH --full --requests 4 --max-new 16)`` (starcoder2-3b
+    by default): decode takes the plain GQA attention, as the reference's
+    does, so no kernel launches."""
     report, counts, wall = counted(lambda: run_lm_serve(
-        ["--arch", LM_ARCH, "--full", "--requests", str(requests),
+        ["--arch", arch, "--full", "--requests", str(requests),
          "--max-new", str(max_new)]))
     expect_launches(counts, {}, "LM serve (decode through the plain "
                                 "attention)")
@@ -2257,22 +2294,26 @@ def lm_serve(requests: int = 4, max_new: int = 16,
             "ms_per_decode_step": report["decode_s"] / steps * 1e3,
             "launches": counts,
             "decode_step_profile": decode_profile(requests,
-                                                  prompt_len + max_new)}
+                                                  prompt_len + max_new,
+                                                  arch)}
 
 
-def decode_profile(requests: int, max_len: int) -> dict:
-    """One full-width decode step (position ``max_len // 2`` of a cache of
-    ``max_len``) timed between CUDA events, and its kernels profiled."""
+def decode_profile(requests: int, max_len: int, arch: str = LM_ARCH,
+                   params=None) -> dict:
+    """One full-width decode step of ``arch`` (position ``max_len // 2`` of
+    a cache of ``max_len``) timed between CUDA events, and its kernels
+    profiled; on ``params``, or on weights drawn from seed 0."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch.steps import make_lm_decode_step
     from repro_torch.models.transformer import init_cache
-    cfg = get_arch(LM_ARCH).make_config()
-    params = lm_params(cfg, seed=0)
-    cache = {k: t.cuda() for k, t in
-             init_cache(cfg, requests, max_len).items()}
+    cfg = get_arch(arch).make_config()
+    if params is None:
+        params = lm_params(cfg, seed=0)
+    cache = init_cache(cfg, requests, max_len, device="cuda")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (requests, 1))
     batch = {"cache": cache, "pos": max_len // 2,
-             "tokens": torch.zeros((requests, 1), dtype=torch.long).cuda()}
+             "tokens": torch.from_numpy(tokens).cuda()}
     step = make_lm_decode_step(cfg)
     ms = cuda_time_ms(lambda: step(params, batch), reps=10, warmup=2)
     out = {"step_ms": ms, **kernel_breakdown(lambda: step(params, batch),
@@ -2393,6 +2434,411 @@ def lm_card_vs_cpu(short: int = 512, long: int = 2048,
     if not (short_line["ok"] and long_line["ok"]):
         raise AssertionError(f"LM card vs cpu disagree: {line}")
     return {**line, "bf16": lm_bf16_vs_plain(long) if previous else None}
+
+
+# ---------------------------------------------------------------------------
+# the MoE LMs (olmoe-1b-7b, qwen2-moe-a2.7b): prefill, serving, card vs CPU
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("olmoe-1b-7b", "qwen2-moe-a2.7b")
+#: decode_32k's batch (configs/base.py LM_SHAPES) on a short cache
+MOE_DECODE_BATCH, MOE_DECODE_CACHE = 128, 64
+#: card against CPU (float32): (1, 512) takes the grouped route at G = 32,
+#: (1, 500) the global one
+MOE_CHECK_SEQS = (512, 500)
+#: a routing flip is allowed only where the CPU's k-th and (k+1)-th
+#: probabilities are this close; the aux loss's tolerance
+MOE_TIE, MOE_AUX_TOL = 1e-6, 1e-5
+
+
+@contextlib.contextmanager
+def moe_wrapped(wrap, name: str = "_moe_apply"):
+    """The model's function ``name`` replaced by ``wrap(inner)`` inside the
+    block."""
+    import repro_torch.models.transformer as T
+    inner = getattr(T, name)
+    setattr(T, name, wrap(inner))
+    try:
+        yield
+    finally:
+        setattr(T, name, inner)
+
+
+def routed_as(experts):
+    """A wrapper for ``moe_route`` (``moe_wrapped(.., "moe_route")``) that
+    keeps the router's probabilities but takes ``experts`` (N, k, another
+    device's choice) as the top k, their probabilities renormalised as the
+    router renormalises its own."""
+    import torch
+
+    def wrap(inner):
+        def route(cfg, p, x):
+            probs, _, _ = inner(cfg, p, x)
+            top_e = experts.to(x.device).reshape(*x.shape[:-1], -1)
+            top_p = probs.gather(-1, top_e)
+            return probs, top_p / torch.clamp(
+                top_p.sum(-1, keepdim=True), min=1e-9), top_e
+        return route
+    return wrap
+
+
+#: the MoE prefill's kernel classes, matched in this order on the lower-
+#: cased kernel name before its template arguments (the first match wins;
+#: ``searchsorted`` before ``sort``, whose name it holds); a class by name
+#: reads no profiler attribution of kernels to the operations that
+#: launched them.  ``other``: every other kernel (elementwise passes,
+#: reductions, softmax, norms, copies)
+MOE_KERNEL_CLASSES = (
+    ("flash_attention", tuple(n.lower() for n in FLASH_KERNEL_NAMES)),
+    ("gemm", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "splitkreduce")),
+    ("searchsorted", ("searchsorted",)),
+    ("sort", ("sort",)),
+    ("gather", ("index_elementwise", "indexselect", "index_put", "gather",
+                "scatter")),
+)
+
+
+def kernel_classes(by_name: dict) -> dict:
+    """Device ms of ``profile_kernels``'s ``{name: [us, count]}`` summed
+    by ``MOE_KERNEL_CLASSES``, the rest as ``other``."""
+    out = dict.fromkeys([c for c, _ in MOE_KERNEL_CLASSES] + ["other"], 0.0)
+    for name, (us, _) in by_name.items():
+        head = name.split("<", 1)[0].lower()
+        cls = next((c for c, keys in MOE_KERNEL_CLASSES
+                    if any(k in head for k in keys)), "other")
+        out[cls] += us / 1e3
+    return out
+
+
+def moe_split(fn, call_ms: float) -> tuple[dict, object]:
+    """One profiled call of ``fn`` (a prefill step; the card's activity
+    only, ``profile_kernels``): the device time of its kernels, their busy
+    share of ``call_ms``, the top kernels and the device ms by
+    ``kernel_classes``; and the first MoE layer's input, recorded in that
+    call (for ``moe_layer_split``)."""
+    xs = []
+
+    def first_input(inner):
+        def apply(c, p, x):
+            if not xs:
+                xs.append(x)
+            return inner(c, p, x)
+        return apply
+
+    with moe_wrapped(first_input):
+        by_name, wall_us = profile_kernels(fn)
+    busy = sum(us for us, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    if not busy:
+        return {"device_ms": "not measured"}, xs[0]
+    return {"device_ms": busy / 1e3, "device_busy_share": busy / 1e3 / call_ms,
+            "profiled_wall_ms": wall_us / 1e3,
+            "kernels": sum(n for _, n in by_name.values()),
+            "by_class_ms": kernel_classes(by_name),
+            "top_kernels_ms": {k[:80]: us / 1e3 for k, (us, _) in ranked}}, \
+        xs[0]
+
+
+def moe_layer_split(cfg, params, x) -> dict:
+    """The first MoE layer alone (``_moe_apply``) on its prefill input ``x``
+    (N, d): ms a call between CUDA events; one profiled call's device ms by
+    ``kernel_classes`` (``gemm``: the router, the experts and the shared
+    experts); the expert GEMMs alone, the up (and gate) and down
+    ``torch.bmm`` on buffers of the layer's (E, G C, d) and (E, G C, f)
+    shapes between CUDA events; ``dispatch_ms`` the layer's device ms
+    outside the GEMM class: the sorts, ``searchsorted``, gathers and
+    elementwise passes (softmax, masks, the experts' and shared experts'
+    activation, the combine's multiply and sum)."""
+    import torch
+    import repro_torch.models.transformer as T
+    m, (N, d) = cfg.moe, x.shape
+    lp = T.layer_params(params, 0)
+    G = T._moe_groups(m, N)
+    rows = G * T.moe_capacity(m, N // G)
+    with torch.no_grad():
+        layer_ms = cuda_time_ms(lambda: T._moe_apply(cfg, lp, x), reps=5,
+                                warmup=1)
+        by_name, _ = profile_kernels(lambda: T._moe_apply(cfg, lp, x))
+        g = torch.Generator(device=x.device).manual_seed(0)
+        buf = torch.randn((m.num_experts, rows, d), generator=g,
+                          device=x.device).to(x.dtype)
+        h = torch.randn((m.num_experts, rows, m.d_ff_expert), generator=g,
+                        device=x.device).to(x.dtype)
+        ex = lp["experts"]
+        expert_ms = sum(cuda_time_ms(lambda a=a, w=w: torch.bmm(a, w),
+                                     reps=5, warmup=1)
+                        for a, w in [(buf, ex["up"]), (h, ex["down"])]
+                        + ([(buf, ex["gate"])] if cfg.gated_mlp else []))
+        del buf, h
+    classes = kernel_classes(by_name)
+    device_ms = sum(classes.values())
+    return {"tokens": N, "dispatch_groups": G, "buffer_rows": rows,
+            "ms": layer_ms, "device_ms": device_ms, "by_class_ms": classes,
+            "expert_gemm_ms": expert_ms,
+            "dispatch_ms": device_ms - classes["gemm"],
+            "kernels": sum(n for _, n in by_name.values())}
+
+
+def prefill_logits(step, params, tokens, n_layers: int) -> tuple:
+    """One prefill call ending in a synchronize, every counter reset just
+    before and read just after (exactly one ``flash_attention`` launch per
+    layer): (its logits, finite and of shape (B, vocab), its wall s)."""
+    import torch
+    logits, counts, wall = counted(lambda: (
+        step(params, {"tokens": tokens}), torch.cuda.synchronize())[0])
+    expect_launches(counts, {"flash_attention": n_layers},
+                    f"MoE prefill of {tuple(tokens.shape)} (one "
+                    f"flash_attention per layer)")
+    if (logits.shape != (tokens.shape[0], params["embed"]["table"].shape[0])
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError("MoE prefill logits not finite or misshapen")
+    return logits, wall
+
+
+def moe_prefill(arch: str, seq: int = PREFILL_SEQ) -> dict:
+    """``make_lm_prefill_step`` on ``arch`` at full width and depth (bf16,
+    random weights drawn on the card): one warm-up and two timed calls on
+    (1, ``seq``), bit-equal logits, exactly one ``flash_attention`` launch
+    per layer and call, the peak memory, one profiled call split by
+    ``moe_split`` and its first MoE layer alone by ``moe_layer_split``;
+    for olmoe also one ``decode_step`` at decode_32k's
+    batch of 128 (the grouped route, 4 tokens a group) on a 64-position
+    cache.  The weights are freed before it returns."""
+    import torch
+    import repro_torch.models.transformer as T
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_lm_prefill_step
+    cfg = get_arch(arch).make_config()
+    t0 = time.perf_counter()
+    params = lm_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_lm_prefill_step(cfg)
+    tokens = lm_tokens(cfg, seq, seed=0)
+    _, warm = prefill_logits(step, params, tokens, cfg.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    first, wall_a = prefill_logits(step, params, tokens, cfg.n_layers)
+    second, wall_b = prefill_logits(step, params, tokens, cfg.n_layers)
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{arch}: two prefill calls' logits differ")
+    launches = 3 * cfg.n_layers
+    call_ms = (wall_a + wall_b) / 2 * 1e3
+    split, x = moe_split(lambda: step(params, {"tokens": tokens}), call_ms)
+    split["moe_layer"] = moe_layer_split(cfg, params, x)
+    del x
+    m = cfg.moe
+    G = T._moe_groups(m, seq)
+    line = {"config": f"configs/{arch.replace('-', '_').replace('.', '_')}"
+                      f".py::full ({cfg.n_layers} layers, d_model "
+                      f"{cfg.d_model}, {m.num_experts} experts top-"
+                      f"{m.top_k}, {m.num_shared} shared, bf16, random "
+                      f"weights, seed 0)",
+            "parameters": cfg.num_params(), "init_s": init_s,
+            "shape": [1, seq], "dispatch_groups": G,
+            "capacity": T.moe_capacity(m, seq // G),
+            "cut": "batch 1 of prefill_32k's 32 (one card)",
+            "warmup_wall_s": warm, "call_wall_s": [wall_a, wall_b],
+            "ms_per_call": call_ms, "tokens_per_s": seq / call_ms * 1e3,
+            "peak_device_bytes": peak, "bit_equal_calls": True,
+            "flash_attention_launches": launches,
+            "flash_attention_launches_per_call": cfg.n_layers,
+            "profile": split}
+    del first, second
+    if arch == "olmoe-1b-7b":
+        G = T._moe_groups(m, MOE_DECODE_BATCH)
+        line["decode_step_128"] = {
+            "batch": MOE_DECODE_BATCH, "cache": MOE_DECODE_CACHE,
+            "dispatch_groups": G,
+            "capacity": T.moe_capacity(m, MOE_DECODE_BATCH // G),
+            **decode_profile(MOE_DECODE_BATCH, MOE_DECODE_CACHE, arch,
+                             params)}
+    del params
+    torch.cuda.empty_cache()
+    return line
+
+
+def moe_serve_cli(arch: str, requests: int = 4, max_new: int = 16) -> dict:
+    """The serving CLI's decode of ``arch`` (``lm_serve``): the global
+    route at C = 1 for 4 requests, no kernel launch."""
+    import repro_torch.models.transformer as T
+    from repro_torch.configs import get_arch
+    m = get_arch(arch).make_config().moe
+    G = T._moe_groups(m, requests)
+    return {"dispatch_groups": G,
+            "capacity": T.moe_capacity(m, requests // G),
+            **lm_serve(requests, max_new, arch=arch)}
+
+
+def moe_layer_agree(cfg, lp_card, lp_cpu, x) -> dict:
+    """One MoE layer's ``_moe_apply`` on the card and on the CPU on the
+    same float32 input ``x`` (N, d).  The chosen experts: a flip allowed
+    only where the CPU's k-th and (k+1)-th probabilities are within
+    ``MOE_TIE``, each reported with its gap.  Then the card dispatches the
+    CPU's experts (``routed_as``; its own probabilities), so that every
+    dispatch group's outputs are compared whatever flipped: within 1e-3
+    of the group's largest magnitude, the aux within ``MOE_AUX_TOL``."""
+    import torch
+    import repro_torch.models.transformer as T
+    m, (N, _) = cfg.moe, x.shape
+    probs, _, e_cpu = T.moe_route(cfg, lp_cpu, x)
+    _, _, e_card = T.moe_route(cfg, lp_card, x.cuda())
+    same = (e_cpu.sort(-1).values == e_card.cpu().sort(-1).values).all(-1)
+    top = probs.sort(-1, descending=True).values
+    gaps = (top[:, m.top_k - 1] - top[:, m.top_k]).double()
+    flips = [{"token": int(t), "gap": float(gaps[t])}
+             for t in torch.nonzero(~same).flatten()]
+    if any(f["gap"] > MOE_TIE for f in flips):
+        raise AssertionError(f"routing flips away from a near-tie: {flips}")
+    out_cpu, aux_cpu = T._moe_apply(cfg, lp_cpu, x)
+    with moe_wrapped(routed_as(e_cpu), "moe_route"):
+        out_card, aux_card = T._moe_apply(cfg, lp_card, x.cuda())
+    G = T._moe_groups(m, N)
+    a = out_card.cpu().double().view(G, N // G, -1)
+    b = out_cpu.double().view(G, N // G, -1)
+    worst = float(((a - b).abs().amax((1, 2))
+                   / b.abs().amax((1, 2)).clamp(min=1e-30)).max())
+    aux_err = abs(float(aux_card) - float(aux_cpu))
+    line = {"tokens": N, "dispatch_groups": G,
+            "capacity": T.moe_capacity(m, N // G), "flips": flips,
+            "card_routed_as": "the CPU's experts", "groups_checked": G,
+            "min_gap": float(gaps.min()),
+            "max_err_share": worst, "aux_abs_err": aux_err}
+    if worst > LM_TRAIN_TOL or aux_err > MOE_AUX_TOL:
+        raise AssertionError(f"MoE layer card vs cpu: {line}")
+    return line
+
+
+def moe_card_vs_cpu(arch: str) -> dict:
+    """``arch`` at full width with 2 layers in float32 (TF32 off), the
+    weights drawn on the card and copied to the CPU, on (1, 512) (grouped)
+    and (1, 500) (global) tokens: each layer's ``_moe_apply`` on the same
+    input on both devices (the CPU's, recorded in its forward) through
+    ``moe_layer_agree``; the whole model's last logits within 1e-3 of their
+    largest magnitude with the same argmax (``logits_agree``)."""
+    import dataclasses
+    import torch
+    import repro_torch.models.transformer as T
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_lm_prefill_step
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    cfg = dataclasses.replace(get_arch(arch).make_config(), dtype="float32",
+                              n_layers=2)
+    card = lm_params(cfg, seed=4)
+    cpu = T.params_to(card, "cpu")
+    step = make_lm_prefill_step(cfg)
+    runs = []
+    for seq in MOE_CHECK_SEQS:
+        tokens = lm_tokens(cfg, seq, seed=seq, device="cpu")
+        xs = []
+
+        def recorder(inner):
+            def apply(c, p, x):
+                xs.append(x.clone())
+                return inner(c, p, x)
+            return apply
+
+        t0 = time.perf_counter()
+        with moe_wrapped(recorder):
+            on_cpu = step(cpu, {"tokens": tokens})
+        cpu_s = time.perf_counter() - t0
+        on_card, counts, _ = counted(lambda: step(card,
+                                                  {"tokens": tokens.cuda()}))
+        expect_launches(counts, {"flash_attention": cfg.n_layers},
+                        f"2-layer float32 {arch} prefill")
+        whole = logits_agree(on_card, on_cpu)
+        if not whole["ok"]:
+            raise AssertionError(f"{arch} card vs cpu logits: {whole}")
+        with torch.no_grad():
+            layers = [moe_layer_agree(cfg, T.layer_params(card, i),
+                                      T.layer_params(cpu, i), x)
+                      for i, x in enumerate(xs)]
+        runs.append({"shape": [1, seq], "cpu_s": cpu_s, "layers": layers,
+                     "last_logits": whole})
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": 2, "dtype": "float32",
+            "tolerance": "outputs 1e-3 of each group's largest magnitude "
+                         f"where no flip; flips only at gaps <= {MOE_TIE}; "
+                         f"aux {MOE_AUX_TOL}; last logits 1e-3 of their "
+                         "largest, same argmax", "runs": runs}
+
+
+def moe_train_card_vs_cpu(seq: int = 512) -> dict:
+    """One AdamW step of ``make_lm_train_step`` on olmoe-1b-7b at full
+    width with 2 layers in float32 (``remat="full"``) on (1, ``seq``), from
+    the same state on the card and on the CPU: the loss and every gradient
+    (the first moments, (1 - b1) times the clipped gradient) within 1e-3
+    of their leaf's largest magnitude (``grads_agree``); exactly 2
+    ``flash_attention`` forwards (the forward and the recomputation) and 1
+    backward per layer."""
+    import dataclasses
+    import torch
+    import repro_torch.models.transformer as T
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = dataclasses.replace(get_arch("olmoe-1b-7b").make_config(),
+                              dtype="float32", n_layers=2)
+    params = lm_params(cfg, seed=6)
+    state = {"params": params, "opt": adamw_init(params)}
+    cpu_state = T.params_to(state, "cpu")
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (1, seq + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:])}
+    step = S.make_lm_train_step(cfg)
+    t0 = time.perf_counter()
+    _, m_cpu = step(cpu_state, batch)
+    cpu_s = time.perf_counter() - t0
+    (_, m_card), counts, wall = counted(lambda: step(
+        state, {k: v.cuda() for k, v in batch.items()}))
+    expect_launches(counts, {"flash_attention": 2 * cfg.n_layers,
+                             "flash_attention_backward": cfg.n_layers},
+                    "2-layer float32 olmoe train step")
+    agree = grads_agree((m_card["loss"], tree_leaves(state["opt"]["m"])),
+                        (m_cpu["loss"], tree_leaves(cpu_state["opt"]["m"])),
+                        LM_TRAIN_TOL)
+    line = {"arch": "olmoe-1b-7b", "layers": 2, "dtype": "float32",
+            "shape": [1, seq], "cpu_s": cpu_s, "card_s": wall,
+            "loss": float(m_cpu["loss"]),
+            "grad_norm": [float(m_card["grad_norm"]),
+                          float(m_cpu["grad_norm"])],
+            "launches": {k: v for k, v in counts.items() if v}, **agree}
+    del state, cpu_state
+    torch.cuda.empty_cache()
+    return line
+
+
+def moe_serve() -> dict:
+    """The ``moe_serve`` phase: ``flash_attention`` held to its plain
+    version and timed at the MoE models' prefill layer ((1, 16/16, 32,768,
+    128) causal bf16, v strided as in the model: ``time_flash_attention``),
+    each MoE LM's prefill and serving CLI at full size (one model on the
+    card at a time), then the float32 card-vs-CPU checks and olmoe's train
+    step."""
+    import torch
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    heads = sorted({(c.n_heads, c.n_kv_heads, c.head_dim) for c in (
+        get_arch(a).make_config() for a in MOE_ARCHS)})
+    line = {"flash_attention_prefill_layer": [
+        time_flash_attention(PREFILL_SEQ, Hq=Hq, Hkv=Hkv, D=D)
+        for Hq, Hkv, D in heads], "flash_seconds": time.perf_counter() - t0}
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        line[arch] = {"prefill": moe_prefill(arch),
+                      "serve": moe_serve_cli(arch)}
+        line[arch]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["card_vs_cpu"] = [moe_card_vs_cpu(arch) for arch in MOE_ARCHS]
+    line["train_card_vs_cpu"] = moe_train_card_vs_cpu()
+    line["check_seconds"] = time.perf_counter() - t0
+    line["flash_attention_launches"] = sum(
+        line[a]["prefill"]["flash_attention_launches"] for a in MOE_ARCHS)
+    torch.cuda.empty_cache()
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -3221,6 +3667,9 @@ def profile_path(run: dict) -> dict:
 #: the ``shard`` phase's chunk: 64 chunks at RMAT-16, so that a round of 4
 #: workers streams ~6% of the edges against its frozen base
 SHARD_CHUNK = 16_384
+#: the scale of the ``shard`` phase's parts 1 and 3-5 (16 until the MoE
+#: phase; cut to 15, 32 chunks, to keep the whole run inside its limit)
+SHARD_SCALE = 15
 #: part 2's configurations, card against CPU at W = 3: (label, algorithm,
 #: spec overrides); buffered keeps its own 16,384-edge chunks and
 #: 65,536-edge windows
@@ -3510,13 +3959,13 @@ def finish_shard_processes(run: dict, emulated_sha: str) -> dict:
                       "resumes": manifest["extras"]["resumes"]}}
 
 
-def shard_path(tmp: str, k: int = 32) -> dict:
-    """The ``shard`` phase: ``shard_emulated`` at RMAT-16 alone on the
-    card (its walls), then the processes of parts 3-5 at RMAT-16 started,
-    ``shard_card_vs_cpu`` at RMAT-14 beside them, and the processes
-    finished and checked."""
-    emulated = shard_emulated(16, tmp, k)
-    run = start_shard_processes(16, tmp, k)
+def shard_path(tmp: str, k: int = 32, scale: int = SHARD_SCALE) -> dict:
+    """The ``shard`` phase: ``shard_emulated`` at RMAT-``scale`` alone on
+    the card (its walls), then the processes of parts 3-5 at the same
+    scale started, ``shard_card_vs_cpu`` at RMAT-14 beside them, and the
+    processes finished and checked."""
+    emulated = shard_emulated(scale, tmp, k)
+    run = start_shard_processes(scale, tmp, k)
     try:
         card_vs_cpu = shard_card_vs_cpu(14, k)
     except BaseException:
@@ -4322,21 +4771,23 @@ def ops_card_vs_cpu(scale: int) -> dict:
 def profile_kernels(fn) -> tuple[dict, float]:
     """One profiled run of ``fn``: the device time (us) of the CUDA kernels
     torch.profiler records, summed by kernel name with their count, and
-    the run's wall time (us)."""
+    the run's wall time (us).  Only the card's activity is recorded, and
+    its raw records are read: recording the host's operations too, and
+    building the profiler's event tree, cost ~0.5 ms a kernel, more than
+    the runs being profiled."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            entry = by_name.setdefault(e.name, [0.0, 0])
-            entry[0] += e.device_time_total
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            entry = by_name.setdefault(e.name(), [0.0, 0])
+            entry[0] += (e.end_ns() - e.start_ns()) / 1e3
             entry[1] += 1
     return by_name, wall_us
 
@@ -6334,6 +6785,9 @@ def main(argv=None) -> int:
                          "the previous flash backward's time, and augru's "
                          "previous backward (the rows route) beside the "
                          "tile route with both routes' edge")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="only build flash_attention and its backward and "
+                         "run the moe_serve phase, and print its line")
     ap.add_argument("--partitioned-only", action="store_true",
                     help="only build edge_score and spmm, make the artifact "
                          "phase's RMAT-18 artifact and run the "
@@ -6385,6 +6839,14 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             artifact_phase(tmp, args.scale)
             partitioned_phase(tmp, args.scale)
+        return 0
+    if args.moe_only:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        print(nvidia_smi(), flush=True)
+        cuda_build.build({fa_kernel.NAME: fa_kernel.SOURCE,
+                          fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE})
+        emit({"phase": "moe_serve", **moe_serve()})
         return 0
     if args.spmm_tune:
         print(nvidia_smi(), flush=True)
@@ -6481,6 +6943,7 @@ def main(argv=None) -> int:
     emit({"phase": "lm_serve", **lm_serve()})
     emit({"phase": "lm_card_vs_cpu",
           **lm_card_vs_cpu(previous=args.previous_designs)})
+    emit({"phase": "moe_serve", **moe_serve()})
     lt = lm_train()
     emit({"phase": "lm_train", **lt})
     rt = recsys_train()

@@ -23,10 +23,6 @@ from typing import Any, Callable
 
 ARCHS: dict[str, "ArchSpec"] = {}
 
-#: the reference's other architecture ids -> the ROADMAP item porting them
-_NOT_PORTED = dict.fromkeys(("qwen2-moe-a2.7b", "olmoe-1b-7b"),
-                            "Queue 1 item 12 (MoE dispatch)")
-
 
 @dataclass
 class ArchSpec:
@@ -53,13 +49,7 @@ def register(spec: ArchSpec):
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    """The registered ``ArchSpec``.  An architecture of the reference that
-    is not ported yet raises ``NotImplementedError``; an unknown id
-    ``KeyError``."""
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported to repro_torch yet: "
-            f"see ROADMAP.md {_NOT_PORTED[arch_id]}")
+    """The registered ``ArchSpec``; an unknown id raises ``KeyError``."""
     return ARCHS[arch_id]
 
 

@@ -3,14 +3,18 @@ partitioned GNN inference on the card.
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --requests 4 \
       --max-new 16 --full --json
+  python -m repro_torch.launch.serve --arch olmoe-1b-7b --requests 4 \
+      --max-new 16 --full --json
   python -m repro_torch.launch.serve --arch dien --requests 512 --full --json
   python -m repro_torch.launch.serve --gnn-artifact parts/ --requests 32 \
       --json
 
-An LM (``--arch`` starcoder2-3b, the default, minitron-8b or qwen1.5-110b)
-decodes ``--max-new`` tokens greedily for ``--requests`` random prompts of
-16 tokens, and prints the reference's report (``arch``, ``mode``,
-``requests``, ``generated_tokens``, ``decode_s``, ``tokens_per_s``).  DIEN
+An LM (``--arch`` starcoder2-3b, the default, minitron-8b, qwen1.5-110b,
+or the MoE LMs olmoe-1b-7b and qwen2-moe-a2.7b, whose FFN routes each
+step's ``--requests`` tokens as one dispatch) decodes ``--max-new``
+tokens greedily for ``--requests`` random prompts of 16 tokens, and prints
+the reference's report (``arch``, ``mode``, ``requests``,
+``generated_tokens``, ``decode_s``, ``tokens_per_s``).  DIEN
 scores ``--requests`` requests in one batch, drawn from the synthetic
 ``InteractionStream``, and prints ``arch``, ``mode``, ``requests`` and
 ``mean_ctr``.  ``--seed`` seeds the weights and the requests.  ``--full``
@@ -22,8 +26,7 @@ hot-vertex feature cache behind a resilient remote fetch, and a GIN
 forward whose neighbour sums run through the ``spmm`` kernel), and prints
 the reference's report (p50/p99 latency, cache hit rate, degraded rows).
 A GNN ``--arch`` serves only from an artifact and raises ``ValueError``
-without one; the MoE LMs come with the slice that ports them and raise
-``NotImplementedError``.
+without one.
 """
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 [...]``, the counterpart of ``python -m repro.launch.train``.
 
 Runs the fault-tolerant training loop (checkpoint/restart, straggler
-watchdog) for the LM, GNN and DIEN families on one device: the card by
+watchdog) for the LM (the dense and the MoE architectures, whose loss adds
+the load-balancing aux), GNN and DIEN families on one device: the card by
 default (``--device cuda``; raises without one), the CPU when asked.  It
 takes every flag of the reference's launcher and prints the same
 ``arch=... steps=... first_loss=... last_loss=... restarts=...

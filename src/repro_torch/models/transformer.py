@@ -1,11 +1,11 @@
-"""Decoder-only LM transformer (GQA + RoPE attention, dense FFN), the port's
-counterpart of ``repro.models.transformer``.
+"""Decoder-only LM transformer (GQA + RoPE attention, dense or MoE FFN), the
+port's counterpart of ``repro.models.transformer``.
 
-Covers the reference's three dense architectures through its config
-surface: starcoder2-3b (LayerNorm + tanh-GELU, all biases, tied
-embeddings), minitron-8b (squared-ReLU, no bias) and qwen1.5-110b (QKV bias,
-SwiGLU).  The MoE FFN (``cfg.moe``; qwen2-moe-a2.7b, olmoe-1b-7b) is not
-ported: ``init_params`` and ``forward`` raise ``NotImplementedError``.
+Covers the reference's five LM architectures through its config surface:
+starcoder2-3b (LayerNorm + tanh-GELU, all biases, tied embeddings),
+minitron-8b (squared-ReLU, no bias), qwen1.5-110b (QKV bias, SwiGLU), and
+the MoE FFN (``cfg.moe``) of qwen2-moe-a2.7b (60 routed top-4 + 4 shared
+experts) and olmoe-1b-7b (64 routed top-8, QK-norm).
 
 - Parameters are a plain dict with the reference's tree: ``embed.table``,
   ``layers`` (every leaf stacked on a leading L axis), ``final_norm`` and,
@@ -29,6 +29,17 @@ ported: ``init_params`` and ``forward`` raise ``NotImplementedError``.
   and returns the same dict.
 - Dense layers, einsums and the logits stay ``torch.matmul`` in the
   parameters' dtype, as the reference leaves them to XLA.
+- The MoE dispatch is the reference's sort-based one with static shapes
+  (``_moe_apply``): top-k with ties to the lower expert, a stable sort of
+  the (token, choice) pairs by expert, the rank within an expert, a
+  capacity drop, an (E, C, d) buffer per group and the weighted combine.
+  It is built from permutations and gathers only: no scatter with
+  repeated indices and no ``index_add_``, and each token's k
+  contributions, gathered in ascending expert order (the order of the
+  reference's scatter), are added by one fixed-order sum, so the forward
+  and the backward repeat bit for bit on the card.  ``dispatch_groups``
+  G > 1 routes within G token groups (when G divides the token count) in
+  one batched dispatch.
 """
 from __future__ import annotations
 
@@ -46,9 +57,6 @@ from . import layers as L
 
 #: the parameter dtypes the configurations name, as torch dtypes
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-_MOE = ("the MoE FFN is not ported to repro_torch yet: see ROADMAP.md "
-        "Queue 1 item 12 (MoE dispatch)")
 
 
 @dataclass(frozen=True)
@@ -152,8 +160,26 @@ def _layer_init(cfg: TransformerConfig, generator: torch.Generator) -> dict:
     if cfg.qk_norm:
         p["q_norm"] = L.rmsnorm_init(dh, dt, dev)
         p["k_norm"] = L.rmsnorm_init(dh, dt, dev)
-    p["mlp"] = L.mlp_init(generator, d, cfg.d_ff, gated=cfg.gated_mlp,
-                          bias=cfg.mlp_bias, dtype=dt)
+    if cfg.moe is None:
+        p["mlp"] = L.mlp_init(generator, d, cfg.d_ff, gated=cfg.gated_mlp,
+                              bias=cfg.mlp_bias, dtype=dt)
+        return p
+    m = cfg.moe
+    e, f = m.num_experts, m.d_ff_expert
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, dtype=dt,
+                           device=dev) * scale
+
+    p["router"] = {"w": normal((d, e), 1.0 / np.sqrt(d))}
+    p["experts"] = {"up": normal((e, d, f), 1.0 / np.sqrt(d)),
+                    "down": normal((e, f, d), 1.0 / np.sqrt(f))}
+    if cfg.gated_mlp:
+        p["experts"]["gate"] = normal((e, d, f), 1.0 / np.sqrt(d))
+    if m.num_shared:
+        p["shared"] = L.mlp_init(generator, d, m.num_shared * f,
+                                 gated=cfg.gated_mlp, bias=cfg.mlp_bias,
+                                 dtype=dt)
     return p
 
 
@@ -161,8 +187,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator) -> dict:
     """Random parameters drawn from ``generator``, on its device, with the
     reference's distributions (not its numbers).  The layers are drawn one
     at a time into tensors stacked on a leading L axis."""
-    if cfg.moe:
-        raise NotImplementedError(_MOE)
     dt = cfg.param_dtype
     embed = L.embedding_init(generator, cfg.vocab, cfg.d_model, dt)
     first = _layer_init(cfg, generator)
@@ -251,14 +275,131 @@ def _masked_attention(q, k, v, kv_valid_len):
 
 
 # ---------------------------------------------------------------------------
+# MoE layer (sort-based dispatch, static shapes)
+# ---------------------------------------------------------------------------
+
+def _moe_groups(m: MoEConfig, n_tokens: int) -> int:
+    """The reference's dispatch groups: ``dispatch_groups`` when it is
+    above 1 and divides the token count, else one group."""
+    G = m.dispatch_groups
+    return G if G > 1 and n_tokens % G == 0 else 1
+
+
+def moe_capacity(m: MoEConfig, n: int) -> int:
+    """Rows each expert keeps in a group of ``n`` tokens: the reference's
+    own expression, evaluated in its order."""
+    return int(np.ceil(n * m.top_k / m.num_experts * m.capacity_factor))
+
+
+def moe_route(cfg: TransformerConfig, p, x):
+    """x: (..., d) -> the router's float32 probabilities (..., E), the
+    top-k renormalised weights (..., k) and experts (..., k).  The logits
+    are computed in x's dtype, then cast to float32.  Ties go to the lower
+    expert, as ``jax.lax.top_k`` breaks them (``torch.topk`` does not
+    promise an order): a stable descending sort, its first k."""
+    k = cfg.moe.top_k
+    probs = torch.softmax((x @ p["router"]["w"]).float(), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_e
+
+
+def _moe_apply(cfg: TransformerConfig, p, x):
+    """x: (N, d) -> (N, d), plus the load-balancing aux loss (float32).
+    With G dispatch groups (``_moe_groups``) the tokens are routed within
+    G groups of N // G, each with its own capacity, and the aux is the
+    groups' mean.  The shared experts run on the whole x."""
+    m = cfg.moe
+    N, d = x.shape
+    G = _moe_groups(m, N)
+    out, aux = _moe_dispatch(cfg, p, x.reshape(G, N // G, d))
+    out = out.reshape(N, d)
+    if m.num_shared:
+        out = out + L.mlp(p["shared"], x, act=cfg.act)
+    return out, aux.mean()
+
+
+def _moe_dispatch(cfg: TransformerConfig, p, x):
+    """Sort-based dispatch of G token groups at once: x (G, n, d) -> (G, n,
+    d) and each group's aux loss (G,).
+
+    The (token, choice) pairs of a group are sorted stably by expert (one
+    sort on ``group * E + expert``), so ranks within an expert follow token
+    order; a pair of rank >= C is dropped.  The buffer holds E x (G, C)
+    rows, the rows of one expert contiguous for one batched product, and
+    is gathered from x expanded k-fold at each filled slot's pair: a
+    dropped pair is never written.  Each kept pair reads its expert's row
+    back through the same slot, a dropped pair's weight is 0, and each
+    token's k weighted contributions, in ascending expert order, are
+    added by one sum over k (in x's dtype; a bf16 sum accumulates in
+    float32 and rounds once)."""
+    m = cfg.moe
+    G, n, d = x.shape
+    E, k = m.num_experts, m.top_k
+    M = n * k                                           # pairs a group
+    dev = x.device
+    probs, top_p, top_e = moe_route(cfg, p, x)          # (G, n, E|k|k)
+
+    # ---- sort the pairs by (group, expert); rank within an expert ----
+    group = torch.arange(G, device=dev)
+    key = (top_e + E * group[:, None, None]).reshape(G * M)
+    order = torch.sort(key, stable=True).indices
+    key_s = key[order]
+    start = torch.searchsorted(key_s, torch.arange(G * E, device=dev))
+    count = torch.diff(start, append=start.new_full((1,), G * M))
+    rank_s = torch.arange(G * M, device=dev) - start[key_s]
+    rank = torch.empty_like(rank_s).scatter_(0, order, rank_s)
+
+    # Switch-style aux: fraction of pairs x router prob mass per expert
+    me = probs.mean(dim=1)                              # (G, E)
+    ce = count.view(G, E).float() * (1.0 / M)
+    aux = m.aux_loss_weight * E * (me * ce).sum(-1)
+
+    # ---- dispatch: slot (e, g, r) takes the r-th pair of (g, e) ----
+    C = moe_capacity(m, n)
+    r = torch.arange(C, device=dev)
+    first = start.view(G, E).t()[..., None]             # (E, G, 1)
+    filled = (r < count.view(G, E).t()[..., None]).reshape(-1, 1)
+    pair = order[(first + r).clamp(max=G * M - 1).reshape(-1)]
+    # x expanded k-fold (a view) read at each slot's (token, choice) pair:
+    # a permutation, so the backward adds no two rows into one
+    xk = x.reshape(G * n, 1, d).expand(G * n, k, d)
+    buf = xk[pair // k, pair % k].masked_fill_(~filled, 0).view(E, G * C, d)
+
+    up = torch.bmm(buf, p["experts"]["up"])
+    if cfg.gated_mlp:
+        h = L.activation(cfg.act, torch.bmm(buf, p["experts"]["gate"])) * up
+    else:
+        h = L.activation(cfg.act, up)
+    del buf, up
+    y = torch.bmm(h, p["experts"]["down"]).view(E * G * C, d)
+    del h
+
+    # ---- combine: each token's k choices in ascending expert order, a
+    # dropped pair weighted 0 ----
+    top_e, by_expert = torch.sort(top_e, dim=-1)
+    rank = rank.view(G, n, k).gather(-1, by_expert)
+    w = top_p.gather(-1, by_expert).masked_fill(rank >= C, 0).to(x.dtype)
+    slot = ((top_e * G + group[:, None, None]) * C + rank).clamp(
+        max=E * G * C - 1)
+    return (y[slot] * w[..., None]).sum(-2), aux
+
+
+# ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
 
 def _block(cfg: TransformerConfig, p, h, positions):
+    """One layer: (h, the MoE FFN's aux loss, or None for a dense FFN)."""
     a, _ = _attention(cfg, p, L.norm_apply(cfg.norm, p["ln1"], h), positions)
     h = h + a
     x = L.norm_apply(cfg.norm, p["ln2"], h)
-    return h + L.mlp(p["mlp"], x, act=cfg.act)
+    if cfg.moe is None:
+        return h + L.mlp(p["mlp"], x, act=cfg.act), None
+    B, S, d = x.shape
+    y, aux = _moe_apply(cfg, p, x.reshape(B * S, d))
+    return h + y.reshape(B, S, d), aux
 
 
 def _logits(cfg: TransformerConfig, params, h):
@@ -294,10 +435,9 @@ def _run_block(cfg: TransformerConfig, p, h, positions):
 
 
 def forward(cfg: TransformerConfig, params, tokens):
-    """tokens: (B, S) -> logits (B, S, vocab), aux loss (a float32 zero:
-    only the MoE FFN has one)."""
-    if cfg.moe:
-        raise NotImplementedError(_MOE)
+    """tokens: (B, S) -> logits (B, S, vocab), aux loss (float32: the MoE
+    layers' load-balancing losses summed in layer order, zero for a dense
+    FFN)."""
     B, S = tokens.shape
     h = params["embed"]["table"][tokens]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -305,9 +445,12 @@ def forward(cfg: TransformerConfig, params, tokens):
     # leaf's gradient is then one stack of the layers' (a slice per layer
     # would add a zero-filled leaf-sized gradient per layer)
     layers = _tree_map(lambda t: t.unbind(0), params["layers"])
-    for i in range(cfg.n_layers):
-        h = _run_block(cfg, _tree_map(lambda t: t[i], layers), h, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(cfg.n_layers):
+        h, a = _run_block(cfg, _tree_map(lambda t: t[i], layers), h,
+                          positions)
+        if a is not None:
+            aux = aux + a
     return _logits(cfg, params, h), aux
 
 
@@ -334,9 +477,9 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 def decode_step(cfg: TransformerConfig, params, cache, tokens, pos: int):
     """One decode step.  tokens: (B, 1); pos: the current length.  Writes
     this step's keys and values into ``cache`` at ``pos`` (in place) and
-    returns (logits (B, vocab), cache)."""
-    if cfg.moe:
-        raise NotImplementedError(_MOE)
+    returns (logits (B, vocab), cache).  An MoE FFN routes the step's
+    N = B tokens as the reference does (in groups when the dispatch groups
+    divide B; the aux loss is dropped)."""
     B = tokens.shape[0]
     h = params["embed"]["table"][tokens]            # (B, 1, d)
     positions = torch.full((B, 1), int(pos), device=tokens.device)
@@ -347,7 +490,11 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens, pos: int):
                                   cache["v"][i], int(pos))
         h = h + a
         x2 = L.norm_apply(cfg.norm, p["ln2"], h)
-        h = h + L.mlp(p["mlp"], x2, act=cfg.act)
+        if cfg.moe is None:
+            h = h + L.mlp(p["mlp"], x2, act=cfg.act)
+        else:
+            y, _ = _moe_apply(cfg, p, x2.reshape(B, -1))
+            h = h + y.reshape(B, 1, -1)
     return _logits(cfg, params, h[:, 0]), cache
 
 

@@ -219,10 +219,11 @@ def test_serve_main_full_width_on_cpu(monkeypatch):
                                   ["--arch", "egnn"],
                                   ["--gnn-artifact", "parts/"]])
 def test_unported_serving_raises(argv, tmp_path):
-    """The serving CLI beyond DIEN and the dense LMs: an MoE LM is not
-    ported and raises ``NotImplementedError``; a GNN ``--arch`` without an
-    artifact raises ``ValueError``; ``--gnn-artifact`` serves (here a small
-    artifact in place of ``parts/``) and prints the reference's report."""
+    """The serving CLI beyond DIEN and the dense LMs: an MoE LM serves
+    (it raised before its port) and prints the reference's report; a GNN
+    ``--arch`` without an artifact raises ``ValueError``;
+    ``--gnn-artifact`` serves (here a small artifact in place of
+    ``parts/``) and prints the reference's report."""
     if argv[0] == "--gnn-artifact":
         from repro_torch.core import (InMemoryEdgeStream, PartitionArtifact,
                                       run_spec, spec_for)
@@ -241,26 +242,31 @@ def test_unported_serving_raises(argv, tmp_path):
         assert report["mode"] == "gnn" and report["requests"] == 3
         assert report["fetch_failures"] == 0
         return
-    error, match = ((ValueError, "needs --gnn-artifact") if argv[1] == "egnn"
-                    else (NotImplementedError, "not ported"))
-    with pytest.raises(error, match=match):
+    if argv[1] == "qwen2-moe-a2.7b":
+        report = _report(serve.main, argv + ["--requests", "2", "--max-new",
+                                             "3", "--device", "cpu",
+                                             "--json"])
+        assert report["arch"] == argv[1] and report["mode"] == "lm"
+        assert report["generated_tokens"] == 6
+        return
+    with pytest.raises(ValueError, match="needs --gnn-artifact"):
         serve.main(argv + ["--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "olmoe-1b-7b", "egnn",
                                   "nequip", "gin-tu", "gatedgcn"])
 def test_unported_arch_raises(arch):
-    """The MoE LMs name their ROADMAP item; the GNNs resolve to the
-    reference's configs."""
-    if arch in ("qwen2-moe-a2.7b", "olmoe-1b-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_arch(arch)
-        return
+    """The MoE LMs (which raised before their port) and the GNNs resolve
+    to the reference's configs, dataclass for dataclass (the LM configs
+    but the reference's ``unroll_layers``)."""
     spec, ref = get_arch(arch), r_get_arch(arch)
-    assert spec.family == ref.family == "gnn"
+    family = "lm" if arch in ("qwen2-moe-a2.7b", "olmoe-1b-7b") else "gnn"
+    assert spec.family == ref.family == family
     for make in ("make_config", "make_smoke_config"):
-        assert (dataclasses.asdict(getattr(spec, make)())
-                == dataclasses.asdict(getattr(ref, make)()))
+        want = dataclasses.asdict(getattr(ref, make)())
+        if family == "lm":
+            del want["unroll_layers"]
+        assert dataclasses.asdict(getattr(spec, make)()) == want
 
 
 def test_serve_defaults_to_the_card():

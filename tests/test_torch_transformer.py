@@ -195,21 +195,36 @@ def test_starcoder2_3b_size():
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "olmoe-1b-7b"])
 def test_moe_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="MoE dispatch"):
-        get_arch(arch)
+    """The MoE architectures resolve (they raised before their port) to
+    the reference's configs, dataclass for dataclass, with its shapes
+    (train_4k in 8 microbatches)."""
+    spec, r_spec = get_arch(arch), r_get_arch(arch)
+    assert spec.family == r_spec.family == "lm"
+    assert spec.shapes == r_spec.shapes
+    assert spec.shapes["train_4k"]["microbatches"] == 8
+    for make in ("make_config", "make_smoke_config"):
+        cfg, r_cfg = getattr(spec, make)(), getattr(r_spec, make)()
+        assert isinstance(cfg.moe, T.MoEConfig)
+        assert dataclasses.asdict(cfg) == _ref_fields(r_cfg)
+        assert cfg.num_params() == r_cfg.num_params()
+        assert cfg.num_active_params() == r_cfg.num_active_params()
 
 
 def test_moe_config_raises_in_init_and_forward():
+    """An MoE config (olmoe's smoke one, rebuilt from the reference's
+    fields) initialises and runs forward (both raised before the MoE FFN
+    was ported): finite logits and a positive aux loss."""
     r_cfg = r_get_arch("olmoe-1b-7b").make_smoke_config()
     cfg = T.TransformerConfig(**{**_ref_fields(r_cfg),
                                  "moe": T.MoEConfig(**dataclasses.asdict(
                                      r_cfg.moe))})
     assert cfg.num_params() == r_cfg.num_params()
     assert cfg.num_active_params() == r_cfg.num_active_params()
-    with pytest.raises(NotImplementedError, match="MoE dispatch"):
-        T.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="MoE dispatch"):
-        T.forward(cfg, {}, torch.zeros((1, 2), dtype=torch.long))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    logits, aux = T.forward(cfg, params, torch.zeros((1, 2),
+                                                     dtype=torch.long))
+    assert logits.shape == (1, 2, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
 
 
 @pytest.mark.parametrize("name", VARIANTS)
