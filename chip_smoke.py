@@ -173,6 +173,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 9c. recsys_train  DIEN at full width on train_batch's 65,536 rows: a
               warm-up and 3 steps, each exactly 2 ``augru`` forwards and 2
               backwards; card against CPU at 512 rows within 1e-4.
+9d. sharded_train  the LM train step on a ``DeviceMesh``, in a process of
+              its own (``--sharded-train-worker``): a one-rank NCCL group
+              and a (1, 1) ``("data", "model")`` mesh (NCCL takes one rank
+              per GPU).  starcoder2-3b at full width, 4 layers (bf16,
+              ``remat="full"``), lm_train's (4, 4,096) tokens in 4
+              microbatches, from one CPU generator state: 2 AdamW steps
+              unsharded, then 2 with the state placed by
+              ``lm_param_specs``/``opt_state_specs`` through
+              ``reshard_tree`` (DTensors), losses and every parameter
+              after each step within 1e-5 of the leaf's largest magnitude
+              (bit-equality reported), each step exactly 32
+              ``flash_attention`` forwards and 16 backwards on both
+              routes, step ms by CUDA events and peak memory; the
+              unsharded state's checkpoint (``CheckpointManager``)
+              restored onto the mesh by ``elastic_restore``, the next
+              step's loss equal to the unsharded continuation's;
+              olmoe-1b-7b at full width, 2 layers, (1, 4,096) tokens:
+              loss, aux, gradients and one step's parameters within 1e-5
+              of each leaf's scale on both routes; ``compressed_psum``
+              over ``"data"`` on the card equal to the same call on the
+              CPU (a gloo group).
 10. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
               stream (the user's entry point, through
               ``MemmapEdgeStream``), k=32: one ``edge_score`` launch per
@@ -183,7 +204,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               ``hdrf_score`` launch per scoring chunk, all through
               ``hdrf_choose_bits``, no ``edge_score``.
 13. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
-              RMAT-15: one ``hdrf_score`` launch per non-empty 64-edge
+              RMAT-14: one ``hdrf_score`` launch per non-empty 64-edge
               micro-batch, all through ``hdrf_choose_bits``; with
               ``--previous-designs`` each run again with the previous
               composition of the choice, byte-equal, its wall beside; the
@@ -223,15 +244,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               validates, and the profiler's trace holds one
               ``edge_score_bits_kernel`` record per counted launch.
 20. shard     sharded 2PS-L (``repro_torch.shard``) in 16,384-edge chunks:
-              (1) at RMAT-15 through the distributed CLI's emulated backend
+              (1) at RMAT-14 through the distributed CLI's emulated backend
               (worker threads, one card) at W = 1 (byte-equal to the
               sequential partition CLI run), 4 and 2: one ``edge_score``
               launch per scoring chunk summed over the workers, all through
-              the bits entry; (2) ``run_spec_sharded`` at W = 3 at RMAT-14,
+              the bits entry; (2) ``run_spec_sharded`` at W = 3 at RMAT-13,
               card against CPU byte-equal (RF and every rank's slice
               sha256 too) for 2PS-L, hosted 2PS-L (4 hosts), HDRF with
               ``use_cap``, buffered and HEP at 131,072 bytes, the
-              launches those of the sequential geometry; (3-5) at RMAT-15,
+              launches those of the sequential geometry; (3-5) at RMAT-14,
               two ranks in processes of their own (``--dist-counted``),
               all at once: the fs backend, the torch backend (gloo on
               localhost), the fs parent mode (``python -m
@@ -377,6 +398,11 @@ does nothing else.
 
 builds ``edge_score`` and ``spmm``, makes the ``artifact`` phase's RMAT-18
 artifact and runs ``partitioned_train`` on it, and does nothing else.
+
+    python3 chip_smoke.py --sharded-only
+
+builds ``flash_attention`` and its backward and runs ``sharded_train``,
+and does nothing else.
 
     python3 chip_smoke.py --partition-counted ARGS...
     python3 chip_smoke.py --dist-counted ARGS...
@@ -3061,6 +3087,11 @@ def micro_batch_kernels(scale: int, k: int = 32, chunk: int = 4096) -> dict:
             "device_ops_per_micro_batch": out}
 
 
+#: the HDRF baselines' RMAT scale (16 until the partitioned training
+#: phase, then 15; 14 since the sharded train phase)
+HDRF_BASELINES_SCALE = 14
+
+
 def hdrf_baselines(scale: int, tmp: str, k: int = 32,
                    previous: bool = False) -> dict:
     """HDRF, Greedy and host-aware HDRF through the CLI, each (with
@@ -3070,7 +3101,7 @@ def hdrf_baselines(scale: int, tmp: str, k: int = 32,
     kernel), byte-equal.  Each 64-edge micro-batch is a few dozen
     eager launches; at RMAT-16 that is 14,927 micro-batches per run (12-15
     s each), which is why this phase runs below the 2PS-HDRF path's
-    scale, at RMAT-15 since the partitioned training phase."""
+    scale, at ``HDRF_BASELINES_SCALE``."""
     from repro_torch.kernels.hdrf_score import ops as hs_ops
     path, E = write_graph(scale, tmp)
     chunk = 1 << 16                     # the CLI's --chunk-size default
@@ -3668,8 +3699,12 @@ def profile_path(run: dict) -> dict:
 #: workers streams ~6% of the edges against its frozen base
 SHARD_CHUNK = 16_384
 #: the scale of the ``shard`` phase's parts 1 and 3-5 (16 until the MoE
-#: phase; cut to 15, 32 chunks, to keep the whole run inside its limit)
-SHARD_SCALE = 15
+#: phase, then 15; cut to 14, 16 chunks, since the sharded train phase,
+#: to keep the whole run inside its limit)
+SHARD_SCALE = 14
+#: the scale of its part 2, card against CPU (14 until the sharded train
+#: phase)
+SHARD_CARD_VS_CPU_SCALE = 13
 #: part 2's configurations, card against CPU at W = 3: (label, algorithm,
 #: spec overrides); buffered keeps its own 16,384-edge chunks and
 #: 65,536-edge windows
@@ -3962,12 +3997,13 @@ def finish_shard_processes(run: dict, emulated_sha: str) -> dict:
 def shard_path(tmp: str, k: int = 32, scale: int = SHARD_SCALE) -> dict:
     """The ``shard`` phase: ``shard_emulated`` at RMAT-``scale`` alone on
     the card (its walls), then the processes of parts 3-5 at the same
-    scale started, ``shard_card_vs_cpu`` at RMAT-14 beside them, and the
+    scale started, ``shard_card_vs_cpu`` at ``SHARD_CARD_VS_CPU_SCALE``
+    beside them, and the
     processes finished and checked."""
     emulated = shard_emulated(scale, tmp, k)
     run = start_shard_processes(scale, tmp, k)
     try:
-        card_vs_cpu = shard_card_vs_cpu(14, k)
+        card_vs_cpu = shard_card_vs_cpu(SHARD_CARD_VS_CPU_SCALE, k)
     except BaseException:
         stop_shard_processes(run)
         raise
@@ -6734,6 +6770,380 @@ def partitioned_train(tmp: str, scale: int = 18) -> dict:
                 r["launches"].get("spmm_backward", 0) for r in lines)}
 
 
+# ---------------------------------------------------------------------------
+# sharded_train: the LM train step on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+#: the sharded LM step's configurations: starcoder2-3b at full width cut
+#: from 30 to 4 layers on lm_train's (4, 4,096) tokens and 4 microbatches,
+#: 2 steps on each route; olmoe-1b-7b at full width cut from 16 to 2
+#: layers on (1, 4,096) tokens, one step on each route
+SHARDED_DENSE_LAYERS, SHARDED_DENSE_STEPS = 4, 2
+SHARDED_MOE_LAYERS, SHARDED_MOE_BATCH = 2, 1
+#: each parameter, loss and gradient of the mesh route within this share
+#: of its leaf's largest magnitude of the unsharded route's
+SHARDED_TOL = 1e-5
+#: the compressed all-reduce's gradient (elements)
+SHARDED_PSUM_N = 1 << 22
+
+
+def leaf_agree(got, want, what: str) -> dict:
+    """Each leaf of ``got`` (DTensors or tensors) within ``SHARDED_TOL`` of
+    the largest magnitude of its ``want`` leaf; the largest share and
+    whether every leaf is bit-equal."""
+    import torch
+    from repro_torch.dist import sharding as SH
+    worst, equal = 0.0, True
+    for g, w in zip(got, want):
+        g = SH.replicated_value(g)
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: a leaf {tuple(g.shape)} not "
+                                 f"finite or not of shape {tuple(w.shape)}")
+        err = float((g.double() - w.double()).abs().max()) if w.numel() \
+            else 0.0
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        worst = max(worst, err / max(scale, 1e-30) if err else 0.0)
+        equal = equal and bool(torch.equal(g, w))
+    if worst > SHARDED_TOL:
+        raise AssertionError(f"{what}: a leaf {worst} of its scale from "
+                             f"the unsharded route's (tolerance "
+                             f"{SHARDED_TOL})")
+    return {"max_err_share": worst, "bit_equal": equal}
+
+
+def event_step_ms(fn, device: str) -> tuple:
+    """``fn()`` between two CUDA events (the host clock off the card),
+    counted (every counter reset just before and read just after):
+    (result, ms, counts)."""
+    import torch
+    if device != "cuda":
+        out, counts, wall = counted(fn)
+        return out, wall * 1e3, counts
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def run():
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out
+    out, counts, _ = counted(run)
+    return out, start.elapsed_time(end), counts
+
+
+def tree_to_device(tree, device: str):
+    """A copy of a tree of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to_device(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def sharded_dense(mesh, device: str, make_config, batch: dict,
+                  microbatches: int, tmp: str) -> dict:
+    """starcoder2-3b's train step unsharded and on ``mesh`` from one CPU
+    generator state: ``SHARDED_DENSE_STEPS`` steps each, losses and every
+    parameter after each step compared, the launches of each step exactly
+    ``lm_train``'s per layer and microbatch; then the unsharded state's
+    checkpoint restored onto the mesh (``elastic_restore``) and one more
+    step on each route, their losses compared."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import elastic_restore, reshard_tree
+    cfg = make_config()
+    t0 = time.perf_counter()
+    state0 = S.init_state("lm", cfg, torch.Generator().manual_seed(0))
+    init_s = time.perf_counter() - t0
+    forwards = 1 if cfg.remat == "none" else 2
+    per_step = {"flash_attention": forwards * cfg.n_layers * microbatches,
+                "flash_attention_backward": cfg.n_layers * microbatches}
+    specs = {"params": SH.lm_param_specs(mesh, state0["params"])}
+    specs["opt"] = SH.opt_state_specs(specs["params"])
+    b_specs = SH.lm_batch_specs(mesh, batch)
+    step = S.make_lm_train_step(cfg, microbatches=microbatches)
+    routes = {}
+    for route in ("unsharded", "mesh"):
+        torch.cuda.empty_cache() if device == "cuda" else None
+        if route == "mesh":
+            state = reshard_tree(state0, mesh, specs)
+            b = reshard_tree(batch, mesh, b_specs)
+        else:
+            state = tree_to_device(state0, device)
+            b = {k: v.to(device) for k, v in batch.items()}
+        reset_peak(device)
+        losses, ms, after = [], [], []
+        for _ in range(SHARDED_DENSE_STEPS):
+            with mesh:
+                (_, m), step_ms, counts = event_step_ms(
+                    lambda: step(state, b), device)
+            expect_launches(counts, per_step,
+                            f"sharded_train starcoder2-3b step ({route})")
+            losses.append(float(m["loss"]))
+            ms.append(step_ms)
+            after.append([SH.replicated_value(p).clone()
+                          for p in tree_leaves(state["params"])])
+        routes[route] = {"losses": losses, "step_ms": ms,
+                         "peak_device_bytes": peak_bytes(device),
+                         "launches_per_step": per_step, "state": state,
+                         "batch": b, "after": after}
+    u, s = routes["unsharded"], routes["mesh"]
+    agree = []
+    for i in range(SHARDED_DENSE_STEPS):
+        loss_err = abs(s["losses"][i] - u["losses"][i]) / abs(u["losses"][i])
+        if loss_err > SHARDED_TOL:
+            raise AssertionError(f"sharded_train starcoder2-3b step {i}: "
+                                 f"loss {s['losses'][i]} against "
+                                 f"{u['losses'][i]}")
+        agree.append({"loss_rel_err": loss_err,
+                      "loss_bit_equal": s["losses"][i] == u["losses"][i],
+                      **leaf_agree(s["after"][i], u["after"][i],
+                                   f"starcoder2-3b parameters after step "
+                                   f"{i}")})
+    for r in routes.values():
+        del r["after"]
+    # elastic restore of the unsharded state onto the mesh
+    ckpt = os.path.join(tmp, "sharded_ckpt")
+    mgr = CheckpointManager(ckpt, interval=1, keep_n=1)
+    t0 = time.perf_counter()
+    mgr.maybe_save(SHARDED_DENSE_STEPS, u["state"])
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, at = elastic_restore(ckpt, u["state"], mesh, specs)
+    restore_s = time.perf_counter() - t0
+    if at != SHARDED_DENSE_STEPS:
+        raise AssertionError(f"elastic_restore: step {at}")
+    del s["state"]
+    reset_peak(device)
+    continued = {}
+    for route, st, b in (("unsharded", u["state"], u["batch"]),
+                         ("mesh", restored, s["batch"])):
+        with mesh:
+            (_, m), _, counts = event_step_ms(lambda: step(st, b), device)
+        expect_launches(counts, per_step,
+                        f"sharded_train restored step ({route})")
+        continued[route] = float(m["loss"])
+    err = abs(continued["mesh"] - continued["unsharded"]) \
+        / abs(continued["unsharded"])
+    if err > SHARDED_TOL:
+        raise AssertionError(f"elastic restore: loss {continued}")
+    for r in routes.values():
+        r.pop("state", None)
+        r.pop("batch", None)
+    return {"config": {"arch": cfg.name, "layers": cfg.n_layers,
+                       "dtype": cfg.dtype, "remat": cfg.remat},
+            "batch": list(batch["tokens"].shape),
+            "microbatches": microbatches, "init_s": init_s, **routes, "agree": agree,
+            "elastic": {"save_s": save_s, "restore_s": restore_s,
+                        "step": at, "next_loss": continued,
+                        "loss_rel_err": err,
+                        "loss_bit_equal": continued["mesh"]
+                        == continued["unsharded"]}}
+
+
+def sharded_moe(mesh, device: str, make_config, batch: dict) -> dict:
+    """olmoe-1b-7b's loss, aux and gradients unsharded and on ``mesh`` from
+    one state (drawn on ``device``: a CPU generator takes ~40 s for its
+    billion parameters), then one train step on each route: every
+    gradient leaf and parameter within ``SHARDED_TOL`` of its scale."""
+    import torch
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import reshard_tree
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = make_config()
+    state0 = S.init_state("lm", cfg,
+                          torch.Generator(device=device).manual_seed(1))
+    specs = {"params": SH.lm_param_specs(mesh, state0["params"])}
+    specs["opt"] = SH.opt_state_specs(specs["params"])
+    b_specs = SH.lm_batch_specs(mesh, batch)
+    step = S.make_lm_train_step(cfg)
+    forwards = 1 if cfg.remat == "none" else 2
+    per_step = {"flash_attention": forwards * cfg.n_layers,
+                "flash_attention_backward": cfg.n_layers}
+    out = {}
+    for route in ("unsharded", "mesh"):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if route == "mesh":
+            state = reshard_tree(state0, mesh, specs)
+            b = reshard_tree(batch, mesh, b_specs)
+        else:
+            state = tree_to_device(state0, device)
+            b = {k: v.to(device) for k, v in batch.items()}
+        reset_peak(device)
+        with mesh:
+            with torch.no_grad():
+                _, aux = T.forward(cfg, state["params"], b["tokens"])
+            loss, grads = loss_and_grads(S.lm_loss_fn(cfg), state["params"],
+                                         b)
+            (_, m), step_ms, counts = event_step_ms(
+                lambda: step(state, b), device)
+        expect_launches(counts, per_step,
+                        f"sharded_train olmoe-1b-7b step ({route})")
+        out[route] = {"loss": float(loss), "aux": float(aux),
+                      "grads": [SH.replicated_value(g) for g in grads],
+                      "step_loss": float(m["loss"]), "step_ms": step_ms,
+                      "peak_device_bytes": peak_bytes(device),
+                      "params": [SH.replicated_value(p).clone()
+                                 for p in tree_leaves(state["params"])]}
+        del state, grads
+    u, s = out["unsharded"], out["mesh"]
+    loss_err = abs(s["loss"] - u["loss"]) / abs(u["loss"])
+    aux_err = abs(s["aux"] - u["aux"]) / max(abs(u["aux"]), 1e-30)
+    if loss_err > SHARDED_TOL or aux_err > SHARDED_TOL:
+        raise AssertionError(f"sharded_train olmoe-1b-7b: loss {s['loss']} "
+                             f"/ {u['loss']}, aux {s['aux']} / {u['aux']}")
+    grads = leaf_agree(s.pop("grads"), u.pop("grads"),
+                       "olmoe-1b-7b gradients")
+    params = leaf_agree(s.pop("params"), u.pop("params"),
+                        "olmoe-1b-7b parameters after the step")
+    return {"config": {"arch": cfg.name, "layers": cfg.n_layers,
+                       "dtype": cfg.dtype, "remat": cfg.remat,
+                       "experts": cfg.moe.num_experts,
+                       "expert_spec": list(map(str, specs["params"]["layers"][
+                           "experts"]["up"]))},
+            "batch": list(batch["tokens"].shape), **out,
+            "loss_rel_err": loss_err, "aux_rel_err": aux_err,
+            "grads": grads, "params_after_step": params}
+
+
+def sharded_psum(mesh, device: str) -> dict:
+    """``compressed_psum`` over ``"data"`` on ``device`` against the same
+    call on the CPU (a gloo group of the same ranks): mean and residual
+    within 1e-6 of their largest magnitude (bit-equal expected)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.optim import compressed_psum
+    gen = torch.Generator().manual_seed(3)
+    g = torch.randn(SHARDED_PSUM_N, generator=gen)
+    r = torch.randn(SHARDED_PSUM_N, generator=gen) * 1e-3
+    cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu",
+                                     mesh_dim_names=("data",))
+    with cpu_mesh:
+        want = compressed_psum(g, "data", r)
+    t0 = time.perf_counter()
+    with mesh:
+        got = compressed_psum(g.to(device), "data", r.to(device))
+    secs = time.perf_counter() - t0
+    line = {"elements": SHARDED_PSUM_N, "seconds": secs}
+    for name, a, b in zip(("mean", "residual"), got, want):
+        err = float((a.cpu().double() - b.double()).abs().max())
+        share = err / float(b.abs().max())
+        if share > 1e-6:
+            raise AssertionError(f"compressed_psum {name}: {share} of its "
+                                 f"largest from the CPU's")
+        line[name] = {"max_abs_err": err, "err_share": share,
+                      "bit_equal": bool(torch.equal(a.cpu(), b))}
+    return line
+
+
+def reset_peak(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(device: str):
+    import torch
+    return torch.cuda.max_memory_allocated() if device == "cuda" \
+        else "not measured"
+
+
+def sharded_configs() -> tuple:
+    """(starcoder2-3b at ``SHARDED_DENSE_LAYERS`` layers, olmoe-1b-7b at
+    ``SHARDED_MOE_LAYERS``), full width, as zero-argument makers."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return (lambda: dataclasses.replace(get_arch(LM_ARCH).make_config(),
+                                        n_layers=SHARDED_DENSE_LAYERS),
+            lambda: dataclasses.replace(
+                get_arch("olmoe-1b-7b").make_config(),
+                n_layers=SHARDED_MOE_LAYERS))
+
+
+def sharded_batches(dense_cfg, moe_cfg) -> tuple:
+    """lm_train's (4, 4,096) token batch and olmoe's (1, 4,096), from the
+    reference's token stream."""
+    import torch
+    from repro_torch.data.lm_data import TokenStream
+    dense = TokenStream(dense_cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                        seed=0).next_batch()
+    moe = TokenStream(moe_cfg.vocab, SHARDED_MOE_BATCH, LM_TRAIN_SEQ,
+                      seed=1).next_batch()
+    return ({k: torch.from_numpy(v) for k, v in dense.items()},
+            {k: torch.from_numpy(v) for k, v in moe.items()})
+
+
+def sharded_train_worker(out: str, port: int, device: str = "cuda",
+                         configs=None, microbatches: int | None = None) -> None:
+    """The ``sharded_train`` phase in a process of its own: one rank of a
+    one-rank process group (NCCL on the card) and a (1, 1) ``("data",
+    "model")`` ``DeviceMesh``; writes the phase's JSON to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_device_mesh
+    t_phase = time.perf_counter()
+    backend = "nccl" if device == "cuda" else "gloo"
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh((1, 1), ("data", "model"), device=device)
+        init_s = time.perf_counter() - t0
+        dense_cfg, moe_cfg = configs or sharded_configs()
+        dense_b, moe_b = sharded_batches(dense_cfg(), moe_cfg())
+        mb = microbatches or get_arch(LM_ARCH).shapes["train_4k"][
+            "microbatches"]
+        with tempfile.TemporaryDirectory() as tmp:
+            dense = sharded_dense(mesh, device, dense_cfg, dense_b, mb, tmp)
+        torch.cuda.empty_cache() if device == "cuda" else None
+        moe = sharded_moe(mesh, device, moe_cfg, moe_b)
+        psum = sharded_psum(mesh, device)
+        line = {"backend": backend, "mesh": {"data": 1, "model": 1},
+                "process_group_s": init_s, "dense": dense, "moe": moe,
+                "compressed_psum": psum,
+                "worker_s": time.perf_counter() - t_phase}
+        with open(out, "w") as f:
+            json.dump(line, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_train(tmp: str) -> dict:
+    """The ``sharded_train`` phase: ``sharded_train_worker`` in a process of
+    its own (``python3 chip_smoke.py --sharded-train-worker OUT PORT``),
+    so that this process never joins a process group; its line, with the
+    process's wall seconds and the launches summed."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "sharded_train.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--sharded-train-worker", out,
+                           str(_free_port())], timeout=900)
+    if proc.returncode:
+        raise AssertionError(f"sharded_train: the worker exited "
+                             f"{proc.returncode}")
+    with open(out) as f:
+        line = json.load(f)
+    d, m = line["dense"], line["moe"]
+    steps = SHARDED_DENSE_STEPS + 1
+    line["launches"] = {
+        "flash_attention": sum(d[r]["launches_per_step"]["flash_attention"]
+                               * steps for r in ("unsharded", "mesh")),
+        "flash_attention_backward": sum(
+            d[r]["launches_per_step"]["flash_attention_backward"] * steps
+            for r in ("unsharded", "mesh"))}
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
 #: the ``artifact`` phase's RMAT scale (at most), which
 #: ``partitioned_train`` trains on
 ARTIFACT_SCALE = 18
@@ -6763,7 +7173,7 @@ def main(argv=None) -> int:
                          "the hosted 2PS-L, buffered and the artifact at "
                          "min(scale, 18), the overflow-tail comparison at "
                          "min(scale, 16) and the HDRF baselines at "
-                         "min(scale, 15)")
+                         "min(scale, 14)")
     ap.add_argument("--spmm-tune", action="store_true",
                     help="only time the spmm bound route's launch shapes "
                          "(SPMM_TUNE) on gnn_aggregate's graph and print "
@@ -6793,13 +7203,17 @@ def main(argv=None) -> int:
                          "phase's RMAT-18 artifact and run the "
                          "partitioned_train phase on it, and print its "
                          "line")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="only build flash_attention and its backward and "
+                         "run the sharded_train phase, and print its line")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
                          "equal calls and print {\"ms\": ...} (the "
                          "process gru_split_library starts)")
     argv = sys.argv[1:] if argv is None else argv
-    counted_cli = argv[:1] in (["--partition-counted"], ["--dist-counted"])
+    counted_cli = argv[:1] in (["--partition-counted"], ["--dist-counted"],
+                               ["--sharded-train-worker"])
     args = ap.parse_args([] if counted_cli else argv)
 
     import torch
@@ -6810,6 +7224,9 @@ def main(argv=None) -> int:
         sys.path.insert(0, os.path.join(REPO, "src"))
         if argv[0] == "--dist-counted":
             return dist_counted(argv[1:])
+        if argv[0] == "--sharded-train-worker":
+            sharded_train_worker(argv[1], int(argv[2]))
+            return 0
         return partition_counted(argv[1:])
     if args.gru_library:
         batch, split, reps = args.gru_library
@@ -6847,6 +7264,15 @@ def main(argv=None) -> int:
         cuda_build.build({fa_kernel.NAME: fa_kernel.SOURCE,
                           fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE})
         emit({"phase": "moe_serve", **moe_serve()})
+        return 0
+    if args.sharded_only:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        print(nvidia_smi(), flush=True)
+        cuda_build.build({fa_kernel.NAME: fa_kernel.SOURCE,
+                          fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE})
+        with tempfile.TemporaryDirectory() as tmp:
+            emit({"phase": "sharded_train", **sharded_train(tmp)})
         return 0
     if args.spmm_tune:
         print(nvidia_smi(), flush=True)
@@ -6948,20 +7374,24 @@ def main(argv=None) -> int:
     emit({"phase": "lm_train", **lt})
     rt = recsys_train()
     emit({"phase": "recsys_train", **rt})
+    with tempfile.TemporaryDirectory() as tmp:
+        st = sharded_train(tmp)
+    emit({"phase": "sharded_train", **st})
 
     with tempfile.TemporaryDirectory() as tmp:
         # the partitioning paths run below their earlier slices' scales
         # (2PS-HDRF and the hashes at RMAT-20, 2PS-L at 19, the HDRF
         # baselines at 16; since the partitioned training phase 2PS-HDRF
-        # at 18 and the HDRF baselines at 15) so that the whole run keeps
-        # inside its time limit
+        # at 18 and the HDRF baselines at 15; since the sharded train phase
+        # the HDRF baselines at 14) so that the whole run keeps inside its
+        # time limit
         mp = main_path(min(args.scale, 19), tmp)
         emit({"phase": "main_path", **mp})
         emit({"phase": "hosted", **hosted_path(min(args.scale, 18), tmp)})
         hp = two_ps_hdrf_path(min(args.scale, 18), tmp)
         emit({"phase": "two_ps_hdrf", **hp})
         emit({"phase": "hdrf_baselines",
-              **hdrf_baselines(min(args.scale, 15), tmp,
+              **hdrf_baselines(min(args.scale, HDRF_BASELINES_SCALE), tmp,
                                previous=args.previous_designs)})
         emit({"phase": "hash", **hash_paths(args.scale, tmp)})
         emit({"phase": "hep", **hep_path(min(args.scale, 19), tmp)})
@@ -7026,6 +7456,9 @@ def main(argv=None) -> int:
     if (gs["spmm_launches"] == 0 or gm["spmm_launches"] == 0
             or pt["spmm_launches"] == 0):
         raise AssertionError("the GNN paths launched no spmm")
+    if min(st["launches"].values()) == 0:
+        raise AssertionError("the sharded train path launched no "
+                             "flash_attention")
     train_paths = {"flash_attention_backward":
                    lt["launches"]["flash_attention_backward"],
                    "augru_backward": rt["launches"]["augru_backward"],
@@ -7123,6 +7556,7 @@ def main(argv=None) -> int:
         "bound_ms": f_timing["bound_ms"], "bound_by": f_timing["bound_by"],
         "library_ms": f_timing["library_ms"],
         "launches_train": lt["launches"]["flash_attention"],
+        "launches_sharded_train": st["launches"]["flash_attention"],
         "backward_source": "src/repro_torch/kernels/flash_attention/csrc/"
                            "flash_attention_backward.cu",
         "backward_kernels": {
@@ -7132,6 +7566,8 @@ def main(argv=None) -> int:
         "backward_route": fb_timing["route"],
         "backward_routes_checked": fb_check["routes"],
         "backward_launches": train_paths["flash_attention_backward"],
+        "backward_launches_sharded_train":
+            st["launches"]["flash_attention_backward"],
         "backward_max_abs_err": fb_check["max_abs_err"],
         "backward_max_err_over_bf16_bound":
             fb_check["max_err_over_bf16_bound"],

@@ -11,9 +11,13 @@ then the card's name and power limit.  The phases:
 
 - ``shard``: ``shard_path`` (it makes its own RMAT graph, which the full
   run's earlier phases have made by then);
+- ``hdrf_baselines``: ``hdrf_baselines`` at the tree's scale
+  (``HDRF_BASELINES_SCALE``; a tree without it runs them at RMAT-15,
+  their scale before the constant), its graph made first;
 - ``card_vs_cpu``: the full run's last phase, with its HDRF family, HEP,
   buffered and artifact runs, at the full run's scales;
-- ``moe_serve``: ``moe_serve``.
+- ``moe_serve``: ``moe_serve``;
+- ``sharded_train``: ``sharded_train`` (its worker process).
 
 The same phases of two trees timed in one card call (a commit and its
 parent unpacked with ``git archive``, in the order parent, change, change,
@@ -29,12 +33,14 @@ import sys
 import tempfile
 import time
 
-PHASES = ("shard", "card_vs_cpu", "moe_serve")
+PHASES = ("shard", "hdrf_baselines", "card_vs_cpu", "moe_serve",
+          "sharded_train")
 
 
-def run_phase(C, name: str) -> None:
+def run_phase(C, name: str):
     """One phase of ``chip_smoke`` module ``C``, as its ``main`` calls it
-    at the default ``--scale`` of 20."""
+    at the default ``--scale`` of 20; the phase's seconds where they leave
+    out its set-up (None: time the call)."""
     if name == "shard":
         with tempfile.TemporaryDirectory() as tmp:
             C.shard_path(tmp)
@@ -48,6 +54,16 @@ def run_phase(C, name: str) -> None:
                          ("buffered", {})):
             C.card_vs_cpu(14, algo, busy_edges=1 << 15, **kw)
         C.artifact_card_vs_cpu(14)
+    elif name == "hdrf_baselines":
+        scale = getattr(C, "HDRF_BASELINES_SCALE", 15)
+        with tempfile.TemporaryDirectory() as tmp:
+            C.write_graph(scale, tmp)
+            t0 = time.perf_counter()
+            C.hdrf_baselines(scale, tmp)
+            return time.perf_counter() - t0
+    elif name == "sharded_train":
+        with tempfile.TemporaryDirectory() as tmp:
+            C.sharded_train(tmp)
     else:
         C.moe_serve()
 
@@ -79,9 +95,10 @@ def main(argv=None) -> int:
                       sp.NAME: sp.SOURCE, eb.NAME: eb.SOURCE})
     for name in args.phases:
         t0 = time.perf_counter()
-        run_phase(C, name)
+        seconds = run_phase(C, name)
         print(json.dumps({"root": root, "phase": name,
-                          "seconds": time.perf_counter() - t0}), flush=True)
+                          "seconds": seconds or time.perf_counter() - t0}),
+              flush=True)
     print(C.nvidia_smi(), flush=True)
     return 0
 

@@ -24,6 +24,14 @@ reference's, as a CPU ``torch.bfloat16`` tensor of the same bits (the
 manifest names the dtype; numpy alone would give raw ``V2`` words, as the
 reference's own restore does).  Every other leaf restores as a numpy
 array; the caller moves them to its state's devices and dtypes.
+
+A tree of DTensors (a state sharded on a ``DeviceMesh``) is saved whole:
+every rank gathers each leaf (``full_tensor``, a collective, so ``save``
+is called on every rank, and the snapshot is taken before the writer
+starts), and rank 0 alone writes, the same files an unsharded save of the
+same values writes.  A blocking save returns on every rank once the files
+are in place; after an async one, ``CheckpointManager.wait`` on every rank
+does.  ``runtime.elastic_restore`` places a restored tree on any mesh.
 """
 from __future__ import annotations
 
@@ -65,8 +73,16 @@ def _unflatten_like(tree, values: dict, prefix=()):
     return values[_SEP.join(prefix)]
 
 
+def _is_dtensor(x) -> bool:
+    from ..dist.sharding import is_dtensor
+    return is_dtensor(x)
+
+
 def _snapshot(leaf):
-    """A host copy of one leaf: (array to write, manifest dtype)."""
+    """A host copy of one leaf: (array to write, manifest dtype); a
+    DTensor's whole value."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -94,8 +110,16 @@ def _save_npy(path: str, arr) -> None:
 def save_checkpoint(directory: str, step: int, tree, *, keep_n: int = 3,
                     blocking: bool = True):
     """Snapshot (copied to the host now) + write.  Returns the writer
-    thread if blocking=False."""
-    host = {k: _snapshot(v) for k, v in _flatten_with_paths(tree).items()}
+    thread if blocking=False (None on a rank that does not write).  A tree
+    with DTensor leaves is saved on every rank, written by rank 0 (a
+    blocking save waits for the files on every rank)."""
+    leaves = _flatten_with_paths(tree)
+    distributed = any(_is_dtensor(v) for v in leaves.values())
+    host = {k: _snapshot(v) for k, v in leaves.items()}
+    if distributed:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            host = None
 
     def _write():
         os.makedirs(directory, exist_ok=True)
@@ -117,12 +141,23 @@ def save_checkpoint(directory: str, step: int, tree, *, keep_n: int = 3,
         os.rename(tmp, final)
         _cleanup(directory, keep_n)
 
+    if host is None:
+        if blocking:
+            _barrier()
+        return None
     if blocking:
         _write()
+        if distributed:
+            _barrier()
         return None
     t = threading.Thread(target=_write, daemon=True)
     t.start()
     return t
+
+
+def _barrier():
+    import torch.distributed as dist
+    dist.barrier()
 
 
 def _cleanup(directory: str, keep_n: int):
@@ -146,7 +181,9 @@ def _load_leaf(path: str, dtype: str):
         return np.load(path)
     with open(path, "rb") as f:
         version = np.lib.format.read_magic(f)
-        shape, _, _ = np.lib.format._read_array_header(f, version)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, _, _ = read(f)
         words = np.frombuffer(f.read(), dtype=np.int16).reshape(shape)
     return torch.from_numpy(words.copy()).view(torch.bfloat16)
 
@@ -187,20 +224,28 @@ class CheckpointManager:
         self.keep_n = keep_n
         self.async_save = async_save
         self._pending: threading.Thread | None = None
+        self._distributed = False
 
     def maybe_save(self, step: int, tree) -> bool:
         if step % self.interval:
             return False
         self.wait()
+        self._distributed = any(_is_dtensor(v) for v in
+                                _flatten_with_paths(tree).values())
         self._pending = save_checkpoint(
             self.directory, step, tree, keep_n=self.keep_n,
             blocking=not self.async_save)
         return True
 
     def wait(self):
+        """The last save's files in place (on every rank, after a
+        distributed async save: call it on every rank)."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._distributed and self.async_save:
+            _barrier()
+        self._distributed = False
 
     def restore_latest(self, target_tree):
         self.wait()

@@ -1,5 +1,8 @@
-"""``repro_torch.dist`` — the bridge from a partition to distributed
-execution: the halo-exchange planner (``partitioned_gnn``: ``HaloPlan``,
+"""``repro_torch.dist`` — distributed execution: the sharding rules
+(``sharding``: the reference's spec rules, ``constrain``, and the specs as
+DTensor ``placements`` on a ``torch.distributed`` ``DeviceMesh``, under
+which the LM train step runs sharded) and the bridge from a partition to
+distributed execution: the halo-exchange planner (``partitioned_gnn``: ``HaloPlan``,
 ``plan_halo_exchange{,_stream}``, ``plan_capacities{,_stream}``) and its
 host-grouped, DCN-aware re-slicing (``multihost``: ``HostHaloPlan``),
 numpy copies of the reference package's planners; plans persist inside a
@@ -15,6 +18,10 @@ two routes: all k partitions in one process on one device
 or one partition a ``torch.distributed`` rank (a ``DeviceMesh``; the
 exchange ``all_to_all_single`` and ``all_reduce``).
 """
+from .sharding import (P, PartitionSpec, best_spec, constrain, fsdp_axes,
+                       gnn_batch_specs, lm_batch_specs, lm_cache_specs,
+                       lm_param_specs, opt_state_specs, placements,
+                       recsys_batch_specs, recsys_param_specs)
 from .multihost import (HostHaloPlan, host_plan_from_halo,
                         normalize_host_groups, split_mesh_axes)
 from .partitioned_gnn import (HaloPlan, capacities_from_plan,
@@ -31,6 +38,10 @@ from .partitioned_gnn import (HaloPlan, capacities_from_plan,
                               plan_halo_exchange_stream)
 
 __all__ = [
+    "P", "PartitionSpec", "best_spec", "constrain", "fsdp_axes",
+    "gnn_batch_specs", "lm_batch_specs", "lm_cache_specs", "lm_param_specs",
+    "opt_state_specs", "placements", "recsys_batch_specs",
+    "recsys_param_specs",
     "HaloPlan", "HostHaloPlan", "capacities_from_plan",
     "host_plan_from_halo", "load_halo_plan",
     "make_partitioned_egnn_step", "make_partitioned_gatedgcn_step",

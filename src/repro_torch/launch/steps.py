@@ -196,6 +196,25 @@ def init_state(family: str, cfg, generator: torch.Generator) -> dict:
     return {"params": params, "opt": adamw_init(params)}
 
 
+#: the shape kinds whose abstract state carries the optimizer's (the
+#: reference's ``init_state_abstract``)
+TRAIN_KINDS = ("train", "full", "sampled", "molecule", "train_batch")
+
+
+def init_state_abstract(family: str, cfg, kind: str):
+    """Shape-only train or serve state (meta tensors, nothing allocated),
+    the counterpart of the reference's ``init_state_abstract``: ``{"params",
+    "opt"}`` for a train kind, the parameters alone otherwise."""
+    from ..models.layers import abstract_tree
+    if family == "lm":
+        params = T.init_params_abstract(cfg)
+    else:
+        params = abstract_tree(init_params, family, cfg, torch.Generator())
+    if kind in TRAIN_KINDS:
+        return {"params": params, "opt": adamw_init(params)}
+    return params
+
+
 def state_from_reference(family: str, tree, device="cpu") -> dict:
     """The reference's train state as a tree of numpy arrays
     (``jax.tree.map(np.asarray, state)``) as the port's tensors on

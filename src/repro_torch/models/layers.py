@@ -159,3 +159,23 @@ def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0):
     if z_loss:
         loss = loss + z_loss * torch.square(lse).mean()
     return loss
+
+
+def abstract_tree(fn, *args):
+    """The tree ``fn(*args)`` returns, built without allocating: run under
+    ``FakeTensorMode``, each tensor leaf returned as a meta tensor of its
+    shape and dtype (the counterpart of ``jax.eval_shape``).  ``fn`` draws
+    from a CPU ``torch.Generator`` as the real init does."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def meta(t):
+        if isinstance(t, dict):
+            return {k: meta(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(meta(v) for v in t)
+        if isinstance(t, torch.Tensor):
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+        return t
+
+    with FakeTensorMode():
+        return meta(fn(*args))

@@ -40,6 +40,19 @@ experts) and olmoe-1b-7b (64 routed top-8, QK-norm).
   and the backward repeat bit for bit on the card.  ``dispatch_groups``
   G > 1 routes within G token groups (when G divides the token count) in
   one batched dispatch.
+- Under a mesh (``dist.sharding``) the forward, ``lm_loss`` and the MoE
+  layer run on DTensor parameters (placed by ``lm_param_specs``) and
+  batches (``lm_batch_specs``), with ``constrain`` where the reference
+  puts it: after the embedding, on each layer's residual, on the logits
+  and around the MoE dispatch.  Dense layers are DTensor products; the
+  attention runs ``flash_attention`` on each rank's local heads
+  (``_attention_sharded``: q's heads over ``"model"``, k and v replicated
+  over it, since ``wk``'s shard may end mid-head); the MoE routing, sort
+  and gathers run on each rank's token groups with the experts' products
+  DTensor ``bmm``s (expert parallel or the ff dim's tensor parallelism,
+  as the rules place the experts); the cross entropy reduces over vocab
+  shards (``_cross_entropy_sharded``).  ``init_params_abstract`` and
+  ``cache_abstract`` give the trees as meta tensors.
 """
 from __future__ import annotations
 
@@ -51,6 +64,8 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from ..dist import sharding as SH
+from ..dist.sharding import constrain
 from ..kernels.flash_attention import (BLOCKWISE_KV_THRESHOLD,
                                        flash_attention, gqa_attention)
 from . import layers as L
@@ -204,6 +219,20 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator) -> dict:
     return params
 
 
+def init_params_abstract(cfg: TransformerConfig) -> dict:
+    """``init_params``' tree as meta tensors of its shapes and dtypes,
+    nothing allocated (the counterpart of the reference's
+    ``jax.eval_shape`` of ``init_params``): one layer is built under
+    ``FakeTensorMode`` and its leaves stacked to ``n_layers``."""
+    import dataclasses
+    one = L.abstract_tree(init_params, dataclasses.replace(cfg, n_layers=1),
+                          torch.Generator())
+    one["layers"] = _tree_map(
+        lambda t: torch.empty((cfg.n_layers, *t.shape[1:]), dtype=t.dtype,
+                              device="meta"), one["layers"])
+    return one
+
+
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes.bfloat16: carry the bits
@@ -257,12 +286,75 @@ def _project_qkv(cfg: TransformerConfig, p, x, positions):
 
 def _attention(cfg: TransformerConfig, p, x, positions):
     """x: (B, S, d) -> causal self-attention output (B, S, d) and this
-    step's (k, v)."""
+    step's (k, v) (None for a DTensor ``x``: ``_attention_sharded``)."""
+    if SH.is_dtensor(x):
+        return _attention_sharded(cfg, p, x), None
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions)
     o = flash_attention(q, k, v, causal=True)
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     return L.dense(p["wo"], o), (k, v)
+
+
+def _local_kv_heads(k, h0: int, n_q: int, group: int):
+    """The kv heads (axis 1 of ``k``, all Hkv of them) that query heads
+    [h0, h0 + n_q) read, laid out for a GQA call of ``n_q`` query heads:
+    a contiguous run when the local query heads are whole groups or lie in
+    one group, else one kv head per query head."""
+    if n_q % group == 0:
+        return k[:, h0 // group:(h0 + n_q) // group]
+    if group % n_q == 0:
+        return k[:, h0 // group:h0 // group + 1]
+    idx = torch.arange(h0, h0 + n_q, device=k.device) // group
+    return k.index_select(1, idx)
+
+
+def _attention_sharded(cfg: TransformerConfig, p, x):
+    """The attention of a DTensor x (B, S, d) on its mesh: the projections
+    are DTensor products; q is laid out batch over the data axes and heads
+    over ``"model"`` (where the heads divide it), k and v replicated over
+    ``"model"`` (a kv shard of ``wk``'s flat ``Hkv * Dh`` columns may end
+    mid-head), and each rank runs ``flash_attention`` on its local heads
+    (the kernel on the card) with the kv heads they read.  A weight or
+    activation used whole by a rank that computes only its own heads gets
+    a partial-sum gradient over ``"model"``."""
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    batch = SH.fsdp_entry(mesh, B)
+    split = SH.axis_size(mesh, "model") > 1 \
+        and H % SH.axis_size(mesh, "model") == 0
+    q_pl = SH.placements(mesh, SH.P(batch, None, "model" if split else None))
+    kv_pl = SH.placements(mesh, SH.P(batch, None, None))
+    grad_pl = SH.partial_where_sharded(q_pl)
+    kv_grad_pl = SH.partial_where_sharded(q_pl, kv_pl)
+    q = L.dense(p["wq"], x).redistribute(mesh, q_pl).to_local()
+    k = L.dense(p["wk"], x).redistribute(mesh, kv_pl).to_local(
+        grad_placements=kv_grad_pl)
+    v = L.dense(p["wv"], x).redistribute(mesh, kv_pl).to_local(
+        grad_placements=kv_grad_pl)
+    Bl, Hl = q.shape[0], q.shape[2] // Dh
+    q = q.reshape(Bl, S, Hl, Dh)
+    k = k.reshape(Bl, S, Hkv, Dh)
+    v = v.reshape(Bl, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = L.rmsnorm({"scale": SH.local_replica(p["q_norm"]["scale"],
+                                                  grad_pl)}, q)
+        k = L.rmsnorm({"scale": SH.local_replica(p["k_norm"]["scale"],
+                                                  grad_pl)}, k)
+    positions = torch.arange(S, device=q.device).expand(Bl, S)
+    q = L.apply_rope(q.transpose(1, 2), positions[:, None, :],
+                     cfg.rope_theta)                    # (Bl, Hl, S, Dh)
+    k = L.apply_rope(k.transpose(1, 2), positions[:, None, :],
+                     cfg.rope_theta)
+    v = v.transpose(1, 2)
+    if split:
+        h0 = SH.coordinate(mesh, "model") * Hl
+        k = _local_kv_heads(k, h0, Hl, H // Hkv)
+        v = _local_kv_heads(v, h0, Hl, H // Hkv)
+    o = flash_attention(q, k, v, causal=True)
+    o = o.transpose(1, 2).reshape(Bl, S, Hl * Dh)
+    return L.dense(p["wo"], SH.from_local(o, mesh, q_pl))
 
 
 def _masked_attention(q, k, v, kv_valid_len):
@@ -313,7 +405,10 @@ def _moe_apply(cfg: TransformerConfig, p, x):
     m = cfg.moe
     N, d = x.shape
     G = _moe_groups(m, N)
-    out, aux = _moe_dispatch(cfg, p, x.reshape(G, N // G, d))
+    if SH.is_dtensor(x):
+        out, aux = _moe_dispatch_sharded(cfg, p, x.reshape(G, N // G, d))
+    else:
+        out, aux = _moe_dispatch(cfg, p, x.reshape(G, N // G, d))
     out = out.reshape(N, d)
     if m.num_shared:
         out = out + L.mlp(p["shared"], x, act=cfg.act)
@@ -334,6 +429,22 @@ def _moe_dispatch(cfg: TransformerConfig, p, x):
     token's k weighted contributions, in ascending expert order, are
     added by one sum over k (in x's dtype; a bf16 sum accumulates in
     float32 and rounds once)."""
+    buf, combine, aux = _moe_buffer(cfg, p, x)
+    up = torch.bmm(buf, p["experts"]["up"])
+    if cfg.gated_mlp:
+        h = L.activation(cfg.act, torch.bmm(buf, p["experts"]["gate"])) * up
+    else:
+        h = L.activation(cfg.act, up)
+    del buf, up
+    y = torch.bmm(h, p["experts"]["down"])
+    del h
+    return combine(y), aux
+
+
+def _moe_buffer(cfg: TransformerConfig, p, x):
+    """The dispatch of ``_moe_dispatch`` up to the experts: x (G, n, d) ->
+    the (E, G * C, d) buffer, ``combine`` (the experts' (E, G * C, d)
+    output -> (G, n, d)) and each group's aux loss (G,)."""
     m = cfg.moe
     G, n, d = x.shape
     E, k = m.num_experts, m.top_k
@@ -367,15 +478,6 @@ def _moe_dispatch(cfg: TransformerConfig, p, x):
     xk = x.reshape(G * n, 1, d).expand(G * n, k, d)
     buf = xk[pair // k, pair % k].masked_fill_(~filled, 0).view(E, G * C, d)
 
-    up = torch.bmm(buf, p["experts"]["up"])
-    if cfg.gated_mlp:
-        h = L.activation(cfg.act, torch.bmm(buf, p["experts"]["gate"])) * up
-    else:
-        h = L.activation(cfg.act, up)
-    del buf, up
-    y = torch.bmm(h, p["experts"]["down"]).view(E * G * C, d)
-    del h
-
     # ---- combine: each token's k choices in ascending expert order, a
     # dropped pair weighted 0 ----
     top_e, by_expert = torch.sort(top_e, dim=-1)
@@ -383,7 +485,50 @@ def _moe_dispatch(cfg: TransformerConfig, p, x):
     w = top_p.gather(-1, by_expert).masked_fill(rank >= C, 0).to(x.dtype)
     slot = ((top_e * G + group[:, None, None]) * C + rank).clamp(
         max=E * G * C - 1)
-    return (y[slot] * w[..., None]).sum(-2), aux
+
+    def combine(y):
+        return (y.reshape(E * G * C, d)[slot] * w[..., None]).sum(-2)
+    return buf, combine, aux
+
+
+def _moe_dispatch_sharded(cfg: TransformerConfig, p, x):
+    """``_moe_dispatch`` of a DTensor x (G, n, d) on its mesh.  The groups
+    lie over the data axes where they divide them (each rank routes its
+    own groups, as G dispatch groups aligned with the data shards mean),
+    else every rank routes all tokens; the routing, sort and gathers run
+    on each rank's tokens as in ``_moe_dispatch``, with the router
+    replicated.  The (E, G * C, d) buffer is a DTensor over the same
+    groups, its experts' products DTensor ``bmm``s against the experts'
+    placements (expert parallel when ``lm_param_specs`` put the experts
+    over ``"model"``, the ff dim's tensor parallelism otherwise); their
+    output is gathered back to the groups' layout for the combine."""
+    m = cfg.moe
+    mesh = x.device_mesh
+    G = x.shape[0]
+    if G > 1:
+        x = constrain(x, (0, "fsdp"))
+    groups = SH.fsdp_entry(mesh, G) if G > 1 else None
+    tok_pl = SH.placements(mesh, SH.P(groups, None, None))
+    buf_pl = SH.placements(mesh, SH.P(None, groups, None))
+    grad_pl = SH.partial_where_sharded(tok_pl)
+    xl = x.redistribute(mesh, tok_pl).to_local()
+    router = {"w": SH.local_replica(p["router"]["w"], grad_pl)}
+    buf, combine, aux = _moe_buffer(cfg, {"router": router}, xl)
+    buf = SH.from_local(buf, mesh, buf_pl)
+    if G == 1:
+        buf = constrain(buf, (0, "model"), (1, "fsdp"))
+    up = torch.bmm(buf, p["experts"]["up"])
+    if cfg.gated_mlp:
+        h = L.activation(cfg.act, torch.bmm(buf, p["experts"]["gate"])) * up
+    else:
+        h = L.activation(cfg.act, up)
+    del buf, up
+    y = torch.bmm(h, p["experts"]["down"]).redistribute(mesh, buf_pl)
+    del h
+    out = SH.from_local(combine(y.to_local()), mesh, tok_pl)
+    if G > 1:
+        out = constrain(out, (0, "fsdp"))
+    return out, SH.from_local(aux, mesh, tok_pl)
 
 
 # ---------------------------------------------------------------------------
@@ -392,9 +537,9 @@ def _moe_dispatch(cfg: TransformerConfig, p, x):
 
 def _block(cfg: TransformerConfig, p, h, positions):
     """One layer: (h, the MoE FFN's aux loss, or None for a dense FFN)."""
-    a, _ = _attention(cfg, p, L.norm_apply(cfg.norm, p["ln1"], h), positions)
+    a, _ = _attention(cfg, p, _norm(cfg, p["ln1"], h), positions)
     h = h + a
-    x = L.norm_apply(cfg.norm, p["ln2"], h)
+    x = _norm(cfg, p["ln2"], h)
     if cfg.moe is None:
         return h + L.mlp(p["mlp"], x, act=cfg.act), None
     B, S, d = x.shape
@@ -402,8 +547,19 @@ def _block(cfg: TransformerConfig, p, h, positions):
     return h + y.reshape(B, S, d), aux
 
 
+def _norm(cfg: TransformerConfig, p, x):
+    """``cfg.norm`` over x's last dim; a DTensor x is first made whole
+    along it (the per-layer residual is sharded over ``"model"`` there)
+    and any partial sum is reduced (over mesh dims of more than one rank:
+    on a one-rank dim the norm reads x itself, so that its gradient adds
+    up in the unsharded model's order)."""
+    if SH.is_dtensor(x):
+        x = SH.redistribute(x, SH.whole_along(x.placements, x.ndim - 1))
+    return L.norm_apply(cfg.norm, p, x)
+
+
 def _logits(cfg: TransformerConfig, params, h):
-    h = L.norm_apply(cfg.norm, params["final_norm"], h)
+    h = _norm(cfg, params["final_norm"], h)
     if cfg.tie_embeddings:
         return h @ params["embed"]["table"].T
     return L.dense(params["lm_head"], h)
@@ -439,19 +595,33 @@ def forward(cfg: TransformerConfig, params, tokens):
     layers' load-balancing losses summed in layer order, zero for a dense
     FFN)."""
     B, S = tokens.shape
-    h = params["embed"]["table"][tokens]
+    h = _embed(params["embed"]["table"], tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     # the stacked leaves cut into their layers once: under autograd each
     # leaf's gradient is then one stack of the layers' (a slice per layer
     # would add a zero-filled leaf-sized gradient per layer)
-    layers = _tree_map(lambda t: t.unbind(0), params["layers"])
+    layers = _tree_map(SH.unbind, params["layers"])
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = constrain(h, (0, "fsdp"))
     for i in range(cfg.n_layers):
         h, a = _run_block(cfg, _tree_map(lambda t: t[i], layers), h,
                           positions)
+        # the residual kept for the backward, sharded over both mesh axes
+        h = constrain(h, (0, "fsdp"), (2, "model"))
         if a is not None:
-            aux = aux + a
-    return _logits(cfg, params, h), aux
+            aux = aux + SH.replicated_value(a)
+    # vocab-sharded logits: kept split over the model axis through the loss
+    return constrain(_logits(cfg, params, h), (0, "fsdp"), (2, "model")), aux
+
+
+def _embed(table, tokens):
+    """``table[tokens]``; a DTensor table is gathered whole and each rank
+    looks up its own tokens (the result laid out as the tokens)."""
+    if not SH.is_dtensor(table):
+        return table[tokens]
+    mesh = tokens.device_mesh
+    rows = SH.local_replica(table, SH.partial_where_sharded(tokens.placements))
+    return SH.from_local(rows[tokens.to_local()], mesh, tokens.placements)
 
 
 def lm_loss(cfg: TransformerConfig, params, batch):
@@ -459,7 +629,57 @@ def lm_loss(cfg: TransformerConfig, params, batch):
     entropy of the (B, S, V) logits against the targets, plus the aux
     loss."""
     logits, aux = forward(cfg, params, batch["tokens"])
+    if SH.is_dtensor(logits):
+        return _cross_entropy_sharded(logits, batch["targets"]) + aux
     return L.cross_entropy_loss(logits, batch["targets"]) + aux
+
+
+def _cross_entropy_sharded(logits, labels):
+    """``L.cross_entropy_loss`` of DTensor logits (B, S, V), the vocab
+    possibly sharded: each rank takes its shard's row max (reduced to the
+    global max, no gradient), its float32 sum of exp and its label logit
+    (0 where the label lies in another shard, or outside [0, V)); the two
+    sums are reduced over the vocab shards, and the mean of lse - label
+    logit over every row.  Returns a plain scalar, the same on every
+    rank."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    logits = logits.redistribute(mesh, SH.no_partial(logits.placements))
+    pl = logits.placements
+    vocab = [i for i, q in enumerate(pl) if q == Shard(2)]
+    rows = tuple(Replicate() if i in vocab else q for i, q in enumerate(pl))
+    part = tuple(Partial() if i in vocab else q for i, q in enumerate(pl))
+    loc = logits.to_local()
+    split = [i for i, q in enumerate(rows) if isinstance(q, Shard)]
+    if not vocab:
+        # each rank's rows whole: ``L.cross_entropy_loss`` of its rows, the
+        # mean of the equal shards' means
+        ce = L.cross_entropy_loss(
+            loc, labels.redistribute(mesh, rows).to_local())
+        if not split:
+            return ce
+        total = SH.from_local(ce[None], mesh, tuple(
+            Partial() if i in split else Replicate()
+            for i in range(mesh.ndim)))
+        return total.full_tensor()[0] / int(np.prod(
+            [mesh.size(i) for i in split]))
+    Vl = loc.shape[-1]
+    v0 = SH.shard_index(mesh, vocab) * Vl
+    m = torch.amax(loc, dim=-1, keepdim=True).detach()
+    for i in vocab:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+    sumexp = torch.sum(torch.exp((loc - m).float()), dim=-1)
+    sumexp = SH.from_local(sumexp, mesh, part).redistribute(
+        mesh, rows).to_local()
+    lse = torch.log(sumexp) + m[..., 0].float()
+    lab = labels.redistribute(mesh, rows).to_local().long() - v0
+    picked = torch.gather(loc, -1, lab.clamp(0, Vl - 1)[..., None])
+    ll = torch.where((lab >= 0) & (lab < Vl), picked[..., 0].float(), 0.0)
+    ll = SH.from_local(ll, mesh, part).redistribute(mesh, rows).to_local()
+    total = SH.from_local((lse - ll).sum()[None], mesh, tuple(
+        Partial() if i in split else Replicate() for i in range(mesh.ndim)))
+    return total.full_tensor()[0] / (labels.shape[0] * labels.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -472,6 +692,12 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def cache_abstract(cfg: TransformerConfig, batch: int, max_len: int,
+                   dtype=None) -> dict:
+    """``init_cache``'s tree as meta tensors (nothing allocated)."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
 
 
 def decode_step(cfg: TransformerConfig, params, cache, tokens, pos: int):

@@ -13,6 +13,12 @@ differently and has no global-norm clip, so it is not the counterpart.
 Unlike the reference, ``adamw_update`` updates the parameters and the
 moments in place (a 3B-parameter model's state is ~36 GB; a second copy
 would not fit beside it) and returns the same tensors.
+
+On a mesh the leaves are DTensors, each gradient and moment in its
+parameter's placements (``training.step`` redistributes the gradients):
+``global_norm`` sums each leaf's squares over its shards, so a replicated
+leaf counts once, and the update runs on each rank's local shards, in
+place, chunked as on one device.
 """
 from __future__ import annotations
 
@@ -51,10 +57,12 @@ def adamw_init(params) -> dict:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt(sum of every gradient's float32 sum of squares), summed leaf
-    by leaf in the reference's order."""
+    by leaf in the reference's order; a DTensor leaf's sum is its whole
+    value's (a plain tensor on every rank)."""
+    from ..dist import sharding as SH
     total = None
     for g in tree_leaves(grads):
-        sq = torch.sum(torch.square(g.float()))
+        sq = SH.replicated_value(torch.sum(torch.square(g.float())))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -78,9 +86,10 @@ def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
                  weight_decay=0.1, max_grad_norm=1.0):
     """Returns (params, state, metrics), the parameters and moments updated
     in place; ``lr`` a float or a float32 tensor."""
+    from ..dist import sharding as SH
     gn = global_norm(grads)
     scale = torch.clamp(max_grad_norm / (gn + 1e-9), max=1.0)
-    step = state["step"] + 1
+    step = SH.local_value(state["step"]) + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
@@ -94,6 +103,14 @@ def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
         p.sub_((lr * delta).to(p.dtype))
 
     def leaf(g, m, v, p):
+        if SH.is_dtensor(p):
+            if not tuple(g.placements) == tuple(m.placements) \
+                    == tuple(v.placements) == tuple(p.placements):
+                raise ValueError(
+                    f"adamw_update: gradient {g.placements}, moments "
+                    f"{m.placements}/{v.placements} and parameter "
+                    f"{p.placements} placed apart")
+            g, m, v, p = (t.to_local() for t in (g, m, v, p))
         n = p.numel()
         if n <= SLICE_ELEMENTS:
             upd(g, m, v, p)
@@ -105,5 +122,5 @@ def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
             upd(g[i:j], m[i:j], v[i:j], p[i:j])
 
     tree_map(leaf, grads, state["m"], state["v"], params)
-    state["step"].copy_(step)
+    SH.local_value(state["step"]).copy_(step)
     return params, state, {"grad_norm": gn}

@@ -3,9 +3,9 @@
 and one float32 scale, and carries the quantization residual into the next
 step (error feedback keeps the accumulated update unbiased).
 
-``compressed_psum`` all-reduces the int8 payload over a mesh axis; the
-port has no mesh yet, so it raises (ROADMAP.md Queue 1 item 12, the mesh
-and sharding slice)."""
+``compressed_psum`` all-reduces the int8 payload over one axis of the
+ambient ``DeviceMesh`` (``with mesh:``), on each rank's local gradient, as
+the reference's runs inside ``shard_map``."""
 from __future__ import annotations
 
 import torch
@@ -36,8 +36,25 @@ def error_feedback_update(g, residual):
 
 
 def compressed_psum(g, axis_name: str, residual):
-    """The error-feedback int8 all-reduce over a mesh axis: not ported
-    yet."""
-    raise NotImplementedError(
-        "compressed_psum needs the mesh, which is not ported to repro_torch "
-        "yet: see ROADMAP.md Queue 1 item 12 (mesh and sharding)")
+    """Error-feedback int8 all-reduce of this rank's gradient ``g`` over
+    mesh axis ``axis_name`` of the ambient mesh.  Returns (mean gradient,
+    new residual), the reference's arithmetic: the error-feedback
+    dequantized gradient compressed again, its payload summed in int32,
+    the scales and the rank count summed, and tot * (scale_sum / n) / n
+    (every rank's payload taken at the mean scale)."""
+    import torch.distributed as dist
+    from ..dist.sharding import _current_mesh
+    mesh = _current_mesh()
+    if mesh is None:
+        raise RuntimeError("compressed_psum: no ambient mesh (call it "
+                           "inside `with mesh:`)")
+    group = mesh.get_group(axis_name)
+    deq, new_residual = error_feedback_update(g, residual)
+    q, scale = compress_int8(deq)
+    tot = q.to(torch.int32)
+    scale_sum = scale.clone()
+    n = torch.ones((), dtype=torch.float32, device=g.device)
+    for t in (tot, scale_sum, n):
+        dist.all_reduce(t, group=group)
+    mean = tot.float() * (scale_sum / n) / n
+    return mean.to(g.dtype), new_residual

@@ -127,9 +127,40 @@ def test_int8_functions_equal_reference(seed):
     np.testing.assert_array_equal(new.numpy(), np.asarray(rnew))
 
 
-def test_compressed_psum_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        O.compressed_psum(torch.zeros(3), "data", None)
+@pytest.mark.parametrize("residual", [False, True])
+def test_compressed_psum_waits_for_the_mesh(residual):
+    """``compressed_psum`` reduces over an axis of the ambient mesh: it
+    raises outside one, and on a one-rank gloo group its mean is the
+    error-feedback gradient compressed again and dequantized, its residual
+    ``error_feedback_update``'s, bit for bit."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh
+    rng = np.random.default_rng(3)
+    g = torch.tensor((rng.standard_normal(257) * 3).astype(np.float32))
+    r = torch.tensor((rng.standard_normal(257) * 0.01).astype(np.float32)) \
+        if residual else None
+    with pytest.raises(RuntimeError, match="ambient mesh"):
+        O.compressed_psum(g, "data", r)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh((1, 1), ("data", "model"), device="cpu")
+        with mesh:
+            mean, new = O.compressed_psum(g, "data", r)
+            again, _ = O.compressed_psum(g, "model", r)
+    finally:
+        dist.destroy_process_group()
+    deq, want_new = O.error_feedback_update(g, r)
+    q, scale = O.compress_int8(deq)
+    np.testing.assert_array_equal(mean.numpy(),
+                                  O.decompress_int8(q, scale).numpy())
+    np.testing.assert_array_equal(new.numpy(), want_new.numpy())
+    np.testing.assert_array_equal(again.numpy(), mean.numpy())
+    assert mean.dtype == g.dtype
 
 
 # ---------------------------------------------------------------------------

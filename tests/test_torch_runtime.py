@@ -58,8 +58,39 @@ def test_restarts_are_bounded(tmp_path):
     assert runner.restarts == 3
 
 
-def test_elastic_waits_for_the_mesh():
-    for fn, args in ((reshard_tree, ({}, None, {})),
-                     (elastic_restore, ("d", {}, None, {}))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*args)
+def test_elastic_waits_for_the_mesh(tmp_path):
+    """``reshard_tree`` and ``elastic_restore`` on a one-rank ``DeviceMesh``
+    (a gloo group): every leaf a DTensor of its spec's placements with the
+    saved value, bit for bit; no checkpoint gives (None, None)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.dist.sharding import P
+    from repro_torch.launch.mesh import make_device_mesh
+    tree = {"w": torch.randn(4, 6, generator=torch.Generator().manual_seed(0)),
+            "b": torch.arange(6, dtype=torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32)}
+    specs = {"w": P(("data",), "model"), "b": P(None), "step": P()}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh((1, 1), ("data", "model"), device="cpu")
+        placed = reshard_tree(tree, mesh, specs)
+        assert elastic_restore(str(tmp_path / "none"), tree, mesh,
+                               specs) == (None, None)
+        save_checkpoint(str(tmp_path / "ck"), 5, placed)
+        restored, step = elastic_restore(str(tmp_path / "ck"), tree, mesh,
+                                         specs)
+        assert step == 5
+        for k, v in tree.items():
+            for got in (placed[k], restored[k]):
+                assert got.device_mesh is mesh
+                assert got.dtype == v.dtype
+                assert torch.equal(got.full_tensor(), v)
+        placed["w"].to_local().add_(1)      # a copy: the tree is untouched
+        assert not torch.equal(placed["w"].full_tensor(), tree["w"])
+    finally:
+        dist.destroy_process_group()
