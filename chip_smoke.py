@@ -160,7 +160,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               outputs are within 1e-3 of its largest magnitude; aux
               within 1e-5), the last logits within 1e-3 of
               their largest magnitude with the same argmax; and one AdamW
-              step of olmoe (2 layers, float32) on (1, 512), the loss and
+              step of olmoe (2 layers, float32) on (1, 256), the loss and
               every gradient within 1e-3 of its leaf's largest magnitude.
 9b. lm_train  starcoder2-3b at full width and depth (bf16, 30 layers,
               ``remat="full"``) through ``make_lm_train_step`` on
@@ -193,7 +193,29 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               loss, aux, gradients and one step's parameters within 1e-5
               of each leaf's scale on both routes; ``compressed_psum``
               over ``"data"`` on the card equal to the same call on the
-              CPU (a gloo group).
+              CPU (a gloo group).  Then the remaining steps on the same
+              mesh, each against the same step unsharded from one CPU
+              generator state: starcoder2-3b's decode (the 4-layer state
+              above) on decode_32k's (128, 32,768) bf16 cache, random,
+              placed by ``lm_cache_specs`` (tokens by ``lm_batch_specs``,
+              ``pos`` an int), 4 steps at its last positions, the logits
+              and the whole cache bit-equal after every step, no kernel
+              launch, ms a step by CUDA events (both caches, ~34 GB,
+              freed before the rest); DIEN at full width (table placed by
+              ``recsys_param_specs``, batches by ``recsys_batch_specs``):
+              2 train steps on train_batch's 65,536 rows, each exactly 2
+              ``augru`` forwards and 2 backwards on both routes, serve_p99
+              (512 rows, 2 ``augru``) and one retrieval over 1,000,000
+              candidates (1 ``augru``), losses, every parameter, the CTRs
+              and the top 100 (values and indices) compared; the four GNN
+              archs at full width on molecule's batch (128 graphs of 30
+              nodes and 64 edges) and gin-tu at minibatch_lg's sampled
+              caps (169,984 nodes, 168,960 edges, d_feat 602), parameters
+              replicated and the batch placed by ``gnn_batch_specs``, 2
+              train steps each, ``spmm`` launches a step equal on both
+              routes, losses and parameters compared.  Every comparison
+              is within 1e-5 of each leaf's largest magnitude, and
+              bit-equality is reported.
 10. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
               stream (the user's entry point, through
               ``MemmapEdgeStream``), k=32: one ``edge_score`` launch per
@@ -204,7 +226,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               ``hdrf_score`` launch per scoring chunk, all through
               ``hdrf_choose_bits``, no ``edge_score``.
 13. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
-              RMAT-14: one ``hdrf_score`` launch per non-empty 64-edge
+              RMAT-13: one ``hdrf_score`` launch per non-empty 64-edge
               micro-batch, all through ``hdrf_choose_bits``; with
               ``--previous-designs`` each run again with the previous
               composition of the choice, byte-equal, its wall beside; the
@@ -401,8 +423,10 @@ artifact and runs ``partitioned_train`` on it, and does nothing else.
 
     python3 chip_smoke.py --sharded-only
 
-builds ``flash_attention`` and its backward and runs ``sharded_train``,
-and does nothing else.
+builds ``flash_attention``, ``augru`` and ``spmm`` with their backwards
+and runs ``sharded_train`` (the LM train step, decode, DIEN and the four
+GNN train steps on the (1, 1) mesh against their unsharded routes), and
+does nothing else.
 
     python3 chip_smoke.py --partition-counted ARGS...
     python3 chip_smoke.py --dist-counted ARGS...
@@ -2791,7 +2815,13 @@ def moe_card_vs_cpu(arch: str) -> dict:
                          "largest, same argmax", "runs": runs}
 
 
-def moe_train_card_vs_cpu(seq: int = 512) -> dict:
+#: the float32 olmoe train step's tokens, card against CPU (512 until the
+#: sharded train phase's decode, GNN and DIEN routes: the CPU's step is
+#: most of the check)
+MOE_TRAIN_CHECK_SEQ = 256
+
+
+def moe_train_card_vs_cpu(seq: int = MOE_TRAIN_CHECK_SEQ) -> dict:
     """One AdamW step of ``make_lm_train_step`` on olmoe-1b-7b at full
     width with 2 layers in float32 (``remat="full"``) on (1, ``seq``), from
     the same state on the card and on the CPU: the loss and every gradient
@@ -3088,8 +3118,9 @@ def micro_batch_kernels(scale: int, k: int = 32, chunk: int = 4096) -> dict:
 
 
 #: the HDRF baselines' RMAT scale (16 until the partitioned training
-#: phase, then 15; 14 since the sharded train phase)
-HDRF_BASELINES_SCALE = 14
+#: phase, then 15, then 14 with the sharded train phase; 13 since its
+#: decode, GNN and DIEN routes)
+HDRF_BASELINES_SCALE = 13
 
 
 def hdrf_baselines(scale: int, tmp: str, k: int = 32,
@@ -6835,6 +6866,8 @@ def tree_to_device(tree, device: str):
     """A copy of a tree of tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: tree_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_device(v, device) for v in tree]
     return tree.to(device, copy=True)
 
 
@@ -6934,6 +6967,7 @@ def sharded_dense(mesh, device: str, make_config, batch: dict,
         r.pop("batch", None)
     return {"config": {"arch": cfg.name, "layers": cfg.n_layers,
                        "dtype": cfg.dtype, "remat": cfg.remat},
+            "params0": state0["params"],
             "batch": list(batch["tokens"].shape),
             "microbatches": microbatches, "init_s": init_s, **routes, "agree": agree,
             "elastic": {"save_s": save_s, "restore_s": restore_s,
@@ -7042,6 +7076,306 @@ def sharded_psum(mesh, device: str) -> dict:
     return line
 
 
+#: decode on the mesh: the steps taken at decode_32k's cache's last
+#: positions
+SHARDED_DECODE_STEPS = 4
+#: DIEN's train steps on each route (on ``RECSYS_TRAIN_ROWS`` rows)
+SHARDED_DIEN_STEPS = 2
+#: the GNN train steps on the mesh, (arch, shape) at full width, and the
+#: steps on each route
+SHARDED_GNN = (("gin-tu", "molecule"), ("gatedgcn", "molecule"),
+               ("egnn", "molecule"), ("nequip", "molecule"),
+               ("gin-tu", "minibatch_lg"))
+SHARDED_GNN_STEPS = 2
+
+
+def sharded_decode(mesh, device: str, cfg, params: dict) -> dict:
+    """starcoder2-3b's decode step unsharded and on ``mesh`` with the same
+    parameters (``params``, on the CPU): decode_32k's cache filled with
+    random keys and values (a seeded generator on ``device``), placed by
+    ``lm_cache_specs`` on the mesh, the tokens by ``lm_batch_specs``;
+    ``SHARDED_DECODE_STEPS`` steps at the cache's last positions, the
+    logits and the whole cache bit-equal after every step, no kernel
+    launched (decode attends through the plain ``gqa_attention``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.runtime import reshard_tree
+    sh = get_arch(LM_ARCH).shapes["decode_32k"]
+    B, S_max = sh["batch"], sh["seq"]
+    shape = (cfg.n_layers, B, cfg.n_kv_heads, S_max, cfg.head_dim)
+    gen = torch.Generator(device=device).manual_seed(4)
+    cache = {k: torch.randn(shape, generator=gen, device=device,
+                            dtype=cfg.param_dtype) for k in ("k", "v")}
+    tok = torch.Generator().manual_seed(5)
+    tokens = [torch.randint(0, cfg.vocab, (B, 1), generator=tok)
+              for _ in range(SHARDED_DECODE_STEPS)]
+    routes = {"unsharded": (tree_to_device(params, device), cache,
+                            [t.to(device) for t in tokens]),
+              "mesh": (reshard_tree(params, mesh,
+                                    SH.lm_param_specs(mesh, params)),
+                       reshard_tree(cache, mesh,
+                                    SH.lm_cache_specs(mesh, cache)),
+                       [reshard_tree(t, mesh, SH.lm_batch_specs(mesh, t))
+                        for t in tokens])}
+    step = S.make_lm_decode_step(cfg)
+    pos0 = S_max - SHARDED_DECODE_STEPS
+    ms = {r: [] for r in routes}
+    for i in range(SHARDED_DECODE_STEPS):
+        logits = {}
+        for route, (p, c, t) in routes.items():
+            with mesh:
+                (lg, _), step_ms, counts = event_step_ms(
+                    lambda: step(p, {"cache": c, "tokens": t[i],
+                                     "pos": pos0 + i}), device)
+            expect_launches(counts, {}, f"sharded_train decode ({route})")
+            ms[route].append(step_ms)
+            logits[route] = SH.replicated_value(lg)
+        u = logits["unsharded"]
+        if u.shape != (B, cfg.vocab) or not bool(torch.isfinite(u).all()):
+            raise AssertionError(f"decode step {i}: logits {tuple(u.shape)} "
+                                 f"not finite")
+        with torch.no_grad():
+            equal = bool(torch.equal(logits["mesh"], u)) and all(
+                bool(torch.equal(SH.local_value(routes["mesh"][1][k]),
+                                 routes["unsharded"][1][k]))
+                for k in ("k", "v"))
+        if not equal:
+            raise AssertionError(f"sharded_train decode step {i}: the "
+                                 f"mesh's logits or cache differ from the "
+                                 f"unsharded step's")
+    peak = peak_bytes(device)
+    spec = SH.lm_cache_specs(mesh, cache)["k"]
+    del routes, cache, logits
+    return {"config": {"arch": cfg.name, "layers": cfg.n_layers,
+                       "dtype": cfg.dtype},
+            "cache": {"rows": B, "positions": S_max,
+                      "bytes_per_route": 2 * int(np.prod(shape))
+                      * torch.finfo(cfg.param_dtype).bits // 8,
+                      "spec": list(map(str, spec))},
+            "positions": [pos0 + i for i in range(SHARDED_DECODE_STEPS)],
+            "step_ms": ms, "peak_device_bytes": peak,
+            "logits_and_cache_bit_equal": True}
+
+
+def sharded_dien(mesh, device: str) -> dict:
+    """DIEN at full width unsharded and on ``mesh`` from one CPU generator
+    state (the table placed by ``recsys_param_specs``, the batches by
+    ``recsys_batch_specs``): ``SHARDED_DIEN_STEPS`` train steps on
+    ``RECSYS_TRAIN_ROWS`` rows, each exactly 2 ``augru`` forwards and 2
+    backwards; then serve_p99's 512 rows (2 ``augru``) and one retrieval
+    over retrieval_cand's candidates (1 ``augru``).  Losses, parameters,
+    CTRs and the top 100 (indices equal) compared."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data import InteractionStream
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import reshard_tree
+    cfg = get_arch("dien").make_config()
+    t0 = time.perf_counter()
+    params = S.init_params("recsys", cfg, torch.Generator().manual_seed(2))
+    init_s = time.perf_counter() - t0
+
+    def stream(rows, seed):
+        return {k: torch.from_numpy(v) for k, v in InteractionStream(
+            cfg.n_items, rows, cfg.seq_len, seed=seed).next_batch().items()}
+    train = stream(RECSYS_TRAIN_ROWS, 2)
+    serve = {k: v for k, v in stream(RECSYS_SHAPES["serve_p99"]["batch"],
+                                     3).items() if k != "label"}
+    M = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    request = retrieval_request(cfg, M, seed=2, device="cpu")
+    p_specs = SH.recsys_param_specs(mesh, params)
+    specs = {"params": p_specs, "opt": SH.opt_state_specs(p_specs)}
+    step = S.make_recsys_train_step(cfg)
+    serve_step = S.make_recsys_serve_step(cfg)
+    retrieve = S.make_recsys_retrieval_step(cfg, top_k=100)
+    per_step = {"augru": 2, "augru_backward": 2}
+    out = {}
+    for route in ("unsharded", "mesh"):
+        state = {"params": params, "opt": adamw_init(params)}
+        batches = (train, serve, request)
+        if route == "mesh":
+            state = reshard_tree(state, mesh, specs)
+            batches = [reshard_tree(b, mesh, SH.recsys_batch_specs(mesh, b))
+                       for b in batches]
+        else:
+            state = tree_to_device(state, device)
+            batches = [{k: v.to(device) for k, v in b.items()}
+                       for b in batches]
+        tb, sb, rb = batches
+        reset_peak(device)
+        losses, ms, after = [], [], []
+        for _ in range(SHARDED_DIEN_STEPS):
+            with mesh:
+                (_, m), step_ms, counts = event_step_ms(
+                    lambda: step(state, tb), device)
+            expect_launches(counts, per_step,
+                            f"sharded_train DIEN step ({route})")
+            losses.append(float(m["loss"]))
+            ms.append(step_ms)
+            after.append([SH.replicated_value(p).clone()
+                          for p in tree_leaves(state["params"])])
+        peak = peak_bytes(device)
+        ctr, serve_ms, counts = event_step_ms(
+            lambda: serve_step(state["params"], sb), device)
+        expect_launches(counts, {"augru": 2},
+                        f"sharded_train DIEN serve ({route})")
+        (values, indices), retrieval_ms, counts = event_step_ms(
+            lambda: retrieve(state["params"], rb), device)
+        expect_launches(counts, {"augru": 1},
+                        f"sharded_train DIEN retrieval ({route})")
+        out[route] = {"losses": losses, "step_ms": ms, "serve_ms": serve_ms,
+                      "retrieval_ms": retrieval_ms,
+                      "peak_device_bytes": peak, "after": after,
+                      "ctr": SH.replicated_value(ctr),
+                      "top": (values, indices)}
+        del state, batches, tb, sb, rb
+    u, s = out["unsharded"], out["mesh"]
+    agree = []
+    for i in range(SHARDED_DIEN_STEPS):
+        err = abs(s["losses"][i] - u["losses"][i]) / abs(u["losses"][i])
+        if err > SHARDED_TOL:
+            raise AssertionError(f"sharded_train DIEN step {i}: loss "
+                                 f"{s['losses'][i]} against {u['losses'][i]}")
+        agree.append({"loss_rel_err": err,
+                      "loss_bit_equal": s["losses"][i] == u["losses"][i],
+                      **leaf_agree(s["after"][i], u["after"][i],
+                                   f"DIEN parameters after step {i}")})
+    ctr = leaf_agree([s["ctr"]], [u["ctr"]], "DIEN serve CTR")
+    values = leaf_agree([s["top"][0]], [u["top"][0]],
+                        "DIEN retrieval values")
+    if not torch.equal(s["top"][1], u["top"][1]):
+        raise AssertionError("sharded_train DIEN retrieval: the mesh's "
+                             "top-100 indices differ")
+    for r in out.values():
+        del r["after"], r["ctr"], r["top"]
+    return {"config": {"arch": cfg.name, "items": cfg.n_items,
+                       "embed_dim": cfg.embed_dim,
+                       "table_spec": list(map(str, p_specs["item_table"][
+                           "table"]))},
+            "rows": RECSYS_TRAIN_ROWS, "serve_rows": len(serve["target"]),
+            "candidates": M, "init_s": init_s, **out, "agree": agree,
+            "ctr": ctr, "retrieval": {**values, "indices_equal": True},
+            "launches": {"augru": 2 * (2 * SHARDED_DIEN_STEPS + 3),
+                         "augru_backward": 2 * 2 * SHARDED_DIEN_STEPS}}
+
+
+def gnn_shape_batch(arch: str, shape: str, seed: int = 0) -> tuple:
+    """(config, numpy batch, n_graphs, kind) of ``arch`` at ``shape``:
+    molecule's padded batch (``molecule_batch``; a GIN, GatedGCN or EGNN
+    reads random node features of its input width and random labels), or
+    a sampled subgraph at the shape's fan-out caps (random edges, the
+    roots' ``loss_mask``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.gnn_batches import molecule_batch
+    spec = get_arch(arch)
+    cfg = spec.config_for_shape(shape)
+    sh = spec.shapes[shape]
+    rng = np.random.default_rng(seed)
+    if sh["kind"] == "molecule":
+        batch, n_graphs = molecule_batch(
+            sh["batch"], sh["n_nodes"], sh["n_edges"],
+            n_species=getattr(cfg, "n_species", 4), seed=seed)
+        batch = {k: v for k, v in batch.items() if v is not None}
+        if arch != "nequip":
+            N = len(batch["node_mask"])
+            del batch["energy_target"]
+            batch["nodes"] = rng.standard_normal((N, cfg.d_in)).astype(
+                np.float32)
+            batch["labels"] = rng.integers(0, cfg.n_classes, N).astype(
+                np.int32)
+        return cfg, batch, n_graphs, "molecule"
+    r, f = sh["batch_nodes"], sh["fanout"]
+    N, E = r * (1 + f[0] + f[0] * f[1]), r * (f[0] + f[0] * f[1])
+    batch = {"nodes": rng.standard_normal((N, cfg.d_in)).astype(np.float32),
+             "edges": rng.integers(0, N, (E, 2)).astype(np.int32),
+             "node_mask": np.ones(N, np.float32),
+             "edge_mask": np.ones(E, np.float32),
+             "graph_ids": np.zeros(N, np.int32),
+             "labels": rng.integers(0, cfg.n_classes, N).astype(np.int32),
+             "loss_mask": (np.arange(N) < r).astype(np.float32)}
+    return cfg, batch, 1, sh["kind"]
+
+
+def sharded_gnn(mesh, device: str) -> dict:
+    """Each of ``SHARDED_GNN`` at full width unsharded and on ``mesh`` from
+    one CPU generator state (parameters replicated, the batch placed by
+    ``gnn_batch_specs``): ``SHARDED_GNN_STEPS`` train steps a route, the
+    launches of each step equal on both routes (``spmm`` launched), losses
+    and parameters after each step compared."""
+    import torch
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import reshard_tree
+    lines, totals = {}, {}
+    for arch, shape in SHARDED_GNN:
+        cfg, batch_np, n_graphs, kind = gnn_shape_batch(arch, shape)
+        params = S.init_params("gnn", cfg, torch.Generator().manual_seed(3))
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        p_specs = SH.gnn_param_specs(mesh, params)
+        specs = {"params": p_specs, "opt": SH.opt_state_specs(p_specs)}
+        out = {}
+        for route in ("unsharded", "mesh"):
+            state = {"params": params, "opt": adamw_init(params)}
+            if route == "mesh":
+                state = reshard_tree(state, mesh, specs)
+                b = reshard_tree(batch, mesh, SH.gnn_batch_specs(mesh, batch))
+            else:
+                state = tree_to_device(state, device)
+                b = {k: v.to(device) for k, v in batch.items()}
+            step = S.make_gnn_train_step(cfg, kind, n_graphs=n_graphs)
+            losses, ms, launches, after = [], [], [], []
+            for _ in range(SHARDED_GNN_STEPS):
+                with mesh:
+                    (_, m), step_ms, counts = event_step_ms(
+                        lambda: step(state, b), device)
+                losses.append(float(m["loss"]))
+                ms.append(step_ms)
+                launches.append({k: v for k, v in counts.items() if v})
+                after.append([SH.replicated_value(p).clone()
+                              for p in tree_leaves(state["params"])])
+            out[route] = {"losses": losses, "step_ms": ms,
+                          "launches": launches, "after": after,
+                          "prepare_s": step.prep_cache.prepare_s}
+            del state, b
+        u, s = out["unsharded"], out["mesh"]
+        what = f"sharded_train {arch} at {shape}"
+        if s["launches"] != u["launches"] or any(
+                not c.get("spmm") for c in u["launches"]):
+            raise AssertionError(f"{what}: launches {s['launches']} on the "
+                                 f"mesh, {u['launches']} unsharded")
+        agree = []
+        for i in range(SHARDED_GNN_STEPS):
+            err = abs(s["losses"][i] - u["losses"][i]) / abs(u["losses"][i])
+            if not np.isfinite(u["losses"][i]) or err > SHARDED_TOL:
+                raise AssertionError(f"{what} step {i}: loss "
+                                     f"{s['losses'][i]} against "
+                                     f"{u['losses'][i]}")
+            agree.append({"loss_rel_err": err,
+                          "loss_bit_equal": s["losses"][i] == u["losses"][i],
+                          **leaf_agree(s["after"][i], u["after"][i],
+                                       f"{what}: parameters after step {i}")})
+        for r in out.values():
+            del r["after"]
+            for c in r["launches"]:
+                for k, v in c.items():
+                    totals[k] = totals.get(k, 0) + v
+        lines[f"{arch}@{shape}"] = {
+            "kind": kind, "nodes": len(batch_np["node_mask"]),
+            "edges": len(batch_np["edge_mask"]), "n_graphs": n_graphs,
+            "batch_spec": {k: list(map(str, v)) for k, v in
+                           SH.gnn_batch_specs(mesh, batch).items()},
+            **out, "agree": agree}
+    return {"archs": lines, "launches": totals}
+
+
 def reset_peak(device: str) -> None:
     import torch
     if device == "cuda":
@@ -7104,12 +7438,28 @@ def sharded_train_worker(out: str, port: int, device: str = "cuda",
             "microbatches"]
         with tempfile.TemporaryDirectory() as tmp:
             dense = sharded_dense(mesh, device, dense_cfg, dense_b, mb, tmp)
+        params0 = dense.pop("params0")
         torch.cuda.empty_cache() if device == "cuda" else None
+        secs = {}
+        t0 = time.perf_counter()
+        decode = sharded_decode(mesh, device, dense_cfg(), params0)
+        del params0
+        torch.cuda.empty_cache() if device == "cuda" else None
+        secs["decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dien = sharded_dien(mesh, device)
+        torch.cuda.empty_cache() if device == "cuda" else None
+        secs["dien"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gnn = sharded_gnn(mesh, device)
+        torch.cuda.empty_cache() if device == "cuda" else None
+        secs["gnn"] = time.perf_counter() - t0
         moe = sharded_moe(mesh, device, moe_cfg, moe_b)
         psum = sharded_psum(mesh, device)
         line = {"backend": backend, "mesh": {"data": 1, "model": 1},
-                "process_group_s": init_s, "dense": dense, "moe": moe,
-                "compressed_psum": psum,
+                "process_group_s": init_s, "dense": dense, "decode": decode,
+                "dien": dien, "gnn": gnn, "moe": moe,
+                "compressed_psum": psum, "seconds_by_part": secs,
                 "worker_s": time.perf_counter() - t_phase}
         with open(out, "w") as f:
             json.dump(line, f)
@@ -7132,14 +7482,17 @@ def sharded_train(tmp: str) -> dict:
                              f"{proc.returncode}")
     with open(out) as f:
         line = json.load(f)
-    d, m = line["dense"], line["moe"]
+    d = line["dense"]
     steps = SHARDED_DENSE_STEPS + 1
     line["launches"] = {
         "flash_attention": sum(d[r]["launches_per_step"]["flash_attention"]
                                * steps for r in ("unsharded", "mesh")),
         "flash_attention_backward": sum(
             d[r]["launches_per_step"]["flash_attention_backward"] * steps
-            for r in ("unsharded", "mesh"))}
+            for r in ("unsharded", "mesh")),
+        **line["dien"]["launches"],
+        "spmm": line["gnn"]["launches"].get("spmm", 0),
+        "spmm_backward": line["gnn"]["launches"].get("spmm_backward", 0)}
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -7204,7 +7557,7 @@ def main(argv=None) -> int:
                          "partitioned_train phase on it, and print its "
                          "line")
     ap.add_argument("--sharded-only", action="store_true",
-                    help="only build flash_attention and its backward and "
+                    help="only build flash_attention, augru and spmm and "
                          "run the sharded_train phase, and print its line")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
@@ -7267,10 +7620,15 @@ def main(argv=None) -> int:
         return 0
     if args.sharded_only:
         from repro_torch.kernels import cuda_build
+        from repro_torch.kernels.augru import kernel as ag_kernel
         from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        from repro_torch.kernels.spmm import kernel as sp_kernel
         print(nvidia_smi(), flush=True)
         cuda_build.build({fa_kernel.NAME: fa_kernel.SOURCE,
-                          fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE})
+                          fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE,
+                          ag_kernel.NAME: ag_kernel.SOURCE,
+                          ag_kernel.BACKWARD_NAME: ag_kernel.BACKWARD_SOURCE,
+                          sp_kernel.NAME: sp_kernel.SOURCE})
         with tempfile.TemporaryDirectory() as tmp:
             emit({"phase": "sharded_train", **sharded_train(tmp)})
         return 0
@@ -7456,9 +7814,10 @@ def main(argv=None) -> int:
     if (gs["spmm_launches"] == 0 or gm["spmm_launches"] == 0
             or pt["spmm_launches"] == 0):
         raise AssertionError("the GNN paths launched no spmm")
-    if min(st["launches"].values()) == 0:
-        raise AssertionError("the sharded train path launched no "
-                             "flash_attention")
+    for name, n in st["launches"].items():
+        if n == 0:
+            raise AssertionError(f"the sharded train path launched no "
+                                 f"{name}")
     train_paths = {"flash_attention_backward":
                    lt["launches"]["flash_attention_backward"],
                    "augru_backward": rt["launches"]["augru_backward"],
@@ -7525,6 +7884,8 @@ def main(argv=None) -> int:
         "bound_ms": a_timing["bound_ms"], "bound_by": a_timing["bound_by"],
         "library_ms": a_timing["library_ms"],
         "launches_train": rt["launches"]["augru"],
+        "launches_sharded_train": st["launches"]["augru"],
+        "backward_launches_sharded_train": st["launches"]["augru_backward"],
         "backward_source": "src/repro_torch/kernels/augru/csrc/"
                            "augru_backward.cu",
         "backward_launches": train_paths["augru_backward"],
@@ -7598,6 +7959,8 @@ def main(argv=None) -> int:
         "launches_train": gt["spmm_launches"],
         "launches_train_by_route": gt["launches_by_route"],
         "launches_partitioned_train": pt["spmm_launches"],
+        "launches_sharded_train": st["launches"]["spmm"],
+        "backward_launches_sharded_train": st["launches"]["spmm_backward"],
         "backward_launches_partitioned_train":
             pt["spmm_backward_launches"],
         "backward_source": "src/repro_torch/kernels/spmm/csrc/spmm.cu "

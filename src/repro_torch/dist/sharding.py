@@ -315,6 +315,11 @@ def lm_cache_specs(mesh, cache):
 # GNN / recsys rules
 # ---------------------------------------------------------------------------
 
+def gnn_param_specs(mesh, params):
+    """Full-graph baseline: every GNN parameter replicated."""
+    return _map(lambda _: P(), params)
+
+
 def gnn_batch_specs(mesh, batch):
     """Full-graph baseline: node/edge arrays split on their leading dim over
     the data axes where divisible."""
@@ -462,9 +467,12 @@ def replicated_value(x):
 
 def local_value(x):
     """This rank's local tensor of a DTensor (for a replicated one, its
-    whole value; under ``no_grad`` the very storage); a plain tensor
+    whole value), the very storage, outside autograd; a plain tensor
     passes through."""
-    return x.to_local() if is_dtensor(x) else x
+    if not is_dtensor(x):
+        return x
+    with torch.no_grad():
+        return x.to_local()
 
 
 def redistribute(x, pl):
@@ -475,3 +483,159 @@ def redistribute(x, pl):
            for i, (a, b) in enumerate(zip(x.placements, pl))):
         return x
     return x.redistribute(mesh, pl)
+
+
+# ---------------------------------------------------------------------------
+# rows split over mesh dims: gathers and fixed-order sums (differentiable)
+# ---------------------------------------------------------------------------
+#
+# A GNN or DIEN step on a mesh runs on plain local tensors, each either
+# split by rows over some mesh dims (this rank holds its shard's rows) or
+# whole (the same on every rank); a gradient follows its tensor's layout
+# (a whole tensor's gradient is its whole gradient, the same on every
+# rank).  The four functions below move between the two and sum partial
+# results; every sum adds the ranks' terms in rank order (``rank_stack``
+# then ``ordered_sum``), so every rank holds the same bits whatever the
+# collective's algorithm.  ``dims`` are mesh dims; those of one rank are
+# dropped, and with none left each function returns its input itself (no
+# collective and no autograd node: a (1, 1) mesh computes what one device
+# does).
+
+def split_dims(x) -> tuple:
+    """The mesh dims of more than one rank over which DTensor ``x``'s dim 0
+    is split, in mesh order; () for a plain tensor."""
+    if not is_dtensor(x):
+        return ()
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    return tuple(i for i, q in enumerate(x.placements)
+                 if q == Shard(0) and mesh.size(i) > 1)
+
+
+def _live(mesh, dims) -> tuple:
+    return tuple(i for i in dims if mesh.size(i) > 1)
+
+
+def rank_stack(x, mesh, dims):
+    """Every rank's ``x`` (of one shape on all) stacked in rank order over
+    mesh dims ``dims`` (``shard_index``'s order): (R, *x.shape), no
+    autograd."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(Shard(0) if i in dims else Replicate()
+               for i in range(mesh.ndim))
+    with torch.no_grad():
+        return from_local(x.detach().contiguous()[None], mesh,
+                          pl).full_tensor()
+
+
+def ordered_sum(stack):
+    """``stack[0] + stack[1] + ...``, in that order."""
+    out = stack[0].clone()
+    for t in stack[1:]:
+        out += t
+    return out
+
+
+def own_rows(x, mesh, dims, dim: int = 0):
+    """This rank's shard of ``x``'s rows (along ``dim``), split over
+    ``dims``."""
+    n = x.shape[dim] // int(np.prod([mesh.size(i) for i in dims]))
+    return x.narrow(dim, shard_index(mesh, dims) * n, n)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims, partial_grad):
+        ctx.mesh, ctx.dims, ctx.partial_grad = mesh, dims, partial_grad
+        return rank_stack(x, mesh, dims).reshape((-1,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dims = ctx.mesh, ctx.dims
+        if ctx.partial_grad:       # every rank's part of the gradient
+            g = ordered_sum(rank_stack(g, mesh, dims))
+        return own_rows(g, mesh, dims), None, None, None
+
+
+class _SumRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims, rows):
+        ctx.mesh, ctx.dims, ctx.rows = mesh, dims, rows
+        stack = rank_stack(x, mesh, dims)
+        if rows:
+            stack = own_rows(stack, mesh, dims, dim=1)
+        return ordered_sum(stack)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.rows:
+            g = rank_stack(g, ctx.mesh, ctx.dims).reshape(
+                (-1,) + tuple(g.shape[1:]))
+        return g, None, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ordered_sum(rank_stack(g, ctx.mesh, ctx.dims)), None, None
+
+
+def gather_rows(x, mesh, dims, *, partial_grad: bool = True):
+    """The whole tensor of rows split over ``dims`` (this rank's shard
+    ``x``), for a computation that reads all rows: an all-gather.  With
+    ``partial_grad`` the reader is itself split over ``dims`` (its
+    gradient a partial sum, summed over the ranks back into this rank's
+    rows: a reduce-scatter), else whole (each rank keeps its rows of the
+    gradient)."""
+    dims = _live(mesh, dims)
+    if not dims:
+        return x
+    return _GatherRows.apply(x, mesh, dims, partial_grad)
+
+
+def sum_over(x, mesh, dims):
+    """Each rank's partial ``x`` summed over ``dims``, whole on every rank,
+    for a whole reader (a readout, a loss): an all-reduce.  A reader split
+    over ``dims`` (a batch norm of each rank's rows) reads it through
+    ``sum_grads``."""
+    dims = _live(mesh, dims)
+    if not dims:
+        return x
+    return _SumRanks.apply(x, mesh, dims, False)
+
+
+def sum_into_rows(x, mesh, dims):
+    """Each rank's partial ``x`` summed over ``dims``, this rank keeping
+    its shard of the rows: a reduce-scatter (segment sums into node
+    rows)."""
+    dims = _live(mesh, dims)
+    if not dims:
+        return x
+    return _SumRanks.apply(x, mesh, dims, True)
+
+
+def sum_grads(x, mesh, dims):
+    """``x`` (whole, the same on every rank) as read by a computation split
+    over ``dims``: the identity, its gradient summed over ``dims`` (an
+    all-reduce in the backward)."""
+    dims = _live(mesh, dims)
+    if not dims:
+        return x
+    return _SumGrads.apply(x, mesh, dims)
+
+
+def whole_local(t):
+    """A DTensor ``t`` gathered whole onto every rank as a plain tensor
+    (``local_replica``) whose gradient is the whole gradient, the same on
+    every rank, sent back to ``t``'s own placements; a plain tensor passes
+    through."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return local_replica(t, (Replicate(),) * t.device_mesh.ndim)
+

@@ -12,6 +12,7 @@ import time
 import numpy as np
 import torch
 
+from ..dist import sharding as SH
 from ..kernels.spmm.ops import tensor_mark, unchanged
 from ..models import gnn as G
 from ..models import recsys as R
@@ -46,7 +47,10 @@ def make_lm_prefill_step(cfg):
 
 def make_lm_decode_step(cfg):
     """``decode(params, {"cache", "tokens" (B, 1), "pos"}) -> (logits
-    (B, vocab), cache)``; the cache is updated in place."""
+    (B, vocab), cache)``; the cache is updated in place.  On a mesh the
+    parameters, cache and tokens are DTensors (``lm_param_specs``,
+    ``lm_cache_specs``, ``lm_batch_specs``; ``pos`` a Python int) and so
+    are the logits."""
     @torch.no_grad()
     def decode(params, batch):
         return T.decode_step(cfg, params, batch["cache"], batch["tokens"],
@@ -56,52 +60,86 @@ def make_lm_decode_step(cfg):
 
 def make_recsys_serve_step(cfg):
     """``serve(params, batch) -> CTR (B,)``: the sigmoid of the logit
-    (without the auxiliary loss, which serving does not use)."""
+    (without the auxiliary loss, which serving does not use).  On a mesh
+    (DTensor parameters and batch) each rank serves its rows, and the CTR
+    is a DTensor laid out as the batch's rows."""
     @torch.no_grad()
     def serve(params, batch):
         logit, _ = R.dien_forward(cfg, params, batch, aux=False)
+        target = batch["target"]
+        if SH.is_dtensor(target):
+            return SH.from_local(torch.sigmoid(logit), target.device_mesh,
+                                 target.placements)
         return torch.sigmoid(logit)
     return serve
 
 
+def ordered_top_k(scores, k: int):
+    """``jax.lax.top_k(scores, k)``: the k largest, high to low, equal
+    scores in index order (``torch.topk`` promises no order among
+    them)."""
+    values, indices = torch.sort(scores, descending=True, stable=True)
+    return values[:k], indices[:k]
+
+
 def make_recsys_retrieval_step(cfg, top_k: int = 100):
     """``retrieve(params, batch) -> (values, indices)``: the ``top_k``
-    highest candidate scores, sorted high to low, and their positions."""
+    highest candidate scores, sorted high to low (equal scores in
+    candidate order, as the reference's ``lax.top_k``), and their
+    positions.  On a mesh with the candidates split over ranks, each rank
+    scores its own and takes its top ``top_k``; the ranks' lists, in rank
+    order, merge into the one-device result, the same on every rank."""
     @torch.no_grad()
     def retrieve(params, batch):
         scores = R.dien_retrieval_score(cfg, params, batch)
-        values, indices = torch.topk(scores, top_k, sorted=True)
-        return values, indices
+        values, indices = ordered_top_k(scores, top_k)
+        cand = batch["candidates"]
+        dims = SH.split_dims(cand)
+        if not dims:
+            return values, indices
+        mesh = cand.device_mesh
+        indices = indices + SH.shard_index(mesh, dims) * scores.shape[0]
+        values = SH.gather_rows(values, mesh, dims)
+        indices = SH.gather_rows(indices, mesh, dims)
+        order = torch.sort(values, descending=True,
+                           stable=True).indices[:top_k]
+        return values[order], indices[order]
     return retrieve
 
 
 def gnn_loss_fn(spec_family_cfg, kind: str, n_graphs: int = 1):
     """Builds ``loss(params, batch, prep=None)`` for any of the four GNN
     archs, the reference's loss; ``prep`` is the batch's ``GraphPrep``
-    (made from the batch when None)."""
+    (made from the batch when None).  On a mesh (DTensor parameters and
+    batch) each rank's node rows add their terms and the sums run over
+    every rank's (``models.gnn.MeshRows``): the loss is the same plain
+    scalar on every rank."""
     cfg = spec_family_cfg
     is_nequip = cfg.__class__.__name__ == "NequIPConfig"
 
     def loss(params, batch, prep=None):
-        m = batch["node_mask"]
-        if "loss_mask" in batch:
-            m = m * batch["loss_mask"]
+        total = (G.mesh_rows(batch) if prep is None else prep.rows).node_total
+        rows = {k: SH.local_value(v) for k, v in batch.items()}
+        m = rows["node_mask"]
+        if "loss_mask" in rows:
+            m = m * rows["loss_mask"]
         if is_nequip:
             out = G.nequip_apply(cfg, params, batch, n_graphs=n_graphs,
                                  prep=prep)
             if kind == "molecule":
                 return torch.mean(torch.square(
-                    out["energy"] - batch["energy_target"]))
+                    out["energy"] - SH.replicated_value(
+                        batch["energy_target"])))
             # non-molecular cells: per-node energy regression on the labels
-            tgt = batch["labels"].float()
+            tgt = rows["labels"].float()
             err = torch.square(out["atom_energy"] - tgt) * m
-            return err.sum() / torch.clamp_min(m.sum(), 1.0)
+            return total(err.sum()) / torch.clamp_min(total(m.sum()), 1.0)
 
         _, _, apply = G.GNN_MODELS[_gnn_kind(cfg)]
         out = apply(cfg, params, batch, n_graphs=n_graphs, prep=prep)
         logp = torch.log_softmax(out["node_logits"].float(), dim=-1)
-        ll = G.label_log_prob(logp, batch["labels"])
-        return -(ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        ll = G.label_log_prob(logp, rows["labels"])
+        return -total((ll * m).sum()) / torch.clamp_min(total(m.sum()), 1.0)
 
     return loss
 
@@ -125,7 +163,8 @@ class PrepCache:
     (``prepare_tiles``, seconds at ogb_products' scale) runs once per
     graph, not once per step.  For GIN it carries the reverse of the bound
     edges (``spmm``'s backward).  ``prepare_s`` holds the host seconds of
-    each preparation made."""
+    each preparation made.  On a mesh the marks are taken of each DTensor
+    leaf's local rows, and the prep is this rank's (``graph_prep``)."""
 
     KEYS = ("edges", "edge_mask", "node_mask", "graph_ids")
 
@@ -135,11 +174,11 @@ class PrepCache:
         self.prepare_s: list[float] = []
 
     def get(self, batch) -> G.GraphPrep:
+        local = [SH.local_value(batch[k]) for k in self.KEYS]
         if self._marks is not None and all(
-                unchanged(batch[k], m) for k, m in zip(self.KEYS,
-                                                       self._marks)):
+                unchanged(t, m) for t, m in zip(local, self._marks)):
             return self._prep
-        marks = tuple(tensor_mark(batch[k]) for k in self.KEYS)
+        marks = tuple(tensor_mark(t) for t in local)
         t0 = time.perf_counter()
         self._prep = G.graph_prep(batch, self.n_graphs, reverse=self.reverse)
         self.prepare_s.append(time.perf_counter() - t0)

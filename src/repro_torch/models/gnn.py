@@ -19,6 +19,17 @@ forward prepares it once, not L times.  On the card each sum is one launch
 with one fixed order of summation; on the CPU the ops take their plain
 versions.  Gathers follow JAX's index rule (``wrap_clamp_index``).
 
+On a ``DeviceMesh`` (``launch.steps.make_gnn_train_step`` on DTensors:
+parameters replicated, the batch placed by ``dist.sharding.gnn_batch_specs``,
+node and edge leaves split on their rows over the data axes where they
+divide them) each rank runs the model on its local rows, as ``MeshRows``
+lays them out: the node-wise products on its node rows, the edge terms on
+its edge rows (one ``TilePrep`` per rank), the node tensors edge work
+reads gathered whole, each segment sum over its own edges sent to the
+node rows' layout by a fixed-order sum over the ranks, and the batch-norm
+statistics, readouts and losses summed over all ranks' rows.  A replicated
+leaf is computed whole on every rank and summed once.
+
 NequIP-lite keeps the reference's l<=2 feature algebra in the Cartesian
 basis (scalars / vectors / traceless symmetric matrices), every coupling
 path an einsum.  ``torch.Generator`` cannot reproduce ``jax.random``, so
@@ -41,9 +52,85 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist import sharding as SH
 from ..kernels import wrap_clamp_index
 from ..kernels.spmm import TilePrep, prepare_tiles, segment_sum_tiles, spmm
 from . import layers as L
+
+
+# ===========================================================================
+# a batch's rows on a mesh
+# ===========================================================================
+
+@dataclass(frozen=True, eq=False)
+class MeshRows:
+    """A GNN batch's layout on a ``DeviceMesh``: node leaves split by rows
+    over mesh dims ``nodes`` (() when whole on every rank), edge leaves
+    over ``edges``; the parameters whole.  Every function is the identity
+    where nothing is split (``ONE_DEVICE``), so one device runs the
+    unsharded model unchanged.  A tensor is either split as its leaves are
+    or whole, and its gradient follows it (``dist.sharding``)."""
+    mesh: object = None
+    nodes: tuple = ()
+    edges: tuple = ()
+
+    def for_edges(self, h):
+        """Node rows ``h`` whole, for the edge terms to gather from."""
+        if self.nodes:
+            return SH.gather_rows(h, self.mesh, self.nodes,
+                                  partial_grad=bool(self.edges))
+        return SH.sum_grads(h, self.mesh, self.edges)
+
+    def to_nodes(self, s):
+        """Every node's sum over this rank's edges (N, ...) in the node
+        rows' layout: summed over the ranks where the edges are split (a
+        replicated edge set is summed once, on every rank)."""
+        if self.edges:
+            if self.nodes:
+                return SH.sum_into_rows(s, self.mesh, self.edges)
+            return SH.sum_over(s, self.mesh, self.edges)
+        if self.nodes:
+            return SH.own_rows(SH.sum_grads(s, self.mesh, self.nodes),
+                               self.mesh, self.nodes)
+        return s
+
+    def node_total(self, x):
+        """A sum over this rank's node rows, summed over all ranks' (a
+        readout's or a loss's, read whole)."""
+        return SH.sum_over(x, self.mesh, self.nodes)
+
+    def node_stat(self, x):
+        """``node_total`` of a statistic that each rank's own rows read
+        back (a batch norm's mean and variance): its gradient is summed
+        over the ranks too."""
+        return SH.sum_grads(SH.sum_over(x, self.mesh, self.nodes),
+                            self.mesh, self.nodes)
+
+    def edge_stat(self, x):
+        """``node_stat`` over edge rows."""
+        return SH.sum_grads(SH.sum_over(x, self.mesh, self.edges),
+                            self.mesh, self.edges)
+
+    def views(self, params):
+        """(the parameters as node-wise work reads them, as edge-wise work
+        does): each gradient summed over the dims that split its rows."""
+        return (_tree_map(lambda t: SH.sum_grads(t, self.mesh, self.nodes),
+                          params),
+                _tree_map(lambda t: SH.sum_grads(t, self.mesh, self.edges),
+                          params))
+
+
+ONE_DEVICE = MeshRows()
+
+
+def mesh_rows(batch) -> MeshRows:
+    """The ``MeshRows`` of a batch of DTensor leaves placed by
+    ``gnn_batch_specs`` (``ONE_DEVICE`` for plain tensors)."""
+    x = batch["node_mask"]
+    if not SH.is_dtensor(x):
+        return ONE_DEVICE
+    return MeshRows(x.device_mesh, SH.split_dims(x),
+                    SH.split_dims(batch["edge_mask"]))
 
 
 # ===========================================================================
@@ -59,7 +146,9 @@ class GraphPrep:
     kernel's ``bound`` route on these very tensors; ``graphs`` the
     ``TilePrep`` of ``graph_ids`` (None when the forward has no readout).
     ``src_rows`` and ``dst_rows`` are the endpoints under JAX's gather
-    rule for the ``num_nodes`` rows, made at first use."""
+    rule for the ``num_nodes`` rows, made at first use.  On a mesh the
+    edges are this rank's, over all ``num_nodes`` nodes, and ``graphs``
+    this rank's node rows' (``rows`` their layout)."""
     src: torch.Tensor
     dst: torch.Tensor
     edge_mask: torch.Tensor
@@ -67,6 +156,7 @@ class GraphPrep:
     edges: TilePrep
     n_graphs: int = 0
     graphs: TilePrep | None = None
+    rows: MeshRows = ONE_DEVICE
 
     @functools.cached_property
     def src_rows(self) -> torch.Tensor:
@@ -109,11 +199,17 @@ def graph_prep(batch: dict, n_graphs: int = 1, *,
                reverse: bool = False) -> GraphPrep:
     """The ``GraphPrep`` of a batch: its edges over ``node_mask``'s N nodes
     and its readout over ``graph_ids`` into ``n_graphs`` graphs (with
-    ``reverse``, the bound edges' reverse too: a train step's)."""
-    gp = edge_prep(batch["edges"], batch["edge_mask"],
-                   int(batch["node_mask"].shape[0]), reverse=reverse)
+    ``reverse``, the bound edges' reverse too: a train step's).  A batch
+    of DTensors (``gnn_batch_specs``) gets this rank's: its edge rows over
+    all N nodes, its node rows' readout, and their ``MeshRows``."""
+    rows = mesh_rows(batch)
+    num_nodes = int(batch["node_mask"].shape[0])
+    batch = {k: SH.local_value(batch[k])
+             for k in ("edges", "edge_mask", "graph_ids")}
+    gp = edge_prep(batch["edges"], batch["edge_mask"], num_nodes,
+                   reverse=reverse)
     return dataclasses.replace(
-        gp, n_graphs=n_graphs,
+        gp, n_graphs=n_graphs, rows=rows,
         graphs=segments(batch["graph_ids"], n_graphs,
                         batch["graph_ids"].device))
 
@@ -129,32 +225,36 @@ def segment_sum(data: torch.Tensor, prep: TilePrep, n: int) -> torch.Tensor:
 
 def neighbour_sum(h: torch.Tensor, gp: GraphPrep) -> torch.Tensor:
     """``segment_sum(h[src] * edge_mask, dst, N)`` without the (E, D)
-    messages: one ``spmm`` on the edges bound in ``gp``."""
-    return spmm(h.contiguous(), gp.src, gp.edge_mask,
-                gp.edges)[:gp.num_nodes]
+    messages: one ``spmm`` on the edges bound in ``gp`` (on a mesh, of
+    this rank's node rows ``h``, into them)."""
+    h = gp.rows.for_edges(h)
+    return gp.rows.to_nodes(spmm(h.contiguous(), gp.src, gp.edge_mask,
+                                 gp.edges)[:gp.num_nodes])
 
 
 def _edge_sum(data: torch.Tensor, gp: GraphPrep) -> torch.Tensor:
-    return segment_sum(data, gp.edges, gp.num_nodes)
+    return gp.rows.to_nodes(segment_sum(data, gp.edges, gp.num_nodes))
 
 
 def _readout(h: torch.Tensor, node_mask: torch.Tensor,
              gp: GraphPrep) -> torch.Tensor:
     mask = node_mask.reshape(node_mask.shape + (1,) * (h.dim() - 1))
-    return segment_sum(h * mask, gp.graphs, gp.n_graphs)
+    return gp.rows.node_total(segment_sum(h * mask, gp.graphs, gp.n_graphs))
 
 
 # ===========================================================================
 # shared pieces
 # ===========================================================================
 
-def _masked_batchnorm(x, mask, eps=1e-5):
+def _masked_batchnorm(x, mask, eps=1e-5, total=ONE_DEVICE.node_stat):
     """Training-mode batch norm statistics over valid nodes (no running
-    stats; the benchmark GNNs recompute per step)."""
+    stats; the benchmark GNNs recompute per step); ``total`` sums a sum
+    over this rank's rows over all ranks' (``MeshRows.node_stat`` or
+    ``edge_stat``)."""
     m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
-    denom = torch.clamp_min(m.sum(), 1.0)
-    mu = (x * m).sum(dim=0, keepdim=True) / denom
-    var = (torch.square(x - mu) * m).sum(dim=0, keepdim=True) / denom
+    denom = torch.clamp_min(total(m.sum()), 1.0)
+    mu = total((x * m).sum(dim=0, keepdim=True)) / denom
+    var = total((torch.square(x - mu) * m).sum(dim=0, keepdim=True)) / denom
     return (x - mu) * torch.rsqrt(var + eps) * m
 
 
@@ -170,6 +270,16 @@ def _mlp2(p, x, act="silu"):
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _on_rows(params, batch):
+    """The parameters and the batch as this rank's plain tensors: each
+    DTensor parameter whole (``SH.whole_local``), each DTensor batch leaf
+    its local rows; plain tensors pass through."""
+    if not SH.is_dtensor(batch["node_mask"]):
+        return params, batch
+    return (_tree_map(SH.whole_local, params),
+            {k: SH.local_value(v) for k, v in batch.items()})
 
 
 # ===========================================================================
@@ -202,13 +312,15 @@ def gin_init(cfg: GINConfig, generator: torch.Generator) -> dict:
 def gin_apply(cfg: GINConfig, params, batch, *, n_graphs: int = 1,
               prep: GraphPrep | None = None):
     gp = prep or graph_prep(batch, n_graphs)
-    h = L.dense(params["encoder"], batch["nodes"])
-    for lp in params["layers"]:
+    params, batch = _on_rows(params, batch)
+    pn, _ = gp.rows.views(params)
+    h = L.dense(pn["encoder"], batch["nodes"])
+    for lp in pn["layers"]:
         agg = neighbour_sum(h, gp)
         h = _mlp2(lp["mlp"], (1.0 + lp["eps"]) * h + agg, act="relu")
-        h = _masked_batchnorm(h, batch["node_mask"])
+        h = _masked_batchnorm(h, batch["node_mask"], total=gp.rows.node_stat)
         h = F.relu(h)
-    node_logits = L.dense(params["head"], h)
+    node_logits = L.dense(pn["head"], h)
     graph_repr = _readout(h, batch["node_mask"], gp)
     return {"node_logits": node_logits,
             "graph_logits": L.dense(params["head"], graph_repr),
@@ -248,25 +360,29 @@ def gatedgcn_init(cfg: GatedGCNConfig, generator: torch.Generator) -> dict:
 def gatedgcn_apply(cfg: GatedGCNConfig, params, batch, *, n_graphs: int = 1,
                    prep: GraphPrep | None = None):
     gp = prep or graph_prep(batch, n_graphs)
-    src, dst = gp.src_rows, gp.dst_rows
+    params, batch = _on_rows(params, batch)
+    pn, pe = gp.rows.views(params)
+    src, dst, whole = gp.src_rows, gp.dst_rows, gp.rows.for_edges
     emask = batch["edge_mask"][:, None]
-    h = L.dense(params["encoder"], batch["nodes"])
+    h = L.dense(pn["encoder"], batch["nodes"])
     ea = batch.get("edge_attr")
     if ea is None:
         ea = torch.ones((batch["edges"].shape[0], 1), dtype=h.dtype,
                         device=h.device)
-    e = L.dense(params["edge_encoder"], ea)
-    for lp in params["layers"]:
-        e_new = (L.dense(lp["A"], h)[src] + L.dense(lp["B"], h)[dst]
-                 + L.dense(lp["C"], e))
+    e = L.dense(pe["edge_encoder"], ea)
+    for lp, lpe in zip(pn["layers"], pe["layers"]):
+        e_new = (whole(L.dense(lp["A"], h))[src]
+                 + whole(L.dense(lp["B"], h))[dst] + L.dense(lpe["C"], e))
         eta = torch.sigmoid(e_new) * emask
-        num = _edge_sum(eta * L.dense(lp["V"], h)[src], gp)
+        num = _edge_sum(eta * whole(L.dense(lp["V"], h))[src], gp)
         den = _edge_sum(eta, gp) + 1e-6
         h_new = L.dense(lp["U"], h) + num / den
-        h = h + F.relu(_masked_batchnorm(h_new, batch["node_mask"]))
-        e = e + F.relu(_masked_batchnorm(e_new, batch["edge_mask"]))
+        h = h + F.relu(_masked_batchnorm(h_new, batch["node_mask"],
+                                         total=gp.rows.node_stat))
+        e = e + F.relu(_masked_batchnorm(e_new, batch["edge_mask"],
+                                         total=gp.rows.edge_stat))
     graph_repr = _readout(h, batch["node_mask"], gp)
-    return {"node_logits": L.dense(params["head"], h),
+    return {"node_logits": L.dense(pn["head"], h),
             "graph_logits": L.dense(params["head"], graph_repr),
             "node_repr": h}
 
@@ -314,19 +430,23 @@ def egnn_layer_terms(lp, h, x, src, dst, emask):
 def egnn_apply(cfg: EGNNConfig, params, batch, *, n_graphs: int = 1,
                prep: GraphPrep | None = None):
     gp = prep or graph_prep(batch, n_graphs)
+    params, batch = _on_rows(params, batch)
+    pn, pe = gp.rows.views(params)
     emask = batch["edge_mask"][:, None]
-    h = L.dense(params["encoder"], batch["nodes"])
+    h = L.dense(pn["encoder"], batch["nodes"])
     x = batch["coords"].to(h.dtype)
     deg = _edge_sum(batch["edge_mask"], gp)[:, None] + 1.0
-    for lp in params["layers"]:
-        m, xmsg = egnn_layer_terms(lp, h, x, gp.src_rows, gp.dst_rows, emask)
+    for lp, lpe in zip(pn["layers"], pe["layers"]):
+        m, xmsg = egnn_layer_terms(lpe, gp.rows.for_edges(h),
+                                   gp.rows.for_edges(x), gp.src_rows,
+                                   gp.dst_rows, emask)
         # coordinate update (equivariant)
         x = x + _edge_sum(xmsg, gp) / deg
         # feature update
         agg = _edge_sum(m, gp)
         h = h + _mlp2(lp["phi_h"], torch.cat([h, agg], dim=-1))
     graph_repr = _readout(h, batch["node_mask"], gp)
-    return {"node_logits": L.dense(params["head"], h),
+    return {"node_logits": L.dense(pn["head"], h),
             "graph_logits": L.dense(params["head"], graph_repr),
             "node_repr": h, "coords": x}
 
@@ -434,12 +554,14 @@ def nequip_apply(cfg: NequIPConfig, params, batch, *, n_graphs: int = 1,
     """batch['nodes']: (N,) int32 species ids (or one-hot (N, n_species));
     coords (N, 3).  Returns per-atom and per-graph energy."""
     gp = prep or graph_prep(batch, n_graphs)
+    params, batch = _on_rows(params, batch)
+    pn, pe = gp.rows.views(params)
     N = batch["coords"].shape[0]
-    src, dst = gp.src_rows, gp.dst_rows
+    src, dst, whole = gp.src_rows, gp.dst_rows, gp.rows.for_edges
     emask = batch["edge_mask"]
     C = cfg.mul
     species = batch["nodes"]
-    table = params["embed"]["table"]
+    table = pn["embed"]["table"]
     if species.dim() == 2:                      # one-hot -> embed matmul
         h0 = species @ table
     else:
@@ -448,7 +570,7 @@ def nequip_apply(cfg: NequIPConfig, params, batch, *, n_graphs: int = 1,
     h1 = torch.zeros((N, C, 3), dtype=dt, device=h0.device)
     h2 = torch.zeros((N, C, 3, 3), dtype=dt, device=h0.device)
 
-    x = batch["coords"].float()
+    x = whole(batch["coords"].float())
     diff = x[dst] - x[src]
     r = torch.sqrt(torch.sum(torch.square(diff), dim=-1) + 1e-12)
     rhat = diff / r[:, None]
@@ -457,10 +579,11 @@ def nequip_apply(cfg: NequIPConfig, params, batch, *, n_graphs: int = 1,
     Y2 = (torch.einsum("ei,ej->eij", rhat, rhat) - eye / 3.0).to(dt)
     rbf = _bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(dt)
 
-    for lp in params["layers"]:
-        w = _mlp2(lp["radial"], rbf).reshape(-1, N_PATHS, C)
+    for lp, lpe in zip(pn["layers"], pe["layers"]):
+        w = _mlp2(lpe["radial"], rbf).reshape(-1, N_PATHS, C)
         w = w * emask[:, None, None]
-        m0, m1, m2 = _tp_messages(h0, h1, h2, Y1, Y2, src, w)
+        m0, m1, m2 = _tp_messages(whole(h0), whole(h1), whole(h2), Y1, Y2,
+                                  src, w)
         a0 = _edge_sum(m0, gp)
         a1 = _edge_sum(m1, gp)
         a2 = _edge_sum(m2, gp)
@@ -475,9 +598,10 @@ def nequip_apply(cfg: NequIPConfig, params, batch, *, n_graphs: int = 1,
         h1 = h1 * g1[..., None]
         h2 = h2 * g2[..., None, None]
 
-    atom_energy = _mlp2(params["energy_head"], h0)[:, 0]
+    atom_energy = _mlp2(pn["energy_head"], h0)[:, 0]
     atom_energy = atom_energy * batch["node_mask"]
-    energy = segment_sum(atom_energy, gp.graphs, gp.n_graphs)
+    energy = gp.rows.node_total(segment_sum(atom_energy, gp.graphs,
+                                            gp.n_graphs))
     return {"atom_energy": atom_energy, "energy": energy,
             "h0": h0, "h1": h1}
 

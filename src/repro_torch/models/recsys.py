@@ -18,6 +18,17 @@ the reference leaves them to XLA.  ``torch.Generator`` cannot reproduce
 ``jax.random``, so ``params_from_reference`` carries the reference's
 weights over for parity.  ``dien_loss`` is the training loss; under
 autograd both ``augru`` launches have their backward kernel.
+
+On a ``DeviceMesh`` the parameters are DTensors (the item table placed by
+``dist.sharding.recsys_param_specs``, rows over ``"model"`` and the embed
+dim over the data axes; the rest replicated) and so are the batch's leaves
+(``recsys_batch_specs``: rows over the data axes where they divide them).
+Each rank gathers the table whole for its lookups (its gradient goes back
+to the table's placements) and runs the model, both ``augru`` calls
+included, on its own batch rows; every parameter's gradient is summed over
+the ranks that split the rows, and the losses' sums run over every rank's
+rows, in rank order (``dist.sharding``).  The functions then return this
+rank's rows (logits, retrieval scores).
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..dist import sharding as SH
 from ..kernels.augru import augru
 from . import layers as L
 
@@ -102,6 +114,31 @@ def params_to(params: dict, device) -> dict:
     return _tree_map(lambda t: t.to(device), params)
 
 
+def _on_rows(params, batch, lead: str):
+    """(mesh, the mesh dims splitting the rows of batch leaf ``lead``,
+    the parameters and the batch as this rank's plain tensors): each
+    parameter whole, its gradient summed over those dims; each batch leaf
+    its local rows.  Plain tensors pass through, with (None, ())."""
+    x = batch[lead]
+    if not SH.is_dtensor(x):
+        return None, (), params, batch
+    mesh, dims = x.device_mesh, SH.split_dims(x)
+    params = _tree_map(
+        lambda t: SH.sum_grads(SH.whole_local(t), mesh, dims), params)
+    return mesh, dims, params, {k: SH.local_value(v) for k, v in batch.items()}
+
+
+def _roll_rows(x, mesh, dims):
+    """``torch.roll(x, 1, dims=0)`` of rows split over mesh ``dims``: a
+    rank's first row is the previous rank's last row, and the first
+    rank's is the last rank's (the roll wraps around)."""
+    if not dims:
+        return torch.roll(x, 1, dims=0)
+    last = SH.gather_rows(x[-1:], mesh, dims)
+    i = SH.shard_index(mesh, dims)
+    return torch.cat([last[i - 1:i] if i else last[-1:], x[:-1]])
+
+
 def _mlp_head(params, x):
     for p in params["mlp"]:
         x = torch.relu(L.dense(p, x))
@@ -119,17 +156,19 @@ def _interest_states(cfg, params, hist_emb, hist_mask):
     return states * hist_mask[..., None]
 
 
-def _aux_loss(cfg, params, states, hist_emb, mask):
+def _aux_loss(cfg, params, states, hist_emb, mask, mesh=None, dims=()):
     """State_t should predict behavior_{t+1} over a shifted negative
-    (DIEN's aux net, bilinear form)."""
+    (DIEN's aux net, bilinear form); rows split over mesh ``dims`` sum
+    over every rank's."""
     pred = torch.einsum("btg,ge->bte", states[:, :-1], params["aux_w"])
     pos = torch.einsum("bte,bte->bt", pred, hist_emb[:, 1:])
-    neg_emb = torch.roll(hist_emb[:, 1:], 1, dims=0)         # cheap negatives
+    neg_emb = _roll_rows(hist_emb[:, 1:], mesh, dims)       # cheap negatives
     neg = torch.einsum("bte,bte->bt", pred, neg_emb)
     m = mask[:, 1:] * mask[:, :-1]
     aux = -(torch.log(torch.sigmoid(pos) + 1e-9)
             + torch.log(1.0 - torch.sigmoid(neg) + 1e-9))
-    return cfg.aux_weight * (aux * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return cfg.aux_weight * SH.sum_over((aux * m).sum(), mesh, dims) \
+        / torch.clamp(SH.sum_over(m.sum(), mesh, dims), min=1.0)
 
 
 def dien_forward(cfg: DIENConfig, params, batch, *, aux: bool = True):
@@ -137,15 +176,16 @@ def dien_forward(cfg: DIENConfig, params, batch, *, aux: bool = True):
     Returns (logit (B,), aux_loss scalar).  ``aux=False`` skips the
     auxiliary loss and returns None in its place: the reference's jitted
     serve step never computes it either, since XLA drops the unused
-    value."""
+    value.  On a mesh the logits are this rank's rows'."""
+    mesh, dims, params, batch = _on_rows(params, batch, "target")
     table = params["item_table"]["table"]
     hist_emb = table[batch["hist"].long()]                   # (B, T, e)
     tgt_emb = table[batch["target"].long()]                  # (B, e)
     mask = batch["hist_mask"].to(hist_emb.dtype)
 
     states = _interest_states(cfg, params, hist_emb, mask)
-    aux_loss = (_aux_loss(cfg, params, states, hist_emb, mask) if aux
-                else None)
+    aux_loss = (_aux_loss(cfg, params, states, hist_emb, mask, mesh, dims)
+                if aux else None)
 
     # target-conditioned attention -> AUGRU interest evolution
     att_logits = torch.einsum("btg,ge,be->bt", states, params["att_w"],
@@ -166,18 +206,23 @@ def dien_loss(cfg: DIENConfig, params, batch):
     """Binary cross entropy of sigmoid(logit) against ``label`` (with the
     reference's +1e-9 inside each log), plus the auxiliary loss."""
     logit, aux = dien_forward(cfg, params, batch)
-    y = batch["label"].float()
+    label = batch["label"]
+    y = SH.local_value(label).float()
     p = torch.sigmoid(logit.float())
-    bce = -(y * torch.log(p + 1e-9)
-            + (1 - y) * torch.log(1 - p + 1e-9)).mean()
-    return bce + aux
+    terms = y * torch.log(p + 1e-9) + (1 - y) * torch.log(1 - p + 1e-9)
+    dims = SH.split_dims(label)
+    if dims:              # the mean over every rank's rows
+        return -SH.sum_over(terms.sum(), label.device_mesh, dims) \
+            / label.shape[0] + aux
+    return -terms.mean() + aux
 
 
 def dien_retrieval_score(cfg: DIENConfig, params, batch):
     """Score ONE user's history against M candidates with DIN-style
     attention pooling over precomputed GRU states (no per-candidate
     recurrence).  batch: hist (1, T), hist_mask (1, T), candidates (M,).
-    Returns scores (M,)."""
+    Returns scores (M,) (on a mesh, of this rank's candidates)."""
+    _, _, params, batch = _on_rows(params, batch, "candidates")
     table = params["item_table"]["table"]
     hist_emb = table[batch["hist"].long()]
     mask = batch["hist_mask"].to(hist_emb.dtype)

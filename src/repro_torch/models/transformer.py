@@ -51,7 +51,12 @@ experts) and olmoe-1b-7b (64 routed top-8, QK-norm).
   and gathers run on each rank's token groups with the experts' products
   DTensor ``bmm``s (expert parallel or the ff dim's tensor parallelism,
   as the rules place the experts); the cross entropy reduces over vocab
-  shards (``_cross_entropy_sharded``).  ``init_params_abstract`` and
+  shards (``_cross_entropy_sharded``).  ``decode_step`` runs on a cache
+  placed by ``lm_cache_specs`` (batch over the data axes, kv heads over
+  ``"model"`` where they divide them): the projections are DTensor
+  products, each rank writes its step's keys and values into its own
+  cache shard in place and attends its local query heads over it
+  (``_attention_with_cache_sharded``).  ``init_params_abstract`` and
   ``cache_abstract`` give the trees as meta tensors.
 """
 from __future__ import annotations
@@ -705,33 +710,93 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens, pos: int):
     this step's keys and values into ``cache`` at ``pos`` (in place) and
     returns (logits (B, vocab), cache).  An MoE FFN routes the step's
     N = B tokens as the reference does (in groups when the dispatch groups
-    divide B; the aux loss is dropped)."""
+    divide B; the aux loss is dropped).  On a mesh the parameters, cache
+    and tokens are DTensors (``pos`` stays an int) and so are the
+    logits; each rank writes into its local cache shard."""
     B = tokens.shape[0]
-    h = params["embed"]["table"][tokens]            # (B, 1, d)
+    h = _embed(params["embed"]["table"], tokens)    # (B, 1, d)
     positions = torch.full((B, 1), int(pos), device=tokens.device)
+    layers = _tree_map(SH.unbind, params["layers"])
+    k_all, v_all = SH.local_value(cache["k"]), SH.local_value(cache["v"])
     for i in range(cfg.n_layers):
-        p = layer_params(params, i)
-        x = L.norm_apply(cfg.norm, p["ln1"], h)
-        a = _attention_with_cache(cfg, p, x, positions, cache["k"][i],
-                                  cache["v"][i], int(pos))
+        p = _tree_map(lambda t: t[i], layers)
+        x = _norm(cfg, p["ln1"], h)
+        a = _attention_with_cache(cfg, p, x, positions, k_all[i], v_all[i],
+                                  int(pos))
         h = h + a
-        x2 = L.norm_apply(cfg.norm, p["ln2"], h)
+        x2 = _norm(cfg, p["ln2"], h)
         if cfg.moe is None:
             h = h + L.mlp(p["mlp"], x2, act=cfg.act)
         else:
             y, _ = _moe_apply(cfg, p, x2.reshape(B, -1))
             h = h + y.reshape(B, 1, -1)
+        h = constrain(h, (0, "fsdp"))
     return _logits(cfg, params, h[:, 0]), cache
 
 
 def _attention_with_cache(cfg, p, x, positions, k_cache, v_cache, pos):
-    B, S, _ = x.shape
+    """x: (B, S, d); ``k_cache``/``v_cache``: one layer's (B, Hkv, S_max,
+    Dh) cache (on a mesh, this rank's shard of it)."""
+    S = x.shape[1]
     if not 0 <= pos <= k_cache.shape[2] - S:
         raise ValueError(f"decode position {pos} outside a cache of "
                          f"{k_cache.shape[2]}")
+    if SH.is_dtensor(x):
+        return _attention_with_cache_sharded(cfg, p, x, k_cache, v_cache,
+                                             pos)
+    B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, positions)
     k_cache[:, :, pos:pos + S] = k.to(k_cache.dtype)
     v_cache[:, :, pos:pos + S] = v.to(v_cache.dtype)
     o = _masked_attention(q, k_cache, v_cache, pos + 1)
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     return L.dense(p["wo"], o)
+
+
+def _attention_with_cache_sharded(cfg, p, x, k_cache, v_cache, pos):
+    """``_attention_with_cache`` of a DTensor x (B, S, d) over this rank's
+    cache shard, the cache laid out by ``lm_cache_specs`` (batch over the
+    data axes and kv heads over ``"model"`` where they divide them): the
+    projections are DTensor products, q laid out batch over the data
+    axes and heads over ``"model"`` (where the heads divide it), k and v
+    as the cache; each rank writes its k and v into its shard at ``pos``
+    and attends its local query heads over the kv heads they read (its
+    whole shard when the kv heads are split, else those
+    ``_local_kv_heads`` picks, as ``_attention_sharded`` does)."""
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nm = SH.axis_size(mesh, "model")
+    batch = SH.fsdp_entry(mesh, B)
+    split = nm > 1 and H % nm == 0
+    kv_split = nm > 1 and Hkv % nm == 0
+    q_pl = SH.placements(mesh, SH.P(batch, None, "model" if split else None))
+    kv_pl = SH.placements(mesh, SH.P(batch, None,
+                                     "model" if kv_split else None))
+    q = L.dense(p["wq"], x).redistribute(mesh, q_pl).to_local()
+    k = L.dense(p["wk"], x).redistribute(mesh, kv_pl).to_local()
+    v = L.dense(p["wv"], x).redistribute(mesh, kv_pl).to_local()
+    Bl = q.shape[0]
+    Hl, Hkl = q.shape[2] // Dh, k.shape[2] // Dh
+    q = q.reshape(Bl, S, Hl, Dh)
+    k = k.reshape(Bl, S, Hkl, Dh)
+    v = v.reshape(Bl, S, Hkl, Dh)
+    if cfg.qk_norm:
+        q = L.rmsnorm({"scale": SH.replicated_value(
+            p["q_norm"]["scale"])}, q)
+        k = L.rmsnorm({"scale": SH.replicated_value(
+            p["k_norm"]["scale"])}, k)
+    positions = torch.full((Bl, S), int(pos), device=q.device)
+    q = L.apply_rope(q.transpose(1, 2), positions[:, None, :],
+                     cfg.rope_theta)                    # (Bl, Hl, S, Dh)
+    k = L.apply_rope(k.transpose(1, 2), positions[:, None, :],
+                     cfg.rope_theta)
+    k_cache[:, :, pos:pos + S] = k.to(k_cache.dtype)
+    v_cache[:, :, pos:pos + S] = v.transpose(1, 2).to(v_cache.dtype)
+    if split and not kv_split:
+        h0 = SH.coordinate(mesh, "model") * Hl
+        k_cache = _local_kv_heads(k_cache, h0, Hl, H // Hkv)
+        v_cache = _local_kv_heads(v_cache, h0, Hl, H // Hkv)
+    o = _masked_attention(q, k_cache, v_cache, pos + 1)
+    o = o.transpose(1, 2).reshape(Bl, S, Hl * Dh)
+    return L.dense(p["wo"], SH.from_local(o, mesh, q_pl))
