@@ -216,6 +216,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               routes, losses and parameters compared.  Every comparison
               is within 1e-5 of each leaf's largest magnitude, and
               bit-equality is reported.
+9e. dryrun    the dry run (``repro_torch.launch.dryrun``) on the CPU, no
+              card, in a process of its own (``--dryrun-worker``) started
+              beside the ``build`` phase's nvcc runs and waited for before
+              ``kernels`` (``waited_s``: the seconds the run waited);
+              its line follows ``sharded_train``'s: checks
+              that this torch has the private pieces it relies on (the
+              fake process group, the FLOP formulas, DTensor's shape
+              propagation; it says which is missing and fails), traces
+              dien x serve_p99, gin-tu x molecule and starcoder2-3b x
+              train_4k (2 layers, one microbatch) at full width on the
+              (16, 16) mesh of a 512-rank fake group, then DIEN's
+              train_batch cell on a (1, 1) fake mesh, whose argument bytes
+              must equal the bytes of ``sharded_train``'s placed DIEN
+              state and batch; its ``peak_estimate_bytes`` is printed over
+              that step's measured peak (not gated).  Adds no kernel.
 10. main_path  2PS-L through the port's partitioning CLI on an RMAT-19
               stream (the user's entry point, through
               ``MemmapEdgeStream``), k=32: one ``edge_score`` launch per
@@ -425,8 +440,8 @@ artifact and runs ``partitioned_train`` on it, and does nothing else.
 
 builds ``flash_attention``, ``augru`` and ``spmm`` with their backwards
 and runs ``sharded_train`` (the LM train step, decode, DIEN and the four
-GNN train steps on the (1, 1) mesh against their unsharded routes), and
-does nothing else.
+GNN train steps on the (1, 1) mesh against their unsharded routes) and
+``dryrun``, and does nothing else.
 
     python3 chip_smoke.py --partition-counted ARGS...
     python3 chip_smoke.py --dist-counted ARGS...
@@ -7174,7 +7189,7 @@ def sharded_dien(mesh, device: str) -> dict:
     from repro_torch.dist import sharding as SH
     from repro_torch.launch import steps as S
     from repro_torch.optim import adamw_init
-    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.runtime import reshard_tree
     cfg = get_arch("dien").make_config()
     t0 = time.perf_counter()
@@ -7208,6 +7223,9 @@ def sharded_dien(mesh, device: str) -> dict:
             batches = [{k: v.to(device) for k, v in b.items()}
                        for b in batches]
         tb, sb, rb = batches
+        placed = sum(t.numel() * t.element_size() for t in
+                     tree_leaves({"state": tree_map(SH.local_value, state),
+                                  "batch": tree_map(SH.local_value, tb)}))
         reset_peak(device)
         losses, ms, after = [], [], []
         for _ in range(SHARDED_DIEN_STEPS):
@@ -7231,6 +7249,7 @@ def sharded_dien(mesh, device: str) -> dict:
                         f"sharded_train DIEN retrieval ({route})")
         out[route] = {"losses": losses, "step_ms": ms, "serve_ms": serve_ms,
                       "retrieval_ms": retrieval_ms,
+                      "placed_bytes": placed,
                       "peak_device_bytes": peak, "after": after,
                       "ctr": SH.replicated_value(ctr),
                       "top": (values, indices)}
@@ -7497,6 +7516,142 @@ def sharded_train(tmp: str) -> dict:
     return line
 
 
+#: the ``dryrun`` phase's cells on the (16, 16) mesh, at full width; an LM
+#: cut to ``DRYRUN_LM_LAYERS`` layers and one microbatch
+DRYRUN_CELLS = (("dien", "serve_p99"), ("gin-tu", "molecule"),
+                ("starcoder2-3b", "train_4k"))
+DRYRUN_LM_LAYERS = 2
+
+#: what the dry run takes from torch beyond its public API (module,
+#: attribute): the fake process group, the FLOP formulas, DTensor's shape
+#: propagation (its ops are not counted), the group lookup by name
+DRYRUN_NEEDS = (
+    ("torch.testing._internal.distributed.fake_pg", "FakeStore"),
+    ("torch._subclasses.fake_tensor", "FakeTensorMode"),
+    ("torch.utils.flop_counter", "flop_registry"),
+    ("torch.utils.weak", "WeakIdKeyDictionary"),
+    ("torch.distributed.tensor._sharding_prop", "ShardingPropagator"),
+    ("torch.distributed.distributed_c10d", "_resolve_process_group"),
+)
+
+
+def dryrun_worker(out: str) -> None:
+    """The ``dryrun`` phase's work in a process of its own (``python3
+    chip_smoke.py --dryrun-worker OUT``; it joins a fake process group of
+    512 ranks, and no card is used): checks that this torch has what the
+    dry run relies on (``DRYRUN_NEEDS``, and ``FakeTensorMode`` over
+    DTensor by running it), traces ``DRYRUN_CELLS`` with
+    ``repro_torch.launch.dryrun`` at (16, 16), then DIEN's train_batch cell
+    on a (1, 1) fake mesh; writes the line to ``out``, with the process's
+    seconds from the import of this module."""
+    import importlib
+    import torch
+    missing = []
+    for module, attr in DRYRUN_NEEDS:
+        try:
+            if not hasattr(importlib.import_module(module), attr):
+                missing.append(f"{module}.{attr}")
+        except ImportError as e:
+            missing.append(f"{module} ({e})")
+    if not missing:
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+        if not hasattr(ShardingPropagator,
+                       "_propagate_tensor_meta_non_cached"):
+            missing.append("ShardingPropagator."
+                           "_propagate_tensor_meta_non_cached")
+    if missing:
+        raise RuntimeError(f"dryrun: torch {torch.__version__} lacks what "
+                           f"the dry run needs: {', '.join(missing)}")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_device_mesh
+    t0 = time.perf_counter()
+    mesh = D.production_mesh(False)
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        lm = get_arch(arch).family == "lm"
+        rec = D.trace(D.build_cell(
+            arch, shape, mesh, n_layers=DRYRUN_LM_LAYERS if lm else None,
+            microbatches=1))
+        if not (rec["flops"] > 0 and rec["memory"]["argument_bytes"] > 0
+                and mesh.size() == 256):
+            raise AssertionError(f"dryrun: {arch} x {shape}: {rec}")
+        cells[f"{arch}__{shape}"] = rec
+    cells_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make_device_mesh((1, 1), ("data", "model"), device="cpu")
+    dien = D.trace(D.build_cell("dien", "train_batch", mesh))
+    line = {"torch": torch.__version__, "cells": cells, "cells_s": cells_s,
+            "dien_train_1x1": {"memory": dien["memory"],
+                               "flops": dien["flops"],
+                               "trace_s": dien["seconds"],
+                               "build_and_trace_s":
+                                   time.perf_counter() - t0},
+            "worker_s": time.perf_counter() - T0}
+    with open(out, "w") as f:
+        json.dump(line, f)
+
+
+def start_dryrun(tmp: str) -> dict:
+    """Starts ``dryrun_worker`` (CPU only) beside the phases that follow,
+    its output to a log in ``tmp``; ``finish_dryrun`` collects it."""
+    out = os.path.join(tmp, "dryrun.json")
+    log = open(os.path.join(tmp, "dryrun.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--dryrun-worker", out], stdout=log,
+                            stderr=subprocess.STDOUT)
+    return {"proc": proc, "out": out, "log": log}
+
+
+def wait_dryrun(run: dict) -> float:
+    """Waits for ``start_dryrun``'s worker; the seconds waited here.
+    Raises with the tail of its log if it failed."""
+    t0 = time.perf_counter()
+    try:
+        rc = run["proc"].wait(timeout=600)
+    finally:
+        run["log"].close()
+    if rc:
+        with open(run["log"].name) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"dryrun: the worker exited {rc}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def finish_dryrun(run: dict, waited_s: float,
+                  sharded: dict | None = None) -> dict:
+    """The ``dryrun`` phase's line from the worker's; with
+    ``sharded_train``'s line, the (1, 1) DIEN estimate's argument bytes
+    held to the bytes of that phase's placed state and batch (equal), and
+    its ``peak_estimate_bytes`` printed over the step's measured peak (not
+    gated).  ``waited_s``: the seconds the run waited for the worker."""
+    with open(run["out"]) as f:
+        line = json.load(f)
+    if sharded is not None:
+        placed = sharded["dien"]["mesh"]
+        est = line["dien_train_1x1"]
+        if est["memory"]["argument_bytes"] != placed["placed_bytes"]:
+            raise AssertionError(
+                f"dryrun: DIEN train_batch's estimated argument bytes "
+                f"{est['memory']['argument_bytes']} against the "
+                f"{placed['placed_bytes']} placed by sharded_train")
+        peak = placed["peak_device_bytes"]
+        est["placed_bytes"] = placed["placed_bytes"]
+        est["measured_peak_bytes"] = peak
+        est["peak_estimate_over_measured"] = (
+            est["memory"]["peak_estimate_bytes"] / peak
+            if isinstance(peak, int) and peak else None)
+    line["waited_s"] = waited_s
+    return line
+
+
+def dryrun_phase(tmp: str, sharded: dict | None = None) -> dict:
+    """The ``dryrun`` phase alone: the worker started and waited for."""
+    run = start_dryrun(tmp)
+    return finish_dryrun(run, wait_dryrun(run), sharded)
+
+
 #: the ``artifact`` phase's RMAT scale (at most), which
 #: ``partitioned_train`` trains on
 ARTIFACT_SCALE = 18
@@ -7558,7 +7713,8 @@ def main(argv=None) -> int:
                          "line")
     ap.add_argument("--sharded-only", action="store_true",
                     help="only build flash_attention, augru and spmm and "
-                         "run the sharded_train phase, and print its line")
+                         "run the sharded_train and dryrun phases, and "
+                         "print their lines")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
@@ -7566,7 +7722,8 @@ def main(argv=None) -> int:
                          "process gru_split_library starts)")
     argv = sys.argv[1:] if argv is None else argv
     counted_cli = argv[:1] in (["--partition-counted"], ["--dist-counted"],
-                               ["--sharded-train-worker"])
+                               ["--sharded-train-worker"],
+                               ["--dryrun-worker"])
     args = ap.parse_args([] if counted_cli else argv)
 
     import torch
@@ -7579,6 +7736,9 @@ def main(argv=None) -> int:
             return dist_counted(argv[1:])
         if argv[0] == "--sharded-train-worker":
             sharded_train_worker(argv[1], int(argv[2]))
+            return 0
+        if argv[0] == "--dryrun-worker":
+            dryrun_worker(argv[1])
             return 0
         return partition_counted(argv[1:])
     if args.gru_library:
@@ -7630,7 +7790,9 @@ def main(argv=None) -> int:
                           ag_kernel.BACKWARD_NAME: ag_kernel.BACKWARD_SOURCE,
                           sp_kernel.NAME: sp_kernel.SOURCE})
         with tempfile.TemporaryDirectory() as tmp:
-            emit({"phase": "sharded_train", **sharded_train(tmp)})
+            st = sharded_train(tmp)
+            emit({"phase": "sharded_train", **st})
+            emit({"phase": "dryrun", **dryrun_phase(tmp, st)})
         return 0
     if args.spmm_tune:
         print(nvidia_smi(), flush=True)
@@ -7652,19 +7814,28 @@ def main(argv=None) -> int:
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
 
+    # the dry run needs no card: its worker runs on the host beside the
+    # kernels' build (nvcc), and is waited for before the kernel checks
+    dr_dir = tempfile.TemporaryDirectory()
+    dr = start_dryrun(dr_dir.name)
     t0 = time.perf_counter()
-    cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
-                      hs_kernel.NAME: hs_kernel.SOURCE,
-                      ag_kernel.NAME: ag_kernel.SOURCE,
-                      ag_kernel.BACKWARD_NAME: ag_kernel.BACKWARD_SOURCE,
-                      fa_kernel.NAME: fa_kernel.SOURCE,
-                      fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE,
-                      sp_kernel.NAME: sp_kernel.SOURCE,
-                      eb_kernel.NAME: eb_kernel.SOURCE})
+    try:
+        cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
+                          hs_kernel.NAME: hs_kernel.SOURCE,
+                          ag_kernel.NAME: ag_kernel.SOURCE,
+                          ag_kernel.BACKWARD_NAME: ag_kernel.BACKWARD_SOURCE,
+                          fa_kernel.NAME: fa_kernel.SOURCE,
+                          fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE,
+                          sp_kernel.NAME: sp_kernel.SOURCE,
+                          eb_kernel.NAME: eb_kernel.SOURCE})
+    except BaseException:
+        dr["proc"].kill()
+        raise
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": i["seconds"],
                           "ptxas": ptxas_report(i["log"])}
                       for n, i in cuda_build.build_info.items()}})
+    dr_waited = wait_dryrun(dr)
 
     check = check_edge_score((1, 1000, 65536, 65537), (0.0, 0.5, 1.0))
     e_bits = check_twopsl_bits(TWOPSL_ES, TWOPSL_KS, TWOPSL_HOSTS)
@@ -7735,6 +7906,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         st = sharded_train(tmp)
     emit({"phase": "sharded_train", **st})
+    emit({"phase": "dryrun", **finish_dryrun(dr, dr_waited, st)})
+    dr_dir.cleanup()
 
     with tempfile.TemporaryDirectory() as tmp:
         # the partitioning paths run below their earlier slices' scales

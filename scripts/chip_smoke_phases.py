@@ -17,7 +17,10 @@ then the card's name and power limit.  The phases:
 - ``card_vs_cpu``: the full run's last phase, with its HDRF family, HEP,
   buffered and artifact runs, at the full run's scales;
 - ``moe_serve``: ``moe_serve``;
-- ``sharded_train``: ``sharded_train`` (its worker process).
+- ``sharded_train``: ``sharded_train`` (its worker process);
+- ``dryrun``: ``dryrun_phase`` (its worker process started and waited
+  for, without ``sharded_train``'s line); a tree without the phase
+  prints ``"seconds": null``.
 
 The same phases of two trees timed in one card call (a commit and its
 parent unpacked with ``git archive``, in the order parent, change, change,
@@ -34,7 +37,7 @@ import tempfile
 import time
 
 PHASES = ("shard", "hdrf_baselines", "card_vs_cpu", "moe_serve",
-          "sharded_train")
+          "sharded_train", "dryrun")
 
 
 def run_phase(C, name: str):
@@ -64,6 +67,9 @@ def run_phase(C, name: str):
     elif name == "sharded_train":
         with tempfile.TemporaryDirectory() as tmp:
             C.sharded_train(tmp)
+    elif name == "dryrun":
+        with tempfile.TemporaryDirectory() as tmp:
+            C.dryrun_phase(tmp)
     else:
         C.moe_serve()
 
@@ -94,6 +100,10 @@ def main(argv=None) -> int:
                       fa.NAME: fa.SOURCE, fa.BACKWARD_NAME: fa.BACKWARD_SOURCE,
                       sp.NAME: sp.SOURCE, eb.NAME: eb.SOURCE})
     for name in args.phases:
+        if name == "dryrun" and not hasattr(C, "dryrun_phase"):
+            print(json.dumps({"root": root, "phase": name, "seconds": None}),
+                  flush=True)
+            continue
         t0 = time.perf_counter()
         seconds = run_phase(C, name)
         print(json.dumps({"root": root, "phase": name,

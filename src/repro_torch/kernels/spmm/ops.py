@@ -268,9 +268,27 @@ class TilePrep:
         wrapped = torch.where(wrapped < 0, wrapped + n, wrapped)
         counts = self.row_ptr[1:] - self.row_ptr[:-1]
         rows = torch.repeat_interleave(
-            torch.arange(self.num_nodes, device=self.device), counts)
+            torch.arange(self.num_nodes, device=self.device), counts,
+            output_size=self.num_edges)
         rev = _reverse(wrapped, n, rows, self.num_nodes, e.weights,
                        self.device)
+        return dataclasses.replace(self, reverse=rev)
+
+    def with_abstract_reverse(self) -> "TilePrep":
+        """``with_reverse``'s shapes without reading an id: the reverse
+        prep is ``abstract_tiles`` over the bound edges' x rows (no
+        cut-off row), its bound source an empty (E,) int64 tensor (for a
+        shape-only trace, ``launch.dryrun``)."""
+        e = self.edges
+        if e is None:
+            raise ValueError("with_abstract_reverse: bind the edges first "
+                             "(with_edges)")
+        rows = torch.empty(self.num_edges, dtype=torch.int64,
+                           device=self.device)
+        rev = abstract_tiles(self.num_edges, e.num_rows, self.device)
+        rev = ReverseEdges(rev.with_edges(rows, e.weights,
+                                          num_rows=self.num_nodes),
+                           rows, e.weights, e.num_rows)
         return dataclasses.replace(self, reverse=rev)
 
     @functools.cached_property
@@ -285,7 +303,8 @@ class TilePrep:
         nodes = torch.arange(self.num_nodes, device=self.device)
         out = torch.empty(self.num_edges, dtype=torch.int64,
                           device=self.device)
-        out[self.perm.long()] = torch.repeat_interleave(nodes, counts)
+        out[self.perm.long()] = torch.repeat_interleave(
+            nodes, counts, output_size=self.num_edges)
         return out
 
 
@@ -315,6 +334,33 @@ def prepare_tiles(dst, num_nodes: int) -> TilePrep:
                     hub_chunk_ptr=torch.zeros(1, dtype=torch.int64),
                     n_chunks=0, blocks=kernel.row_blocks(row_ptr))
     return prep.with_split(SPLIT_EDGES)
+
+
+def abstract_tiles(num_edges: int, num_nodes: int, device) -> TilePrep:
+    """A ``TilePrep`` of the shapes ``prepare_tiles`` gives ``num_edges``
+    edges over ``num_nodes`` nodes, every tensor made with ``torch.empty``
+    (under ``FakeTensorMode`` a fake tensor: no id is read and nothing is
+    allocated), for a shape-only trace (``launch.dryrun``).  The sizes that
+    depend on the data are fixed: no hub rows (no row has more than
+    ``SPLIT_EDGES`` edges, so no chunks) and the row blocks that
+    ``kernel.row_blocks`` gives at a uniform degree (row i's edges start
+    at i * E // N; counted on a real CPU ``row_ptr`` made outside any fake
+    mode)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    E, N = int(num_edges), int(num_nodes)
+    with unset_fake_temporarily():
+        ptr = torch.arange(N + 1, dtype=torch.int64) * E // max(N, 1)
+        n_blocks = kernel.row_blocks(ptr).numel() - 1
+
+    def empty(n, dtype):
+        return torch.empty(n, dtype=dtype, device=device)
+
+    return TilePrep(perm=empty(E, torch.int32 if E <= _INT32_MAX
+                               else torch.int64),
+                    row_ptr=empty(N + 1, torch.int64), num_nodes=N,
+                    split=SPLIT_EDGES, hub_rows=empty(0, torch.int64),
+                    hub_chunk_ptr=empty(1, torch.int64), n_chunks=0,
+                    blocks=empty(n_blocks + 1, torch.int64))
 
 
 def _check(what, rows, src, weights, prep):

@@ -34,7 +34,8 @@ def sorted_sum_ref(rows, idx, weights, row_ptr):
     (or None) already in destination order."""
     n = row_ptr.numel() - 1
     dst = torch.repeat_interleave(torch.arange(n, device=rows.device),
-                                  row_ptr[1:] - row_ptr[:-1])
+                                  row_ptr[1:] - row_ptr[:-1],
+                                  output_size=idx.numel())
     msg = rows[idx.long()]
     if weights is not None:
         msg = msg * weights[:, None]

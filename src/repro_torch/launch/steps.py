@@ -186,15 +186,22 @@ class PrepCache:
         return self._prep
 
 
-def make_gnn_train_step(cfg, kind: str, *, n_graphs: int = 1, lr=1e-3):
+def make_gnn_train_step(cfg, kind: str, *, n_graphs: int = 1, lr=1e-3,
+                        prep: G.GraphPrep | None = None):
     """The reference's GNN train step (AdamW, no weight decay) on
     ``gnn_loss_fn``, each batch prepared once (``PrepCache``, as
-    ``step.prep_cache``)."""
+    ``step.prep_cache``).  A ``prep`` given here is used for every batch
+    instead (the caller's promise that it is theirs: the dry run's
+    shape-only ``graph_prep(..., abstract=True)``); ``step.prep_cache`` is
+    then None."""
     lr_fn = linear_warmup_cosine(lr, 20, 2_000)
     loss = gnn_loss_fn(cfg, kind, n_graphs)
-    cache = PrepCache(n_graphs, reverse=_gnn_kind(cfg) == "gin")
+    cache = None
+    if prep is None:
+        cache = PrepCache(n_graphs, reverse=_gnn_kind(cfg) == "gin")
     step = make_train_step(
-        lambda params, batch: loss(params, batch, prep=cache.get(batch)),
+        lambda params, batch: loss(
+            params, batch, prep=prep if cache is None else cache.get(batch)),
         lr_fn, weight_decay=0.0)
     step.prep_cache = cache
     return step

@@ -54,7 +54,8 @@ import torch.nn.functional as F
 
 from ..dist import sharding as SH
 from ..kernels import wrap_clamp_index
-from ..kernels.spmm import TilePrep, prepare_tiles, segment_sum_tiles, spmm
+from ..kernels.spmm import (TilePrep, abstract_tiles, prepare_tiles,
+                            segment_sum_tiles, spmm)
 from . import layers as L
 
 
@@ -167,11 +168,15 @@ class GraphPrep:
         return wrap_clamp_index(self.dst, self.num_nodes)
 
 
-def segments(ids, n: int, device) -> TilePrep:
+def segments(ids, n: int, device, *, abstract: bool = False) -> TilePrep:
     """The ``TilePrep`` of segment ``ids`` (numpy or a tensor) over ``n``
     segments on ``device``, prepared on the host.  JAX's segment sum drops
     an id outside [0, n); here such ids go to one extra segment ``n``,
-    which ``segment_sum`` and ``neighbour_sum`` cut off."""
+    which ``segment_sum`` and ``neighbour_sum`` cut off.  With ``abstract``
+    no id is read: ``abstract_tiles`` of ``len(ids)`` ids over ``n``
+    segments (a shape-only trace's)."""
+    if abstract:
+        return abstract_tiles(len(ids), n, device)
     if isinstance(ids, torch.Tensor):
         ids = ids.detach().cpu().numpy()
     ids = np.asarray(ids)
@@ -181,37 +186,46 @@ def segments(ids, n: int, device) -> TilePrep:
 
 
 def edge_prep(edges: torch.Tensor, edge_mask: torch.Tensor,
-              num_nodes: int, *, reverse: bool = False) -> GraphPrep:
+              num_nodes: int, *, reverse: bool = False,
+              abstract: bool = False) -> GraphPrep:
     """The ``GraphPrep`` of an (E, 2) edge tensor over ``num_nodes`` nodes,
     without a readout: ``segments`` of ``dst``, ``src`` and ``edge_mask``
     bound, and with ``reverse`` their reverse (``neighbour_sum``'s
-    backward; a second host preparation)."""
+    backward; a second host preparation).  ``abstract``: shapes only
+    (``segments``, ``TilePrep.with_abstract_reverse``)."""
     src, dst = edges[:, 0], edges[:, 1]
-    prep = segments(dst, num_nodes, edges.device).with_edges(
-        src, edge_mask, num_rows=num_nodes)
+    prep = segments(dst, num_nodes, edges.device,
+                    abstract=abstract).with_edges(src, edge_mask,
+                                                  num_rows=num_nodes)
     if reverse:
-        prep = prep.with_reverse(src)
+        prep = (prep.with_abstract_reverse() if abstract
+                else prep.with_reverse(src))
     return GraphPrep(src=src, dst=dst, edge_mask=edge_mask,
                      num_nodes=num_nodes, edges=prep)
 
 
 def graph_prep(batch: dict, n_graphs: int = 1, *,
-               reverse: bool = False) -> GraphPrep:
+               reverse: bool = False, abstract: bool = False) -> GraphPrep:
     """The ``GraphPrep`` of a batch: its edges over ``node_mask``'s N nodes
     and its readout over ``graph_ids`` into ``n_graphs`` graphs (with
     ``reverse``, the bound edges' reverse too: a train step's).  A batch
     of DTensors (``gnn_batch_specs``) gets this rank's: its edge rows over
-    all N nodes, its node rows' readout, and their ``MeshRows``."""
+    all N nodes, its node rows' readout, and their ``MeshRows``.  With
+    ``abstract`` no id is read and every tensor is made empty, of the
+    shape a real preparation gives when no row has more than
+    ``kernels.spmm.SPLIT_EDGES`` edges, every id is in range and the
+    degrees are uniform (``kernels.spmm.abstract_tiles``): under
+    ``FakeTensorMode``, the shape-only preparation of ``launch.dryrun``."""
     rows = mesh_rows(batch)
     num_nodes = int(batch["node_mask"].shape[0])
     batch = {k: SH.local_value(batch[k])
              for k in ("edges", "edge_mask", "graph_ids")}
     gp = edge_prep(batch["edges"], batch["edge_mask"], num_nodes,
-                   reverse=reverse)
+                   reverse=reverse, abstract=abstract)
     return dataclasses.replace(
         gp, n_graphs=n_graphs, rows=rows,
         graphs=segments(batch["graph_ids"], n_graphs,
-                        batch["graph_ids"].device))
+                        batch["graph_ids"].device, abstract=abstract))
 
 
 def segment_sum(data: torch.Tensor, prep: TilePrep, n: int) -> torch.Tensor:

@@ -41,21 +41,22 @@ experts) and olmoe-1b-7b (64 routed top-8, QK-norm).
   G > 1 routes within G token groups (when G divides the token count) in
   one batched dispatch.
 - Under a mesh (``dist.sharding``) the forward, ``lm_loss`` and the MoE
-  layer run on DTensor parameters (placed by ``lm_param_specs``) and
-  batches (``lm_batch_specs``), with ``constrain`` where the reference
-  puts it: after the embedding, on each layer's residual, on the logits
-  and around the MoE dispatch.  Dense layers are DTensor products; the
-  attention runs ``flash_attention`` on each rank's local heads
-  (``_attention_sharded``: q's heads over ``"model"``, k and v replicated
-  over it, since ``wk``'s shard may end mid-head); the MoE routing, sort
-  and gathers run on each rank's token groups with the experts' products
-  DTensor ``bmm``s (expert parallel or the ff dim's tensor parallelism,
-  as the rules place the experts); the cross entropy reduces over vocab
-  shards (``_cross_entropy_sharded``).  ``decode_step`` runs on a cache
-  placed by ``lm_cache_specs`` (batch over the data axes, kv heads over
-  ``"model"`` where they divide them): the projections are DTensor
-  products, each rank writes its step's keys and values into its own
-  cache shard in place and attends its local query heads over it
+  layer run on DTensor parameters (placed by ``lm_param_specs``) and batches
+  (``lm_batch_specs``), with ``constrain`` where the reference puts it:
+  after the embedding, on each layer's residual, on the logits and around
+  the MoE dispatch.  Dense layers are DTensor products; the attention runs
+  ``flash_attention`` on each rank's local heads (``_attention_sharded``:
+  q's heads over ``"model"``, k and v replicated over it, since ``wk``'s
+  shard may end mid-head; where the heads do not divide it, each model
+  rank's run of (row, head) units); the MoE routing, sort and gathers run on
+  each rank's token groups with the experts' products DTensor ``bmm``s
+  (expert parallel or the ff dim's tensor parallelism, as the rules place
+  the experts); the cross entropy reduces over vocab shards
+  (``_cross_entropy_sharded``).  ``decode_step`` runs on a cache placed by
+  ``lm_cache_specs`` (batch over the data axes, kv heads over ``"model"``
+  where they divide them): the projections are DTensor products, each rank
+  writes its step's keys and values into its own cache shard in place and
+  attends its local query heads over it
   (``_attention_with_cache_sharded``).  ``init_params_abstract`` and
   ``cache_abstract`` give the trees as meta tensors.
 """
@@ -314,50 +315,98 @@ def _local_kv_heads(k, h0: int, n_q: int, group: int):
     return k.index_select(1, idx)
 
 
+def _head_units(mesh, Bl: int, H: int):
+    """This rank's share of its data shard's (batch row, head) units where
+    the ``H`` heads do not divide ``"model"`` but the ``Bl * H`` units do,
+    each model rank taking the next run of them: (b0, nb, h0, nh), rows
+    [b0, b0 + nb) at heads [h0, h0 + nh), whole rows or part of one row.
+    None where the heads split (or the axis is one rank) and where the
+    units do not split so (every model rank then computes them all)."""
+    nm = SH.axis_size(mesh, "model")
+    if nm == 1 or H % nm == 0 or Bl * H % nm:
+        return None
+    n = Bl * H // nm
+    u0 = SH.coordinate(mesh, "model") * n
+    if n % H == 0:
+        return u0 // H, n // H, 0, H
+    if H % n == 0:
+        return u0 // H, 1, u0 % H, n
+    return None
+
+
+def _gather_units(o, mesh, Bl: int, H: int):
+    """The attention output ``o`` (nb, nh, S, Dh) of this rank's units
+    (``_head_units``) gathered over ``"model"`` into its data shard's
+    (Bl, S, H * Dh), whole on every model rank (each keeps its units'
+    rows of the gradient)."""
+    nb, nh, S, Dh = o.shape
+    model = mesh.mesh_dim_names.index("model")
+    whole = SH.gather_rows(o.reshape(nb * nh, S, Dh), mesh, (model,),
+                           partial_grad=False)
+    return whole.reshape(Bl, H, S, Dh).transpose(1, 2).reshape(
+        Bl, S, H * Dh)
+
+
 def _attention_sharded(cfg: TransformerConfig, p, x):
     """The attention of a DTensor x (B, S, d) on its mesh: the projections
     are DTensor products; q is laid out batch over the data axes and heads
     over ``"model"`` (where the heads divide it), k and v replicated over
     ``"model"`` (a kv shard of ``wk``'s flat ``Hkv * Dh`` columns may end
     mid-head), and each rank runs ``flash_attention`` on its local heads
-    (the kernel on the card) with the kv heads they read.  A weight or
-    activation used whole by a rank that computes only its own heads gets
-    a partial-sum gradient over ``"model"``."""
+    (the kernel on the card) with the kv heads they read.  Where the heads
+    do not divide ``"model"``, q is replicated over it too and each model
+    rank computes its run of the data shard's (row, head) units
+    (``_head_units``), their outputs gathered back over ``"model"``.  A
+    weight or activation used whole by a rank that computes only its own
+    heads gets a partial-sum gradient over ``"model"``."""
     mesh = x.device_mesh
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     batch = SH.fsdp_entry(mesh, B)
+    Bl = B // int(np.prod([SH.axis_size(mesh, a) for a in batch or ()]))
     split = SH.axis_size(mesh, "model") > 1 \
         and H % SH.axis_size(mesh, "model") == 0
-    q_pl = SH.placements(mesh, SH.P(batch, None, "model" if split else None))
+    units = None if split else _head_units(mesh, Bl, H)
     kv_pl = SH.placements(mesh, SH.P(batch, None, None))
-    grad_pl = SH.partial_where_sharded(q_pl)
-    kv_grad_pl = SH.partial_where_sharded(q_pl, kv_pl)
-    q = L.dense(p["wq"], x).redistribute(mesh, q_pl).to_local()
+    q_pl = SH.placements(mesh, SH.P(batch, None, "model")) if split \
+        else kv_pl
+    work_pl = SH.placements(mesh, SH.P(
+        batch, None, "model" if split or units else None))
+    grad_pl = SH.partial_where_sharded(work_pl)
+    kv_grad_pl = SH.partial_where_sharded(work_pl, kv_pl)
+    q = L.dense(p["wq"], x).redistribute(mesh, q_pl).to_local(
+        grad_placements=None if split else kv_grad_pl)
     k = L.dense(p["wk"], x).redistribute(mesh, kv_pl).to_local(
         grad_placements=kv_grad_pl)
     v = L.dense(p["wv"], x).redistribute(mesh, kv_pl).to_local(
         grad_placements=kv_grad_pl)
-    Bl, Hl = q.shape[0], q.shape[2] // Dh
-    q = q.reshape(Bl, S, Hl, Dh)
+    q = q.reshape(Bl, S, -1, Dh)
     k = k.reshape(Bl, S, Hkv, Dh)
     v = v.reshape(Bl, S, Hkv, Dh)
+    Hl = q.shape[2]
+    b0, nb, h0, nh = units or (
+        0, Bl, SH.coordinate(mesh, "model") * Hl if split else 0, Hl)
+    if units:
+        q = q[b0:b0 + nb, :, h0:h0 + nh]
+        k, v = k[b0:b0 + nb], v[b0:b0 + nb]
     if cfg.qk_norm:
         q = L.rmsnorm({"scale": SH.local_replica(p["q_norm"]["scale"],
                                                   grad_pl)}, q)
         k = L.rmsnorm({"scale": SH.local_replica(p["k_norm"]["scale"],
                                                   grad_pl)}, k)
-    positions = torch.arange(S, device=q.device).expand(Bl, S)
+    positions = torch.arange(S, device=q.device).expand(nb, S)
     q = L.apply_rope(q.transpose(1, 2), positions[:, None, :],
-                     cfg.rope_theta)                    # (Bl, Hl, S, Dh)
+                     cfg.rope_theta)                    # (nb, nh, S, Dh)
     k = L.apply_rope(k.transpose(1, 2), positions[:, None, :],
                      cfg.rope_theta)
     v = v.transpose(1, 2)
-    if split:
-        h0 = SH.coordinate(mesh, "model") * Hl
-        k = _local_kv_heads(k, h0, Hl, H // Hkv)
-        v = _local_kv_heads(v, h0, Hl, H // Hkv)
+    if split or units:
+        k = _local_kv_heads(k, h0, nh, H // Hkv)
+        v = _local_kv_heads(v, h0, nh, H // Hkv)
     o = flash_attention(q, k, v, causal=True)
+    if units:
+        return L.dense(p["wo"], SH.from_local(
+            _gather_units(o, mesh, Bl, H), mesh, kv_pl))
     o = o.transpose(1, 2).reshape(Bl, S, Hl * Dh)
     return L.dense(p["wo"], SH.from_local(o, mesh, q_pl))
 
@@ -762,7 +811,10 @@ def _attention_with_cache_sharded(cfg, p, x, k_cache, v_cache, pos):
     as the cache; each rank writes its k and v into its shard at ``pos``
     and attends its local query heads over the kv heads they read (its
     whole shard when the kv heads are split, else those
-    ``_local_kv_heads`` picks, as ``_attention_sharded`` does)."""
+    ``_local_kv_heads`` picks, as ``_attention_sharded`` does).  Where
+    the heads do not divide ``"model"``, each model rank attends its run
+    of the (row, head) units (``_head_units``) over its rows of the
+    cache, as ``_attention_sharded`` does."""
     mesh = x.device_mesh
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -778,7 +830,12 @@ def _attention_with_cache_sharded(cfg, p, x, k_cache, v_cache, pos):
     v = L.dense(p["wv"], x).redistribute(mesh, kv_pl).to_local()
     Bl = q.shape[0]
     Hl, Hkl = q.shape[2] // Dh, k.shape[2] // Dh
+    units = None if split else _head_units(mesh, Bl, H)
+    b0, nb, h0, nh = units or (
+        0, Bl, SH.coordinate(mesh, "model") * Hl if split else 0, Hl)
     q = q.reshape(Bl, S, Hl, Dh)
+    if units:
+        q = q[b0:b0 + nb, :, h0:h0 + nh]
     k = k.reshape(Bl, S, Hkl, Dh)
     v = v.reshape(Bl, S, Hkl, Dh)
     if cfg.qk_norm:
@@ -787,16 +844,20 @@ def _attention_with_cache_sharded(cfg, p, x, k_cache, v_cache, pos):
         k = L.rmsnorm({"scale": SH.replicated_value(
             p["k_norm"]["scale"])}, k)
     positions = torch.full((Bl, S), int(pos), device=q.device)
-    q = L.apply_rope(q.transpose(1, 2), positions[:, None, :],
-                     cfg.rope_theta)                    # (Bl, Hl, S, Dh)
+    q = L.apply_rope(q.transpose(1, 2), positions[:nb, None, :],
+                     cfg.rope_theta)                    # (nb, nh, S, Dh)
     k = L.apply_rope(k.transpose(1, 2), positions[:, None, :],
                      cfg.rope_theta)
     k_cache[:, :, pos:pos + S] = k.to(k_cache.dtype)
     v_cache[:, :, pos:pos + S] = v.transpose(1, 2).to(v_cache.dtype)
-    if split and not kv_split:
-        h0 = SH.coordinate(mesh, "model") * Hl
-        k_cache = _local_kv_heads(k_cache, h0, Hl, H // Hkv)
-        v_cache = _local_kv_heads(v_cache, h0, Hl, H // Hkv)
+    if units:
+        k_cache, v_cache = k_cache[b0:b0 + nb], v_cache[b0:b0 + nb]
+    if (split or units) and not kv_split:
+        k_cache = _local_kv_heads(k_cache, h0, nh, H // Hkv)
+        v_cache = _local_kv_heads(v_cache, h0, nh, H // Hkv)
     o = _masked_attention(q, k_cache, v_cache, pos + 1)
+    if units:
+        return L.dense(p["wo"], SH.from_local(
+            _gather_units(o, mesh, Bl, H), mesh, q_pl))
     o = o.transpose(1, 2).reshape(Bl, S, Hl * Dh)
     return L.dense(p["wo"], SH.from_local(o, mesh, q_pl))
