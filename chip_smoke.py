@@ -2,7 +2,8 @@
 """Drive the PyTorch port's partitioning (every registered algorithm), DIEN
 serving, LM serving (dense and MoE), GNN aggregation, GNN models and
 serving, embedding pooling and training (LM, DIEN, GNN, partitioned GNN,
-the train CLI) paths on one NVIDIA GPU and check them.
+the train CLI) paths and the four example scripts' twins on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -235,9 +236,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               stream (the user's entry point, through
               ``MemmapEdgeStream``), k=32: one ``edge_score`` launch per
               scoring chunk, all through ``edge_score_choose_bits``.
-11. hosted     the host-aware 2PS-L path (RMAT-18, 4 host groups,
-              dcn_penalty 1.0), its launches checked the same way.
-12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-18: one
+11. hosted     the host-aware 2PS-L path (RMAT-16, 4 host groups,
+              dcn_penalty 1.0), its launches checked the same way (the
+              ``artifact`` phase runs the same partition at RMAT-18).
+12. two_ps_hdrf  2PS-HDRF through the CLI at RMAT-16: one
               ``hdrf_score`` launch per scoring chunk, all through
               ``hdrf_choose_bits``, no ``edge_score``.
 13. hdrf_baselines  HDRF, Greedy and host-aware HDRF through the CLI at
@@ -251,7 +253,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 15. hep       HEP through the CLI at RMAT-19, at the default budget (every
               vertex pinned) and at 131,072 bytes (32,768 rows: the
               in-memory and the hash path both run): no kernel launch.
-16. buffered  buffered re-streaming through the CLI at RMAT-18 with the
+16. buffered  buffered re-streaming through the CLI at RMAT-17 with the
               spec's own 16,384-edge chunks and 65,536-edge windows: one
               ``edge_score`` launch per non-empty 1,024-edge scoring
               sub-batch, all through ``edge_score_choose_bits``; the device
@@ -378,7 +380,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               ``embedding_bag`` at 512 bags, on the card and on the CPU
               through the same op, within the kernels' tolerance.
 26. card_vs_cpu  the same runs on the card and on the CPU: byte-equal
-              (2PS-L at RMAT-16; 2PS-HDRF, HDRF, Greedy, HEP at the
+              (2PS-L at RMAT-16; 2PS-HDRF, Greedy, HEP at the
               default budget, 131,072 and 8,192 bytes, and buffered at
               RMAT-14);
               the card's busy share profiled over the first 2^18 (2PS-L)
@@ -389,6 +391,40 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               route) and a checkpoint written on the card, equal to the
               CPU's and resumed on the CPU to the same bytes (and the
               CPU's on the card).
+
+27. examples  the four twins of ``examples/`` in ``examples_torch/``,
+              imported by path and run on the card through the functions
+              their scripts print from, one line a twin, every launch
+              counter reset before each and checked after; their CPU half
+              runs in a process of its own (``--examples-cpu-worker``)
+              started beside the ``build`` phase's nvcc runs and waited
+              for before ``kernels``.  ``quickstart``: RMAT-13 and the
+              planted-partition graph, 2PS-L, HDRF, DBH and random at k =
+              32, each timed after a warm-up, rf, alpha and the
+              assignment's sha256 equal to the CPU's; ``out_of_core``:
+              RMAT-14 from a memmapped file, 2PS-L, HDRF and DBH at k = 4,
+              32 and 128 (the paper's k sweep: each wall, each run's
+              launches, HDRF's ms per micro-batch), every digest equal to
+              the CPU's, then the artifact with its stream-built halo plan
+              (b_cap, manifest rf and the plan's digest equal);
+              ``partition_and_train_gnn``: 2PS-L, random and host-aware
+              2PS-L (2 hosts) at k = 8 on the 4,096-node community graph,
+              every printed figure equal to the CPU's and the script's
+              three assertions, then 200 GIN steps (each 5 ``spmm``
+              forwards and 5 backwards on the bound route and the readout
+              on perm, the graph prepared once; the first loss within
+              1e-4 of the CPU's, the last below 0.7 of it; one step
+              profiled); ``train_lm_100m``: lm-100m (154.1M parameters,
+              float32) drawn on the CPU from the twin's seed and moved,
+              200 steps at (8, 128) through the twin's
+              ``TrainLoopRunner`` loop with checkpoints every 100 steps
+              (each save's blocking seconds and bytes): each step 12
+              ``flash_attention`` forwards and 12 backwards, the first
+              loss within 1e-3 of the CPU's forward, the loss down by more
+              than 0.5 nats; tokens/s, peak memory, one step profiled.
+              Every 2PS-L run launches one ``edge_score`` a scoring chunk
+              and every HDRF run one ``hdrf_score`` a non-empty 64-edge
+              micro-batch, warm-ups included, all through the bits entry.
 
 Every path phase resets every kernel's launch counter just before it and
 checks the counts just after.
@@ -443,6 +479,12 @@ and runs ``sharded_train`` (the LM train step, decode, DIEN and the four
 GNN train steps on the (1, 1) mesh against their unsharded routes) and
 ``dryrun``, and does nothing else.
 
+    python3 chip_smoke.py --examples-only
+
+builds ``edge_score``, ``hdrf_score``, ``spmm`` and ``flash_attention``
+with its backward and runs ``examples`` (its CPU worker beside the
+build), and does nothing else.
+
     python3 chip_smoke.py --partition-counted ARGS...
     python3 chip_smoke.py --dist-counted ARGS...
 
@@ -458,6 +500,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1637,7 +1680,9 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: then the tensor-core kernel's edges in bf16: D = 16, 32 and 80 (zero-
 #: padded to 64 and 128) and 256, an odd D (33: element staging), query
 #: runs that are not a multiple of the 128-row tile, non-causal 8:1 GQA,
-#: decode and chunked prefill at small D
+#: decode and chunked prefill at small D; last, lm-100m's layer as the LM
+#: example twin trains it (batch 8, 12 over 4 heads, 128 tokens, D 64,
+#: causal, float32)
 FLASH_CHECK = (
     (1, 2, 2, 128, 128, 64, True, "float32"),
     (2, 4, 2, 256, 256, 32, True, "float32"),
@@ -1660,6 +1705,7 @@ FLASH_CHECK = (
     (1, 8, 1, 1000, 1000, 128, False, "bfloat16"),
     (1, 4, 2, 1, 512, 64, True, "bfloat16"),
     (1, 2, 1, 130, 390, 32, True, "bfloat16"),
+    (8, 12, 4, 128, 128, 64, True, "float32"),
 )
 #: starcoder2-3b's prefill heads at 4,096 tokens in bf16 in the model's
 #: layout (v a strided view)
@@ -3018,6 +3064,12 @@ def main_path(scale: int, tmp: str, k: int = 32) -> dict:
             "edge_score_launches": n_launch,
             "edge_score_launches_by_entry": by_entry,
             "scoring_chunks": chunks, **checks}
+
+
+#: the scales of the hosted 2PS-L path (the ``artifact`` phase runs the
+#: same host-aware partition through the CLI at RMAT-18), of 2PS-HDRF and
+#: of buffered re-streaming, cut from RMAT-18 since the examples phase
+HOSTED_SCALE, TWO_PS_HDRF_SCALE, BUFFERED_SCALE = 16, 16, 17
 
 
 def hosted_path(scale: int, tmp: str, k: int = 32) -> dict:
@@ -4902,6 +4954,12 @@ def kernel_breakdown(fn, call_ms: float, top: int = 6) -> dict:
             "top_kernels_ms": {k[:80]: us / 1e3 for k, (us, _) in ranked}}
 
 
+#: the HDRF family's card-against-CPU runs at RMAT-14 (HDRF itself left
+#: to the examples phase, whose out-of-core twin holds it card == CPU by
+#: digest on the same graph at k = 4, 32 and 128)
+CARD_VS_CPU_HDRF = ("2ps-hdrf", "greedy")
+
+
 def card_vs_cpu(scale: int, name: str = "2psl", k: int = 32,
                 busy_edges: int | None = None, **overrides) -> dict:
     """The same run (``spec_for(name, **overrides)``) on the card and on
@@ -5243,8 +5301,9 @@ GRAD_TOL = {"flash_attention": 1e-4, "augru": 1e-5}
 #: Sq != Skv both ways, D 16 and 128, ragged S), D 256 (bf16 on the SIMT
 #: route) and an odd 33; the tensor-core route's padded and element-staged
 #: widths (the LM smoke config's D 12, D 1, 64 with GQA 2:1 and B 3, 96
-#: with Hq == Hkv and Sq > Skv); and starcoder2-3b's heads at 4,096 tokens
-#: in the model's layout (v strided)
+#: with Hq == Hkv and Sq > Skv); lm-100m's layer as the LM example twin
+#: trains it (batch 8, 12 over 4 heads, 128 tokens, D 64, causal); and
+#: starcoder2-3b's heads at 4,096 tokens in the model's layout (v strided)
 FLASH_BWD_CHECK = (
     (1, 2, 2, 16, 16, 16, True), (2, 4, 2, 19, 19, 16, True),
     (1, 12, 1, 33, 33, 16, True), (1, 4, 2, 5, 23, 16, True),
@@ -5253,7 +5312,7 @@ FLASH_BWD_CHECK = (
     (2, 8, 8, 100, 300, 256, True), (1, 4, 2, 70, 70, 33, False),
     (1, 4, 2, 64, 64, 12, True), (1, 2, 1, 130, 200, 1, True),
     (3, 6, 3, 129, 129, 64, False), (1, 4, 4, 200, 130, 96, False),
-    (1, 24, 2, 4096, 4096, 128, True))
+    (8, 12, 4, 128, 128, 64, True), (1, 24, 2, 4096, 4096, 128, True))
 #: augru's backward cases on the planned route: the CPU tests' (T = 1 and
 #: 100; H 24, 37, 112), H above what U in shared memory takes (160, 1000),
 #: DIEN's serve rows and the recsys_train phase's rows
@@ -6049,11 +6108,15 @@ def gnn_train(src, dst, mask, N: int, tmp: str) -> dict:
 
 
 def gnn_train_card_vs_cpu(arch: str, cfg, batch: dict, n_graphs: int,
-                          kind: str) -> dict:
+                          kind: str, *, prepared: bool = False,
+                          device: str = "cuda") -> dict:
     """One train step's loss and gradients of ``arch`` on the same numpy
     batch and weights (drawn on the CPU) on the card and on the CPU, in
-    float32 (``grads_agree``).  A leaf beyond the tolerance is held to it
-    again with the model in float64 on both sides (the segment sums still
+    float32 (``grads_agree``).  ``prepared``: each side's batch prepared as
+    a train step prepares it (``graph_prep(..., reverse=True)``: GIN's
+    bound route, forward and backward).  A leaf beyond the tolerance is
+    held to it again with the model in float64 on both sides (the segment
+    sums still
     float32): in GatedGCN's 16 batch-normed ReLU layers another float32
     summation order moves some weight gradients by ~1e-3 of their scale
     (on the CPU too: ``segment_sum``'s additions merely reordered move
@@ -6069,10 +6132,15 @@ def gnn_train_card_vs_cpu(arch: str, cfg, batch: dict, n_graphs: int,
     cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()
              if v is not None}
 
+    def grads(p, b):
+        prep = (G.graph_prep(b, n_graphs, reverse=True) if prepared
+                else None)
+        return loss_and_grads(lambda q, c: loss_fn(q, c, prep), p, b)
+
     def both(p, b):
-        return (loss_and_grads(loss_fn, G.params_to(p, "cuda"),
-                               {k: v.cuda() for k, v in b.items()}),
-                loss_and_grads(loss_fn, p, b))
+        return (grads(G.params_to(p, device),
+                      {k: v.to(device) for k, v in b.items()}),
+                grads(p, b))
     card, cpu = both(params, cpu_b)
     loss_err, shares = leaf_shares(card, cpu)
     over = [i for i, x in enumerate(shares) if x > TRAIN_TOL]
@@ -7593,19 +7661,20 @@ def dryrun_worker(out: str) -> None:
         json.dump(line, f)
 
 
-def start_dryrun(tmp: str) -> dict:
-    """Starts ``dryrun_worker`` (CPU only) beside the phases that follow,
-    its output to a log in ``tmp``; ``finish_dryrun`` collects it."""
-    out = os.path.join(tmp, "dryrun.json")
-    log = open(os.path.join(tmp, "dryrun.log"), "w")
+def start_worker(flag: str, tmp: str, name: str) -> dict:
+    """Starts ``python3 chip_smoke.py FLAG OUT`` (a CPU-only worker) beside
+    the phases that follow, its output to ``tmp/NAME.log`` and its result
+    to ``tmp/NAME.json``; ``wait_worker`` collects it."""
+    out = os.path.join(tmp, f"{name}.json")
+    log = open(os.path.join(tmp, f"{name}.log"), "w")
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--dryrun-worker", out], stdout=log,
+                             flag, out], stdout=log,
                             stderr=subprocess.STDOUT)
-    return {"proc": proc, "out": out, "log": log}
+    return {"proc": proc, "out": out, "log": log, "name": name}
 
 
-def wait_dryrun(run: dict) -> float:
-    """Waits for ``start_dryrun``'s worker; the seconds waited here.
+def wait_worker(run: dict) -> float:
+    """Waits for ``start_worker``'s worker; the seconds waited here.
     Raises with the tail of its log if it failed."""
     t0 = time.perf_counter()
     try:
@@ -7615,8 +7684,15 @@ def wait_dryrun(run: dict) -> float:
     if rc:
         with open(run["log"].name) as f:
             tail = f.read()[-4000:]
-        raise AssertionError(f"dryrun: the worker exited {rc}:\n{tail}")
+        raise AssertionError(f"{run['name']}: the worker exited {rc}:\n"
+                             f"{tail}")
     return time.perf_counter() - t0
+
+
+def start_dryrun(tmp: str) -> dict:
+    """Starts ``dryrun_worker`` (CPU only) beside the phases that follow;
+    ``wait_worker`` then ``finish_dryrun`` collect it."""
+    return start_worker("--dryrun-worker", tmp, "dryrun")
 
 
 def finish_dryrun(run: dict, waited_s: float,
@@ -7649,7 +7725,544 @@ def finish_dryrun(run: dict, waited_s: float,
 def dryrun_phase(tmp: str, sharded: dict | None = None) -> dict:
     """The ``dryrun`` phase alone: the worker started and waited for."""
     run = start_dryrun(tmp)
-    return finish_dryrun(run, wait_dryrun(run), sharded)
+    return finish_dryrun(run, wait_worker(run), sharded)
+
+
+# ---------------------------------------------------------------------------
+# examples: the four twins in examples_torch/, run on the card through the
+# functions their scripts print from, and held to the same functions on the
+# CPU (computed in a worker process beside the build)
+# ---------------------------------------------------------------------------
+
+#: the LM twin's steps, batch and sequence on the card: the script's
+#: batch and sequence, its steps cut from 300 to 200 to fit the time
+#: limit (the reference's 0.5-nat assertion applies from 200 steps)
+EXAMPLE_LM_STEPS, EXAMPLE_LM_BATCH, EXAMPLE_LM_SEQ = 200, 8, 128
+#: the card-against-CPU gates of the GIN's and the LM's first loss
+#: (relative; PERF.md section 2's GNN and LM card gates)
+EXAMPLE_GIN_TOL, EXAMPLE_LM_TOL = 1e-4, 1e-3
+#: torch threads of the CPU worker, which shares the host with nvcc and the
+#: dry run's worker
+EXAMPLES_CPU_THREADS = 4
+#: (k, edges) of the out-of-core twin's profiled HDRF run: the file's first
+#: chunk of 4,096 edges, 64 micro-batches (the profiler takes ~22 ms a
+#: micro-batch's ~38 records)
+EXAMPLE_HDRF_PROFILE = (32, 4096)
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (a directory of scripts, not
+    a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}",
+        os.path.join(REPO, "examples_torch", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def digest(array) -> str:
+    """sha256 of an assignment's int32 bytes, or of a float32 tensor tree's
+    leaves in ``tree_leaves`` order."""
+    import hashlib
+    h = hashlib.sha256()
+    if isinstance(array, dict):
+        from repro_torch.optim.adamw import tree_leaves
+        for t in tree_leaves(array):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    else:
+        h.update(np.ascontiguousarray(array, dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
+def plan_digest(plan) -> str:
+    """sha256 of a ``HaloPlan``'s fields, in declaration order."""
+    import dataclasses
+    import hashlib
+    h = hashlib.sha256()
+    for f in dataclasses.fields(plan):
+        h.update(f.name.encode())
+        h.update(np.asarray(getattr(plan, f.name)).tobytes())
+    return h.hexdigest()
+
+
+def run_figures(res) -> dict:
+    """A run's printed figures and its assignment's digest."""
+    return {"replication_factor": res.quality.replication_factor,
+            "alpha": res.quality.balance, "sha256": digest(res.assignment)}
+
+
+def same_figures(card: dict, cpu: dict, what: str) -> None:
+    """Every figure the CPU line holds, equal on the card."""
+    diff = {k: (card.get(k), v) for k, v in cpu.items() if card.get(k) != v}
+    if diff:
+        raise AssertionError(f"{what}: card against CPU (card, CPU) {diff}")
+
+
+def run_launches(spec, edges: int) -> dict:
+    """The launches one ``run_spec`` of ``spec`` over ``edges`` edges makes
+    on the card: one ``edge_score`` a 2PS-L scoring chunk (flat or
+    host-aware), one ``hdrf_score`` a non-empty 64-edge HDRF micro-batch,
+    none for the hashes."""
+    if spec.algorithm == "2psl":
+        return {"edge_score": -(-edges // spec.chunk_size)}
+    if spec.algorithm == "hdrf":
+        return {"hdrf_score": hdrf_launches(edges, spec.chunk_size)}
+    return {}
+
+
+@contextlib.contextmanager
+def logged_runs(module):
+    """While open, ``module.run_spec`` (a twin's) records each call's
+    algorithm, k, edges, seconds and launches (the counters' change across
+    the call, which must be ``run_launches``) in the yielded list."""
+    original, log, cs = module.run_spec, [], counters()
+
+    def run(spec, stream, k, **kw):
+        before = {n: c.count for n, c in cs.items()}
+        t0 = time.perf_counter()
+        res = original(spec, stream, k, **kw)
+        seconds = time.perf_counter() - t0
+        want = run_launches(spec, stream.num_edges)
+        expect_launches({n: c.count - before[n] for n, c in cs.items()},
+                        want, f"{spec.algorithm} at k = {k}")
+        log.append({"algorithm": spec.algorithm, "k": k,
+                    "edges": stream.num_edges, "seconds": seconds,
+                    "launches": want})
+        return res
+
+    module.run_spec = run
+    try:
+        yield log
+    finally:
+        module.run_spec = original
+
+
+def logged_total(log: list) -> dict:
+    """The launches of the runs in ``log`` summed by kernel."""
+    total: dict = {}
+    for entry in log:
+        for name, n in entry["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def expect_logged(counts: dict, log: list, what: str) -> dict:
+    """A twin's whole count: the sum of its runs', each through its
+    kernel's bits entry; returns the launches by entry."""
+    total = logged_total(log)
+    expect_launches(counts, total, what)
+    return {n: expect_bits_entry(total[n], what, n) for n in sorted(total)}
+
+
+def gnn_partition_figures(G, device) -> tuple:
+    """The partition-and-train twin's partition half on ``device``: (the
+    graph's batch, every figure the script prints, with each run's
+    digest).  Its three host-aware assertions raise, with the script's
+    messages."""
+    from repro_torch.core import InMemoryEdgeStream, capacity
+    base = G.make_graph()
+    edges = np.asarray(base["edges"])
+    stream = InMemoryEdgeStream(edges)
+    report = G.partition_report(edges, stream, device)
+    dcn = G.dcn_summary(edges, report["2psl"]["result"].assignment,
+                        stream.num_vertices)
+    spec, hosted, hosted_dcn = G.host_aware_run(edges, stream, device)
+    if not hosted_dcn["cross_host_rf"] < dcn["cross_host_rf"]:
+        raise AssertionError("host-aware scoring failed to reduce "
+                             "cross-host replication")
+    if not hosted_dcn["dcn_rows_aggregated"] < dcn["dcn_rows_aggregated"]:
+        raise AssertionError("host-aware scoring failed to shrink the DCN "
+                             "lanes")
+    if hosted.quality.max_partition > capacity(stream.num_edges, G.K,
+                                               spec.alpha):
+        raise AssertionError("capacity bound violated")
+    figures = {name: {"rf": r["rf"], "sync_mib": r["sync_bytes"] / 2**20,
+                      **{c: r["caps"][c] for c in ("v_cap", "e_cap",
+                                                   "b_cap", "pair_mean")},
+                      "sha256": digest(r["result"].assignment)}
+               for name, r in report.items()}
+    figures["hosts_2"] = {k: dcn[k] for k in (
+        "dcn_rows_aggregated", "dcn_rows_naive", "dcn_aggregation_ratio",
+        "cross_host_rf")}
+    figures["host_aware"] = {
+        "cross_host_rf": hosted_dcn["cross_host_rf"],
+        "dcn_rows_aggregated": hosted_dcn["dcn_rows_aggregated"],
+        "alpha": hosted.quality.balance,
+        "max_partition": int(hosted.quality.max_partition),
+        "sha256": digest(hosted.assignment)}
+    return base, figures
+
+
+def lm_host_state(L):
+    """The LM twin's state drawn on the CPU from its seed, and its
+    parameters' digest."""
+    import torch
+    cfg = L.lm_100m()
+    state = L.init_state(cfg, torch.device("cpu"))
+    return cfg, state, digest(state["params"])
+
+
+def examples_cpu_worker(out: str) -> None:
+    """The ``examples`` phase's CPU half, in a process of its own: each
+    partition twin's runs on the CPU, from its graphs, specs and k (the
+    warm-up runs of its ``partition_rows`` and ``k_sweep`` left out), with
+    their printed figures and digests, the artifact, the GIN's first loss
+    and the LM's first loss (a forward of the twin's parameters on its
+    first batch), written to ``out`` as JSON."""
+    import torch
+    from repro_torch.core import InMemoryEdgeStream, run_spec
+    from repro_torch.launch import steps as S
+    torch.set_num_threads(EXAMPLES_CPU_THREADS)
+    cpu, line = torch.device("cpu"), {}
+    t0 = time.perf_counter()
+    Q = load_example("quickstart")
+    line["quickstart"] = [
+        {"graph": name, "algorithm": spec.algorithm,
+         **run_figures(run_spec(spec, stream, Q.K, device=cpu))}
+        for name, stream in ((n, InMemoryEdgeStream(e))
+                             for n, e in Q.graphs().items())
+        for _, spec in Q.specs()]
+    O = load_example("out_of_core_partition")
+    with tempfile.TemporaryDirectory() as d:
+        stream = O.write_stream(d)
+        line["out_of_core"] = [
+            {"k": k, **{n: run_figures(run_spec(spec, stream, k,
+                                                device=cpu))
+                        for n, spec in O.specs()}}
+            for k in O.KS]
+        art, plan, _ = O.save_and_reload(stream, d, cpu)
+        line["artifact"] = {
+            "replication_factor": art.manifest["replication_factor"],
+            "b_cap": plan.b_cap, "plan_sha256": plan_digest(plan)}
+    G = load_example("partition_and_train_gnn")
+    base, line["partition_train"] = gnn_partition_figures(G, cpu)
+    line["partition_s"] = time.perf_counter() - t0
+    losses, *_ = G.train_gin(base, cpu, steps=1)
+    line["gin_first_loss"] = losses[0]
+    t0 = time.perf_counter()
+    L = load_example("train_lm_100m")
+    cfg, state, line["lm_params_sha256"] = lm_host_state(L)
+    batch = L.batch_fn(cfg, EXAMPLE_LM_BATCH, EXAMPLE_LM_SEQ, cpu)(0)
+    with torch.no_grad():
+        line["lm_first_loss"] = float(S.lm_loss_fn(cfg)(state["params"],
+                                                         batch))
+    line["lm_s"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(line, f)
+
+
+def example_quickstart(cpu: dict, device: str = "cuda") -> dict:
+    """The quickstart twin on the card: its 8 runs (each after a warm-up)
+    equal to the CPU's (rf, alpha, digest), one ``edge_score`` launch a
+    2PS-L scoring chunk and one ``hdrf_score`` a non-empty 64-edge
+    micro-batch in every run, warm-ups included."""
+    Q = load_example("quickstart")
+    with logged_runs(Q) as log:
+        rows, counts, wall = counted(lambda: list(Q.partition_rows(device)))
+    by_entry = expect_logged(counts, log, "quickstart")
+    runs = []
+    for row, want in zip(rows, cpu["quickstart"], strict=True):
+        got = {"graph": row["graph"],
+               "algorithm": row["result"].spec.algorithm,
+               **run_figures(row["result"])}
+        same_figures(got, want, f"quickstart {row['label'].strip()}")
+        runs.append({**got, "edges": row["stream"].num_edges,
+                     "ms": row["seconds"] * 1e3,
+                     "launches": log[2 * len(runs) + 1]["launches"]})
+    return {"twin": "quickstart", "k": Q.K, "wall_s": wall, "runs": runs,
+            "launches": logged_total(log), "launches_by_entry": by_entry,
+            "card_equals_cpu": True}
+
+
+def hdrf_profile(O, stream, device: str = "cuda") -> dict:
+    """The out-of-core twin's HDRF spec at ``EXAMPLE_HDRF_PROFILE``'s k
+    over the file's first edges, warm (after the sweep): one run timed on
+    the host clock (its launches exactly one a micro-batch), then one
+    profiled (``step_breakdown``: the card's busy share of the
+    micro-batch loop)."""
+    from repro_torch.core import InMemoryEdgeStream, run_spec
+    k, E = EXAMPLE_HDRF_PROFILE
+    spec = dict(O.specs())["hdrf"]
+    head = InMemoryEdgeStream(next(stream.iter_chunks(E)))
+    _, counts, secs = counted(lambda: run_spec(spec, head, k, device=device))
+    want = run_launches(spec, E)
+    expect_launches(counts, want, "profiled HDRF run")
+    n = want["hdrf_score"]
+    return {"k": k, "edges": E, "micro_batches": n, "ms": secs * 1e3,
+            "ms_per_micro_batch": secs * 1e3 / n,
+            **step_breakdown(lambda: run_spec(spec, head, k, device=device),
+                             secs * 1e3)}
+
+
+def example_out_of_core(cpu: dict, tmp: str, device: str = "cuda") -> dict:
+    """The out-of-core twin on the card: the k sweep from the memmapped
+    RMAT-14 file (9 timed runs, each after a warm-up), every rf and digest
+    equal to the CPU's, each run's launches and HDRF's ms per micro-batch,
+    and HDRF's busy share (``hdrf_profile``); then the saved artifact's
+    manifest rf, b_cap and halo plan (by digest) equal to the CPU's."""
+    O = load_example("out_of_core_partition")
+    d = os.path.join(tmp, "out_of_core")
+    os.makedirs(d)
+    stream = O.write_stream(d)
+    with logged_runs(O) as log:
+        sweep, counts, wall = counted(lambda: list(O.k_sweep(stream,
+                                                             device)))
+        by_entry = expect_logged(counts, log, "out-of-core k sweep")
+        sweep_log = list(log)
+        profiled = hdrf_profile(O, stream, device)
+        (art, plan, load_s), art_counts, art_wall = counted(
+            lambda: O.save_and_reload(stream, d, device))
+        expect_logged(art_counts, log[len(sweep_log):], "artifact run")
+    table, timed = [], iter(sweep_log[1::2])
+    for (k, runs), want in zip(sweep, cpu["out_of_core"], strict=True):
+        row = {"k": k}
+        for name, (seconds, res) in runs.items():
+            got = run_figures(res)
+            same_figures(got, want[name], f"out-of-core {name} at k = {k}")
+            row[name] = {"seconds": seconds, **got,
+                         "launches": next(timed)["launches"]}
+        n = row["hdrf"]["launches"]["hdrf_score"]
+        row["hdrf"]["ms_per_micro_batch"] = row["hdrf"]["seconds"] / n * 1e3
+        table.append(row)
+    got = {"replication_factor": art.manifest["replication_factor"],
+           "b_cap": plan.b_cap, "plan_sha256": plan_digest(plan)}
+    same_figures(got, cpu["artifact"], "out-of-core artifact")
+    return {"twin": "out_of_core_partition",
+            "graph": "rmat_graph(14, edge_factor=16, seed=0)",
+            "edges": stream.num_edges, "vertices": stream.num_vertices,
+            "file_bytes": os.path.getsize(stream.path), "wall_s": wall,
+            "k_sweep": table, "hdrf_profile": profiled,
+            "launches": logged_total(sweep_log),
+            "launches_by_entry": by_entry,
+            "artifact": {**got, "wall_s": art_wall,
+                         "plan_load_ms": load_s * 1e3,
+                         "launches": logged_total(log[len(sweep_log):])},
+            "card_equals_cpu": True}
+
+
+def example_partition_train(cpu: dict, device: str = "cuda") -> dict:
+    """The partition-and-train twin on the card: 2PS-L, random and
+    host-aware 2PS-L at k = 8, every printed figure and digest equal to
+    the CPU's, the script's three assertions; then its 200 GIN steps: each
+    exactly 5 ``spmm`` forwards and 5 backwards on the bound route and the
+    readout's forward on perm, the graph prepared once, the first loss
+    within ``EXAMPLE_GIN_TOL`` of the CPU's, the last below 0.7 of the
+    first; one more step profiled.  Before the steps, the first step's
+    loss and every gradient from the twin's parameters on the card, the
+    batch prepared as the step prepares it (the same launches by route),
+    against the CPU's (``gnn_train_card_vs_cpu``, within ``TRAIN_TOL``)."""
+    G = load_example("partition_and_train_gnn")
+    with logged_runs(G) as log:
+        (base, figures), counts, wall = counted(
+            lambda: gnn_partition_figures(G, device))
+    by_entry = expect_logged(counts, log, "partition-and-train partitions")
+    for name, want in cpu["partition_train"].items():
+        same_figures(figures[name], want, f"partition-and-train {name}")
+    cfg = G.gin_config()
+    n_layers, steps = cfg.n_layers, G.TRAIN_STEPS
+    grads, g_counts, _ = counted(lambda: gnn_train_card_vs_cpu(
+        "the GIN example", cfg, base, 1, "full", prepared=True,
+        device=device))
+    passes = 2 if "float64" in grads else 1
+    expect_launches(g_counts, {"spmm": (2 * n_layers + 1) * passes,
+                               "spmm_backward": n_layers * passes},
+                    "GIN first-step gradients (5 spmm forwards, 5 "
+                    "backwards, the readout)")
+    g_routes = {"bound": 2 * n_layers * passes, "perm": passes}
+    if dict(counters()["spmm"].by_route) != g_routes:
+        raise AssertionError(f"GIN gradients: spmm by route "
+                             f"{dict(counters()['spmm'].by_route)}, "
+                             f"expected {g_routes}")
+    (losses, seconds, state, step, batch), t_counts, _ = counted(
+        lambda: G.train_gin(base, device))
+    expect_launches(t_counts, {"spmm": (2 * n_layers + 1) * steps,
+                               "spmm_backward": n_layers * steps},
+                    "GIN train steps (5 spmm forwards, 5 backwards, the "
+                    "readout)")
+    routes = {"bound": 2 * n_layers * steps, "perm": steps}
+    if dict(counters()["spmm"].by_route) != routes:
+        raise AssertionError(f"GIN: spmm by route "
+                             f"{dict(counters()['spmm'].by_route)}, "
+                             f"expected {routes}")
+    if len(step.prep_cache.prepare_s) != 1:
+        raise AssertionError("GIN: the train step prepared the graph again")
+    first_err = abs(losses[0] - cpu["gin_first_loss"]) / abs(
+        cpu["gin_first_loss"])
+    if not first_err <= EXAMPLE_GIN_TOL:
+        raise AssertionError(f"GIN first loss {losses[0]} against the "
+                             f"CPU's {cpu['gin_first_loss']}")
+    if not losses[-1] < losses[0] * 0.7:
+        raise AssertionError("training failed to converge")
+    ms = seconds / steps * 1e3
+    return {"twin": "partition_and_train_gnn", "k": G.K, "hosts": G.HOSTS,
+            "partition_wall_s": wall, "figures": figures,
+            "runs": log, "launches": logged_total(log),
+            "launches_by_entry": by_entry, "card_equals_cpu": True,
+            "gin": {"steps": steps, "seconds": seconds, "ms_per_step": ms,
+                    "first_loss": losses[0],
+                    "cpu_first_loss": cpu["gin_first_loss"],
+                    "first_loss_rel_err": first_err,
+                    "tolerance": EXAMPLE_GIN_TOL, "last_loss": losses[-1],
+                    "first_step_card_vs_cpu": grads,
+                    "prepare_s": step.prep_cache.prepare_s[0],
+                    "launches": {k: v for k, v in t_counts.items() if v},
+                    "launches_per_step": {"spmm": 2 * n_layers + 1,
+                                          "spmm_backward": n_layers},
+                    "launches_by_route": routes,
+                    "step_breakdown": step_breakdown(
+                        lambda: step(state, batch), ms)}}
+
+
+@contextlib.contextmanager
+def timed_checkpoints(module):
+    """While open, ``module.CheckpointManager`` (a twin's) records the
+    seconds each save blocks the loop (the host snapshot of the state, and
+    any wait for the previous save's writer) and each wait for the
+    writer."""
+    base, saves, waits = module.CheckpointManager, [], []
+
+    class Timed(base):
+        def maybe_save(self, step, tree):
+            t0 = time.perf_counter()
+            saved = super().maybe_save(step, tree)
+            if saved:
+                saves.append({"step": step,
+                              "blocking_s": time.perf_counter() - t0})
+            return saved
+
+        def wait(self):
+            t0 = time.perf_counter()
+            super().wait()
+            waits.append(time.perf_counter() - t0)
+
+    module.CheckpointManager = Timed
+    try:
+        yield saves, waits
+    finally:
+        module.CheckpointManager = base
+
+
+def example_lm(cpu: dict, tmp: str, device: str = "cuda") -> dict:
+    """The LM twin on the card: lm-100m (154.1M parameters, float32) drawn
+    once on the CPU from the twin's seed (its digest equal to the CPU
+    worker's) and moved, ``EXAMPLE_LM_STEPS`` steps through the twin's
+    ``TrainLoopRunner`` loop with its checkpoints every 100 steps and its
+    watchdog: exactly 12 ``flash_attention`` forwards and 12 backward
+    calls a step, the first loss within ``EXAMPLE_LM_TOL`` of the CPU's
+    forward, the loss falling by more than 0.5 nats; tokens/s, each save's
+    blocking seconds and bytes, peak memory, one more step profiled."""
+    import torch
+    from repro_torch.models.transformer import params_to
+    from repro_torch.optim import adamw_init
+    L = load_example("train_lm_100m")
+    t0 = time.perf_counter()
+    cfg, host, params_sha = lm_host_state(L)
+    if params_sha != cpu["lm_params_sha256"]:
+        raise AssertionError("LM: the twin's parameters differ from the CPU "
+                             "worker's")
+    params = params_to(host["params"], device)
+    state = {"params": params, "opt": adamw_init(params)}
+    del host
+    init_s = time.perf_counter() - t0
+    dev, steps = torch.device(device), EXAMPLE_LM_STEPS
+    batches = L.batch_fn(cfg, EXAMPLE_LM_BATCH, EXAMPLE_LM_SEQ, dev)
+    ckpt_dir = os.path.join(tmp, "lm_checkpoints")
+    reset_peak(device)
+    with timed_checkpoints(L) as (saves, waits):
+        (state, metrics, seconds, runner), counts, _ = counted(
+            lambda: L.train(cfg, state, steps, batches, dev, ckpt_dir))
+    peak = peak_bytes(device)
+    per_step = {"flash_attention": cfg.n_layers,
+                "flash_attention_backward": cfg.n_layers}
+    expect_launches(counts, {k: v * steps for k, v in per_step.items()},
+                    "lm-100m train steps (remat none: 12 forwards, 12 "
+                    "backwards a step)")
+    for s in saves:
+        d = os.path.join(ckpt_dir, f"step_{s['step']:010d}")
+        s["bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d)) if os.path.isdir(d) \
+            else "not found"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [float(m["loss"]) for m in metrics]
+    first_err = abs(losses[0] - cpu["lm_first_loss"]) / abs(
+        cpu["lm_first_loss"])
+    if not first_err <= EXAMPLE_LM_TOL:
+        raise AssertionError(f"LM first loss {losses[0]} against the CPU's "
+                             f"{cpu['lm_first_loss']}")
+    if not min(losses) < losses[0] - 0.5:
+        raise AssertionError("loss should fall >0.5 nats")
+    tokens = steps * EXAMPLE_LM_BATCH * EXAMPLE_LM_SEQ
+    blocked = sum(s["blocking_s"] for s in saves) + sum(waits)
+    ms = (seconds - blocked) / steps * 1e3
+    batch = batches(steps)
+    return {"twin": "train_lm_100m", "parameters": cfg.num_params(),
+            "dtype": cfg.dtype, "remat": cfg.remat, "steps": steps,
+            "batch": [EXAMPLE_LM_BATCH, EXAMPLE_LM_SEQ], "init_s": init_s,
+            "seconds": seconds, "tokens_per_s": tokens / seconds,
+            "ms_per_step": seconds / steps * 1e3,
+            "ms_per_step_without_saves": ms,
+            "first_loss": losses[0], "cpu_first_loss": cpu["lm_first_loss"],
+            "first_loss_rel_err": first_err, "tolerance": EXAMPLE_LM_TOL,
+            "min_loss": min(losses), "last_loss": losses[-1],
+            "checkpoints": saves, "checkpoint_waits_s": waits,
+            "stragglers": len(runner.watchdog.events),
+            "restarts": runner.restarts, "peak_device_bytes": peak,
+            "launches": {k: v for k, v in counts.items() if v},
+            "launches_per_step": per_step,
+            "step_breakdown": step_breakdown(
+                lambda: runner.step_fn(state, batch), ms)}
+
+
+def examples_phase(tmp: str, cpu_run: dict | None = None,
+                   device: str = "cuda") -> list:
+    """The ``examples`` phase: the CPU worker (``cpu_run``, started by
+    ``start_worker`` beside the build; started here when None) waited
+    for, then each twin on the card with every launch counter reset
+    before it and checked after; one line a twin, each emitted as it
+    ends."""
+    if cpu_run is None:
+        cpu_run = start_worker("--examples-cpu-worker", tmp,
+                               "examples_cpu")
+    if "waited_s" not in cpu_run:
+        cpu_run["waited_s"] = wait_worker(cpu_run)
+    with open(cpu_run["out"]) as f:
+        cpu = json.load(f)
+    lines = []
+    for fn in (lambda: example_quickstart(cpu, device),
+               lambda: example_out_of_core(cpu, tmp, device),
+               lambda: example_partition_train(cpu, device),
+               lambda: example_lm(cpu, tmp, device)):
+        t0 = time.perf_counter()
+        line = {**fn(), "seconds": time.perf_counter() - t0}
+        if not lines:
+            line["cpu_worker"] = {"waited_s": cpu_run["waited_s"],
+                                  "partition_s": cpu["partition_s"],
+                                  "lm_s": cpu["lm_s"]}
+        emit({"phase": "examples", **line})
+        lines.append(line)
+    return lines
+
+
+def examples_launches(lines: dict) -> dict:
+    """The ``examples`` phase's launches by kernel, then by twin (``lines``
+    by twin name)."""
+    got = {"quickstart": lines["quickstart"]["launches"],
+           "out_of_core_partition": {
+               k: v + lines["out_of_core_partition"]["artifact"][
+                   "launches"].get(k, 0)
+               for k, v in lines["out_of_core_partition"][
+                   "launches"].items()},
+           "partition_and_train_gnn": {
+               **lines["partition_and_train_gnn"]["launches"],
+               **lines["partition_and_train_gnn"]["gin"]["launches"]},
+           "train_lm_100m": lines["train_lm_100m"]["launches"]}
+    out: dict = {}
+    for twin, counts in got.items():
+        for kernel, n in counts.items():
+            out.setdefault(kernel, {})[twin] = n
+    return out
 
 
 #: the ``artifact`` phase's RMAT scale (at most), which
@@ -7677,11 +8290,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
                     help="RMAT scale of the hash graphs (default 20); "
-                         "2PS-L and HEP run at min(scale, 19), 2PS-HDRF, "
-                         "the hosted 2PS-L, buffered and the artifact at "
-                         "min(scale, 18), the overflow-tail comparison at "
-                         "min(scale, 16) and the HDRF baselines at "
-                         "min(scale, 14)")
+                         "2PS-L and HEP run at min(scale, 19), the "
+                         "artifact at min(scale, 18), buffered at "
+                         "min(scale, 17), 2PS-HDRF, the hosted 2PS-L and "
+                         "the overflow-tail comparison at min(scale, 16) "
+                         "and the HDRF baselines at min(scale, 13)")
     ap.add_argument("--spmm-tune", action="store_true",
                     help="only time the spmm bound route's launch shapes "
                          "(SPMM_TUNE) on gnn_aggregate's graph and print "
@@ -7715,6 +8328,11 @@ def main(argv=None) -> int:
                     help="only build flash_attention, augru and spmm and "
                          "run the sharded_train and dryrun phases, and "
                          "print their lines")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="only build edge_score, hdrf_score, spmm and "
+                         "flash_attention with its backward and run the "
+                         "examples phase (the four twins of examples_torch/ "
+                         "and their CPU worker), and print its lines")
     ap.add_argument("--gru-library", nargs=3, type=int,
                     metavar=("BATCH", "SPLIT", "REPS"),
                     help="only time cuDNN's GRU at BATCH rows as SPLIT "
@@ -7723,7 +8341,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     counted_cli = argv[:1] in (["--partition-counted"], ["--dist-counted"],
                                ["--sharded-train-worker"],
-                               ["--dryrun-worker"])
+                               ["--dryrun-worker"],
+                               ["--examples-cpu-worker"])
     args = ap.parse_args([] if counted_cli else argv)
 
     import torch
@@ -7739,6 +8358,9 @@ def main(argv=None) -> int:
             return 0
         if argv[0] == "--dryrun-worker":
             dryrun_worker(argv[1])
+            return 0
+        if argv[0] == "--examples-cpu-worker":
+            examples_cpu_worker(argv[1])
             return 0
         return partition_counted(argv[1:])
     if args.gru_library:
@@ -7794,6 +8416,27 @@ def main(argv=None) -> int:
             emit({"phase": "sharded_train", **st})
             emit({"phase": "dryrun", **dryrun_phase(tmp, st)})
         return 0
+    if args.examples_only:
+        from repro_torch.kernels import cuda_build
+        from repro_torch.kernels.edge_score import kernel as es_kernel
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        from repro_torch.kernels.hdrf_score import kernel as hs_kernel
+        from repro_torch.kernels.spmm import kernel as sp_kernel
+        print(nvidia_smi(), flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            ex = start_worker("--examples-cpu-worker", tmp, "examples_cpu")
+            try:
+                cuda_build.build({
+                    es_kernel.NAME: es_kernel.SOURCE,
+                    hs_kernel.NAME: hs_kernel.SOURCE,
+                    sp_kernel.NAME: sp_kernel.SOURCE,
+                    fa_kernel.NAME: fa_kernel.SOURCE,
+                    fa_kernel.BACKWARD_NAME: fa_kernel.BACKWARD_SOURCE})
+            except BaseException:
+                ex["proc"].kill()
+                raise
+            examples_phase(tmp, ex)
+        return 0
     if args.spmm_tune:
         print(nvidia_smi(), flush=True)
         with tempfile.TemporaryDirectory() as tmp:
@@ -7814,10 +8457,12 @@ def main(argv=None) -> int:
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
 
-    # the dry run needs no card: its worker runs on the host beside the
-    # kernels' build (nvcc), and is waited for before the kernel checks
+    # the dry run and the examples' CPU half need no card: their workers
+    # run on the host beside the kernels' build (nvcc), and are waited for
+    # before the kernel checks
     dr_dir = tempfile.TemporaryDirectory()
     dr = start_dryrun(dr_dir.name)
+    ex = start_worker("--examples-cpu-worker", dr_dir.name, "examples_cpu")
     t0 = time.perf_counter()
     try:
         cuda_build.build({es_kernel.NAME: es_kernel.SOURCE,
@@ -7830,12 +8475,14 @@ def main(argv=None) -> int:
                           eb_kernel.NAME: eb_kernel.SOURCE})
     except BaseException:
         dr["proc"].kill()
+        ex["proc"].kill()
         raise
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": i["seconds"],
                           "ptxas": ptxas_report(i["log"])}
                       for n, i in cuda_build.build_info.items()}})
-    dr_waited = wait_dryrun(dr)
+    dr_waited = wait_worker(dr)
+    ex_waited = wait_worker(ex)
 
     check = check_edge_score((1, 1000, 65536, 65537), (0.0, 0.5, 1.0))
     e_bits = check_twopsl_bits(TWOPSL_ES, TWOPSL_KS, TWOPSL_HOSTS)
@@ -7907,26 +8554,27 @@ def main(argv=None) -> int:
         st = sharded_train(tmp)
     emit({"phase": "sharded_train", **st})
     emit({"phase": "dryrun", **finish_dryrun(dr, dr_waited, st)})
-    dr_dir.cleanup()
 
     with tempfile.TemporaryDirectory() as tmp:
         # the partitioning paths run below their earlier slices' scales
         # (2PS-HDRF and the hashes at RMAT-20, 2PS-L at 19, the HDRF
         # baselines at 16; since the partitioned training phase 2PS-HDRF
         # at 18 and the HDRF baselines at 15; since the sharded train phase
-        # the HDRF baselines at 14) so that the whole run keeps inside its
-        # time limit
+        # the HDRF baselines at 14, then 13; since the examples phase the
+        # hosted 2PS-L and 2PS-HDRF at 16, buffered at 17) so that the
+        # whole run keeps inside its time limit
         mp = main_path(min(args.scale, 19), tmp)
         emit({"phase": "main_path", **mp})
-        emit({"phase": "hosted", **hosted_path(min(args.scale, 18), tmp)})
-        hp = two_ps_hdrf_path(min(args.scale, 18), tmp)
+        emit({"phase": "hosted",
+              **hosted_path(min(args.scale, HOSTED_SCALE), tmp)})
+        hp = two_ps_hdrf_path(min(args.scale, TWO_PS_HDRF_SCALE), tmp)
         emit({"phase": "two_ps_hdrf", **hp})
         emit({"phase": "hdrf_baselines",
               **hdrf_baselines(min(args.scale, HDRF_BASELINES_SCALE), tmp,
                                previous=args.previous_designs)})
         emit({"phase": "hash", **hash_paths(args.scale, tmp)})
         emit({"phase": "hep", **hep_path(min(args.scale, 19), tmp)})
-        bp_run = buffered_path(min(args.scale, 18), tmp)
+        bp_run = buffered_path(min(args.scale, BUFFERED_SCALE), tmp)
         emit({"phase": "buffered", **bp_run})
         ap_run = artifact_phase(tmp, args.scale)
         # the profiled process runs beside the crash drill's
@@ -7959,7 +8607,7 @@ def main(argv=None) -> int:
           **card_vs_cpu(min(args.scale, 16), busy_edges=1 << 18),
           "hdrf_family": [card_vs_cpu(min(args.scale, 14), name,
                                       busy_edges=1 << 15)
-                          for name in ("2ps-hdrf", "hdrf", "greedy")],
+                          for name in CARD_VS_CPU_HDRF],
           "hep_buffered": [card_vs_cpu(min(args.scale, 14), name,
                                        busy_edges=1 << 15, **kw)
                            for name, kw in (
@@ -7970,6 +8618,10 @@ def main(argv=None) -> int:
                                ("buffered", {}))],
           "artifact_and_checkpoint": artifact_card_vs_cpu(
               min(args.scale, 14))})
+    ex["waited_s"] = ex_waited
+    ex_lines = {line["twin"]: line
+                for line in examples_phase(dr_dir.name, ex)}
+    dr_dir.cleanup()
 
     gin = ga["gin_spmm"]
     bulk = bp[f"{BULK_BATCH}_sum"]
@@ -7991,6 +8643,11 @@ def main(argv=None) -> int:
         if n == 0:
             raise AssertionError(f"the sharded train path launched no "
                                  f"{name}")
+    ex_launches = examples_launches(ex_lines)
+    for name in ("edge_score", "hdrf_score", "spmm", "spmm_backward",
+                 "flash_attention", "flash_attention_backward"):
+        if not sum(ex_launches.get(name, {}).values()):
+            raise AssertionError(f"the examples launched no {name}")
     train_paths = {"flash_attention_backward":
                    lt["launches"]["flash_attention_backward"],
                    "augru_backward": rt["launches"]["augru_backward"],
@@ -8009,6 +8666,7 @@ def main(argv=None) -> int:
         "launches_resumed": {n: rp_run[n]["resumed_launches"]
                              for n in ("2psl", "buffered")},
         "launches_profile": pp_run["edge_score_launches"],
+        "launches_examples": ex_launches["edge_score"],
         "launches_sharded": {
             "emulated_2psl_w4": sh_run["emulated"]["w4"][
                 "edge_score_launches"],
@@ -8035,6 +8693,7 @@ def main(argv=None) -> int:
         "launches": paths["hdrf_score"],
         "launches_by_entry": hp["hdrf_launches_by_entry"],
         "launches_resumed": {"hdrf": rp_run["hdrf"]["resumed_launches"]},
+        "launches_examples": ex_launches["hdrf_score"],
         "launches_sharded": {
             "w3_hdrf_capped": sh_run["card_vs_cpu"]["hdrf_capped"][
                 "launches"]["hdrf_score"]},
@@ -8091,6 +8750,9 @@ def main(argv=None) -> int:
         "library_ms": f_timing["library_ms"],
         "launches_train": lt["launches"]["flash_attention"],
         "launches_sharded_train": st["launches"]["flash_attention"],
+        "launches_examples": ex_launches["flash_attention"],
+        "backward_launches_examples": ex_launches[
+            "flash_attention_backward"],
         "backward_source": "src/repro_torch/kernels/flash_attention/csrc/"
                            "flash_attention_backward.cu",
         "backward_kernels": {
@@ -8132,6 +8794,8 @@ def main(argv=None) -> int:
         "launches_train": gt["spmm_launches"],
         "launches_train_by_route": gt["launches_by_route"],
         "launches_partitioned_train": pt["spmm_launches"],
+        "launches_examples": ex_launches["spmm"],
+        "backward_launches_examples": ex_launches["spmm_backward"],
         "launches_sharded_train": st["launches"]["spmm"],
         "backward_launches_sharded_train": st["launches"]["spmm_backward"],
         "backward_launches_partitioned_train":

@@ -14,13 +14,21 @@ then the card's name and power limit.  The phases:
 - ``hdrf_baselines``: ``hdrf_baselines`` at the tree's scale
   (``HDRF_BASELINES_SCALE``; a tree without it runs them at RMAT-15,
   their scale before the constant), its graph made first;
-- ``card_vs_cpu``: the full run's last phase, with its HDRF family, HEP,
-  buffered and artifact runs, at the full run's scales;
+- ``card_vs_cpu``: the full run's card-against-CPU phase, with its HDRF
+  family (``CARD_VS_CPU_HDRF``; a tree without it runs 2PS-HDRF, HDRF and
+  Greedy), HEP, buffered and artifact runs, at the full run's scales;
+- ``hosted``, ``two_ps_hdrf``, ``buffered``: those paths at the tree's
+  scales (``HOSTED_SCALE``, ``TWO_PS_HDRF_SCALE``, ``BUFFERED_SCALE``; a
+  tree without them runs each at RMAT-18, their scale before the
+  constants), each graph made first and not timed;
 - ``moe_serve``: ``moe_serve``;
 - ``sharded_train``: ``sharded_train`` (its worker process);
 - ``dryrun``: ``dryrun_phase`` (its worker process started and waited
   for, without ``sharded_train``'s line); a tree without the phase
-  prints ``"seconds": null``.
+  prints ``"seconds": null``;
+- ``examples``: ``examples_phase`` (the four twins of ``examples_torch/``
+  on the card, their CPU worker started and waited for first, its seconds
+  counted); a tree without the phase prints ``"seconds": null``.
 
 The same phases of two trees timed in one card call (a commit and its
 parent unpacked with ``git archive``, in the order parent, change, change,
@@ -37,7 +45,16 @@ import tempfile
 import time
 
 PHASES = ("shard", "hdrf_baselines", "card_vs_cpu", "moe_serve",
-          "sharded_train", "dryrun")
+          "sharded_train", "dryrun", "examples", "hosted", "two_ps_hdrf",
+          "buffered")
+#: the path phases timed at a tree's scale: (constant, scale before it,
+#: the function)
+PATHS = {"hdrf_baselines": ("HDRF_BASELINES_SCALE", 15, "hdrf_baselines"),
+         "hosted": ("HOSTED_SCALE", 18, "hosted_path"),
+         "two_ps_hdrf": ("TWO_PS_HDRF_SCALE", 18, "two_ps_hdrf_path"),
+         "buffered": ("BUFFERED_SCALE", 18, "buffered_path")}
+#: each phase's function in ``chip_smoke``, where a tree may lack it
+NEWER = {"dryrun": "dryrun_phase", "examples": "examples_phase"}
 
 
 def run_phase(C, name: str):
@@ -49,7 +66,8 @@ def run_phase(C, name: str):
             C.shard_path(tmp)
     elif name == "card_vs_cpu":
         C.card_vs_cpu(16, busy_edges=1 << 18)
-        for algo in ("2ps-hdrf", "hdrf", "greedy"):
+        for algo in getattr(C, "CARD_VS_CPU_HDRF",
+                            ("2ps-hdrf", "hdrf", "greedy")):
             C.card_vs_cpu(14, algo, busy_edges=1 << 15)
         for algo, kw in (("hep", {}),
                          ("hep", {"memory_budget_bytes": C.HEP_SMALL_BUDGET}),
@@ -57,12 +75,13 @@ def run_phase(C, name: str):
                          ("buffered", {})):
             C.card_vs_cpu(14, algo, busy_edges=1 << 15, **kw)
         C.artifact_card_vs_cpu(14)
-    elif name == "hdrf_baselines":
-        scale = getattr(C, "HDRF_BASELINES_SCALE", 15)
+    elif name in PATHS:
+        constant, before, fn = PATHS[name]
+        scale = getattr(C, constant, before)
         with tempfile.TemporaryDirectory() as tmp:
             C.write_graph(scale, tmp)
             t0 = time.perf_counter()
-            C.hdrf_baselines(scale, tmp)
+            getattr(C, fn)(scale, tmp)
             return time.perf_counter() - t0
     elif name == "sharded_train":
         with tempfile.TemporaryDirectory() as tmp:
@@ -70,6 +89,9 @@ def run_phase(C, name: str):
     elif name == "dryrun":
         with tempfile.TemporaryDirectory() as tmp:
             C.dryrun_phase(tmp)
+    elif name == "examples":
+        with tempfile.TemporaryDirectory() as tmp:
+            C.examples_phase(tmp)
     else:
         C.moe_serve()
 
@@ -100,7 +122,7 @@ def main(argv=None) -> int:
                       fa.NAME: fa.SOURCE, fa.BACKWARD_NAME: fa.BACKWARD_SOURCE,
                       sp.NAME: sp.SOURCE, eb.NAME: eb.SOURCE})
     for name in args.phases:
-        if name == "dryrun" and not hasattr(C, "dryrun_phase"):
+        if name in NEWER and not hasattr(C, NEWER[name]):
             print(json.dumps({"root": root, "phase": name, "seconds": None}),
                   flush=True)
             continue

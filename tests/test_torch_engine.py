@@ -250,7 +250,8 @@ def test_robustness_arguments_are_refused(small_rmat, tmp_path):
 
 def _port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return (files + sorted((ROOT / "examples_torch").glob("*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -258,6 +259,9 @@ def test_port_imports_neither_jax_nor_repro():
     for module in ("core/hybrid.py", "core/buffered.py",
                    "core/incremental.py", "sample/local_graph.py"):
         assert ROOT / "src" / "repro_torch" / module in sources, module
+    for twin in ("quickstart", "out_of_core_partition",
+                 "partition_and_train_gnn", "train_lm_100m"):
+        assert ROOT / "examples_torch" / f"{twin}.py" in sources, twin
     for path in sources:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
